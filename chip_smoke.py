@@ -4,10 +4,12 @@
 
 Builds the CUDA kernels from the checkout, holds each against its plain
 PyTorch version at the shapes of the main path, solves the flagship
-system (CG on the 3-D Poisson 7-point stencil in DIA form, 128^3 and
-256^3 unknowns, float32) through the public ``krylov_tpu_torch.cg``,
-and checks that the main path launched both kernels.  Prints one line
-per phase, a ``{"kernels": [...]}`` line, and as its last line
+system (the 3-D Poisson 7-point stencil in DIA form, 128^3 unknowns,
+float32; CG also at 256^3) through the public entry points: ``cg``
+(M = I, and a Chebyshev polynomial M), ``cr``, ``car`` and ``minres``,
+each by its whole-solve kernel and by the general route with its DIA
+SpMV kernel, and checks that each path launched its kernels.  Prints one
+line per phase, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 a CUDA device it exits non-zero before printing a result.
 """
@@ -101,16 +103,17 @@ def csr_of(pd, offsets, dtype):
     return coo.coalesce().to_sparse_csr()
 
 
-def profile_solve(kt, A, b):
-    """Device time by kernel over one default solve, and the device's busy
-    share of its wall time (torch.profiler; CUPTI kernel records)."""
+def profile_solve(solve, top=10):
+    """Device time by kernel over one call of ``solve`` (a default solve,
+    run once before as a warm-up), and the device's busy share of its
+    wall time (torch.profiler; CUPTI kernel records)."""
     from torch.profiler import ProfilerActivity, profile
-    kt.cg(A, b)
+    solve()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        _, stats = kt.cg(A, b)
+        _, stats = solve()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     rows = []
@@ -125,7 +128,7 @@ def profile_solve(kt, A, b):
         return
     print(f"  niter={stats.niter} wall_us={wall_us:.1f} device_busy_us="
           f"{busy_us:.1f} busy_share={busy_us / wall_us:.3f}", flush=True)
-    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+    for dev_us, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {dev_us:12.1f} us {count:7d} calls {dev_us / count:9.2f} "
               f"us/call  {key[:90]}", flush=True)
 
@@ -153,14 +156,25 @@ def main():
     from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
                                                dia_spmv_aligned_ref,
                                                offsets_tensor)
+    from krylov_tpu_torch import _runtime as rt
+    from krylov_tpu_torch.ops import cuda_fused as cf
     from krylov_tpu_torch.ops.cuda_fused import (cg_dia_fused,
                                                  cg_dia_fused_ref)
+
+    wrappers = {"dia_spmv": dia_spmv_aligned, "cg_dia": cg_dia_fused,
+                "cg_cheby_dia": cf.cg_cheby_dia_fused,
+                "cr_dia": cf.cr_dia_fused, "car_dia": cf.car_dia_fused,
+                "minres_dia": cf.minres_dia_fused}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
-    def rhs(n, dtype=torch.float32):
-        return torch.as_tensor(rng.standard_normal(n)).to(dev, dtype)
+    def rhs(n, dtype=torch.float32, gen=rng):
+        return torch.as_tensor(gen.standard_normal(n)).to(dev, dtype)
 
     def true_rel_residual(pd, ot, b, x):
         r = b.double() - dia_spmv_aligned_ref(pd.double(), ot, x.double())
@@ -260,12 +274,105 @@ def main():
                                         bound_by="bytes", library_ms=None)
         del A, pd, b
 
+    with Phase("3b symmetric-solver kernels vs plain", 120):
+        # (label, N, dtype, kernel, wrapper args after (pd, ot, b), kwargs,
+        # the vectors every iteration must read and write beside the
+        # stencil's diagonals, the stencil applications per iteration).
+        # Tolerances: status and flags equal; niter within ±max(2, 10%)
+        # in f32 and equal in f64; max|x - x_plain| / max|x_plain| within
+        # 1e-2 in f32 (two solves stopped at rtol 1e-6 on a system of
+        # condition number about 6.7e3 may differ by about 7e-3) and
+        # 1e-8 in f64 (rtol 1e-10, the same iterations).
+        def cheby_case(label, N, dt, rtol, degree):
+            n = N ** 3
+            return (label, N, dt, "cg_cheby_dia",
+                    (0.0, rtol, 2 * n, 0.4, 12.2, degree), {},
+                    6 + 3 * (degree - 1), degree)
+
+        def minres_case(label, N, dt, rtol, lam=0.0, jacobi=False):
+            return (label, N, dt, "minres_dia",
+                    (0.0, rtol, rtol, 1e-8, lam, 2 * N ** 3),
+                    {"jacobi": jacobi}, 13 if jacobi else 10, 1)
+
+        cases = [cheby_case("cheby degree 8", 128, torch.float32, 1e-6, 8),
+                 cheby_case("cheby degree 1", 128, torch.float32, 1e-6, 1),
+                 minres_case("minres M=I", 128, torch.float32, 1e-7),
+                 minres_case("minres Jacobi", 128, torch.float32, 1e-7,
+                             jacobi=True),
+                 minres_case("minres lambda=0.5", 128, torch.float32, 1e-7,
+                             lam=0.5),
+                 ("cr", 128, torch.float32, "cr_dia",
+                  (0.0, 1e-6, 2 * 128 ** 3), {}, 8, 1),
+                 ("car", 128, torch.float32, "car_dia",
+                  (0.0, 1e-6, 2 * 128 ** 3), {}, 12, 1),
+                 cheby_case("cheby degree 8", 64, torch.float64, 1e-10, 8),
+                 minres_case("minres M=I", 64, torch.float64, 1e-10),
+                 ("cr", 64, torch.float64, "cr_dia",
+                  (0.0, 1e-10, 2 * 64 ** 3), {}, 8, 1),
+                 ("car", 64, torch.float64, "car_dia",
+                  (0.0, 1e-10, 2 * 64 ** 3), {}, 12, 1)]
+        systems = {}
+        # a generator of its own, so that the later phases draw the same
+        # right-hand sides as they did before this phase existed
+        rng_3b = np.random.default_rng(SEED + 1)
+        for label, N, dt, name, args, kw, nvec, napply in cases:
+            if (N, dt) not in systems:
+                A = kt.poisson_dia(N, dtype=dt)
+                pd = dia_align(A.data, A.offsets, A.shape[0])
+                systems[N, dt] = (pd, offsets_tensor(A.offsets, dev),
+                                  rhs(N ** 3, dt, rng_3b))
+                del A
+            pd, ot, b = systems[N, dt]
+            n = b.shape[0]
+            if kw.pop("jacobi", False):
+                kw = {"dinv": 1.0 / (6.0 + 0.5 * torch.sin(torch.arange(
+                    n, device=dev, dtype=dt)))}
+            kernel, plain = getattr(cf, name[:-4] + "_dia_fused"), \
+                getattr(cf, name[:-4] + "_dia_fused_ref")
+            k = kernel(pd, ot, b, *args, **kw)
+            r = plain(pd, ot, b, *args, **kw)
+            torch.cuda.synchronize()
+            kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+            rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+            err = float((k[0] - r[0]).abs().max())
+            rel = err / float(r[0].abs().max())
+            f32 = dt == torch.float32
+            label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
+            ms = event_ms(lambda: kernel(pd, ot, b, *args, **kw), reps=3,
+                          warmup=1)
+            plain_ms = event_ms(lambda: plain(pd, ot, b, *args, **kw),
+                                reps=2, warmup=0)
+            it_bytes = (napply * pd.numel() * pd.element_size()
+                        + nvec * n * b.element_size())
+            bound_ms = kints[0] * it_bytes / bw * 1e3
+            print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
+                  f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err"
+                  f"(x)={err:.3e} rel={rel:.3e}; ms={ms:.3f} plain_ms="
+                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
+                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+            check(kints[1:] == rints[1:],
+                  f"{label}: same status and flags as the plain version")
+            if f32:
+                check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
+                      f"{label}: niter {kints[0]} within ±max(2, 10%) of "
+                      f"{rints[0]}")
+            else:
+                check(kints[0] == rints[0],
+                      f"{label}: niter {kints[0]} equals {rints[0]}")
+            check(rel <= (1e-2 if f32 else 1e-8),
+                  f"{label}: x agrees ({rel:.2e})")
+            if f32 and name not in report:
+                report[name] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by="bytes", library_ms=None)
+        del systems
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
         torch.cuda.synchronize()
-        dia_spmv_aligned.launches = 0
-        cg_dia_fused.launches = 0
+        reset_counts()
         runs = [("128^3 default", 128, {}, "cg_dia"),
                 ("128^3 history=True", 128, {"history": True}, "dia_spmv"),
                 ("256^3 default", 256, {}, "cg_dia")]
@@ -290,18 +397,112 @@ def main():
                   f"cg {label}: true residual {res:.2e} <= 1.5·rtol")
             check(kt.kernel_launches()[kernel] > before,
                   f"cg {label} launched {kernel}")
-        launches = kt.kernel_launches()
+        launches = {k: v for k, v in kt.kernel_launches().items()
+                    if k in ("dia_spmv", "cg_dia")}
         print(f"  main-path launches: {launches}", flush=True)
         for name, count in launches.items():
             check(count > 0, f"main path launched {name} ({count} times)")
 
     with Phase("4b profile of one 128^3 solve", 60):
-        profile_solve(kt, *problems[128])
+        profile_solve(lambda: kt.cg(*problems[128]))
+    del problems
+
+    with Phase("5 cg (Chebyshev M), cr, car, minres end to end", 150):
+        # Each path through the public entry points at 128^3 f32 with the
+        # default options, against the plain version of its kernel on the
+        # same inputs: solved, the same status, and a true relative
+        # residual no worse than 1.5 times the plain version's; then one
+        # general-route solve (history=True) through the DIA SpMV kernel.
+        # The counts are set to 0 just before each path and read after.
+        A = kt.DIAOperator(kt.poisson_dia(128))
+        b = rhs(A.shape[0])
+        n = b.shape[0]
+        pd, ot = A._pd, A._offsets
+        tol = rt.default_tol(None, torch.float32)
+        overrides = {cf.ZERO_CURV_B: "b is a zero-curvature direction",
+                     cf.NUMERICAL: "solver encountered numerical issues"}
+        cheb = {}
+
+        def cheb_solve(**kw):
+            return kt.cg(A, b, M=cheb["M"], **kw)
+
+        def cheb_plain():
+            M = cheb["M"]
+            return cf.cg_cheby_dia_fused_ref(pd, ot, b, tol, tol, 2 * n,
+                                             M.lmin, M.lmax, M.degree)
+
+        # (kernel, label, the public call, its kernel's plain version on
+        # the same inputs, the index of the status in that one's outputs)
+        paths = [
+            ("cg_cheby_dia", "cg, M = ChebyshevPreconditioner(A)",
+             cheb_solve, cheb_plain, 3),
+            ("cr_dia", "cr", lambda **kw: kt.cr(A, b, **kw),
+             lambda: cf.cr_dia_fused_ref(pd, ot, b, tol, tol, 2 * n), 3),
+            ("car_dia", "car", lambda **kw: kt.car(A, b, **kw),
+             lambda: cf.car_dia_fused_ref(pd, ot, b, tol, tol, 2 * n), 4),
+            ("minres_dia", "minres", lambda **kw: kt.minres(A, b, **kw),
+             lambda: cf.minres_dia_fused_ref(pd, ot, b, tol, tol, tol, 1e-8,
+                                             0.0, 2 * n), 3)]
+        for name, label, solve, plain, status_at in paths:
+            torch.cuda.synchronize()
+            reset_counts()
+            if name == "cg_cheby_dia":
+                # lmax from power_bound: 20 SpMV launches on the card
+                cheb["M"] = kt.ChebyshevPreconditioner(A)
+            t = time.perf_counter()
+            x, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            counts = kt.kernel_launches()
+            ref = plain()
+            code = rt.final_status_code(ref[status_at], 0, 1, False)
+            want = rt.decode_status(code, overrides)
+            res = true_rel_residual(pd, ot, b, x)
+            res_p = true_rel_residual(pd, ot, b, ref[0])
+            res_h = true_rel_residual(pd, ot, b, xh)
+            print(f"  {label}: niter={stats.niter} status='{stats.status}'"
+                  f" true_res={res:.3e} ms/solve={ms:.2f} us/iter="
+                  f"{1e3 * ms / max(stats.niter, 1):.2f}; plain version: "
+                  f"status='{want}' true_res={res_p:.3e}; history=True: "
+                  f"niter={sh.niter} true_res={res_h:.3e}; launches "
+                  f"{counts}", flush=True)
+            check(stats.solved and sh.solved, f"{label} solved (both routes)")
+            check(stats.status == want,
+                  f"{label}: the plain version's status")
+            check(x.shape == b.shape and bool(torch.isfinite(x).all()),
+                  f"{label}: finite x of shape {tuple(x.shape)}")
+            check(res <= 1.5 * res_p, f"{label}: true residual {res:.3e} <="
+                  f" 1.5 x the plain version's")
+            check(counts[name] > 0, f"{label} launched {name} "
+                  f"({counts[name]} times)")
+            check(counts["dia_spmv"] > 0, f"{label} (history=True) launched"
+                  f" dia_spmv ({counts['dia_spmv']} times)")
+            launches[name] = counts[name]
+            del ref
+
+    with Phase("5b profiles of the four 128^3 solves", 90):
+        # minres with the default tolerances stops after one iteration on
+        # this right-hand side (test2 <= atol + rtol ||b||, ||b|| about
+        # 1448), so its profile takes rtol = 1e-7 (about 150 iterations)
+        for name, label, solve, _, _ in paths:
+            kw = {"rtol": 1e-7} if name == "minres_dia" else {}
+            print(f"  {label} {kw}:", flush=True)
+            profile_solve(lambda: solve(**kw), top=8)
 
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
                             "krylov_tpu/ops/pallas_dia.py:105"),
                "cg_dia": ("krylov_tpu_torch/csrc/cg_dia.cu",
-                          "krylov_tpu/ops/pallas_fused.py:73")}
+                          "krylov_tpu/ops/pallas_fused.py:73"),
+               "cg_cheby_dia": ("krylov_tpu_torch/csrc/cg_cheby_dia.cu",
+                                "krylov_tpu/ops/pallas_fused.py:261"),
+               "minres_dia": ("krylov_tpu_torch/csrc/minres_dia.cu",
+                              "krylov_tpu/ops/pallas_fused.py:465"),
+               "cr_dia": ("krylov_tpu_torch/csrc/cr_dia.cu",
+                          "krylov_tpu/ops/pallas_fused.py:727"),
+               "car_dia": ("krylov_tpu_torch/csrc/car_dia.cu",
+                           "krylov_tpu/ops/pallas_fused.py:879")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]
@@ -310,7 +511,7 @@ def main():
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")} for kern in kernels]
     elapsed = time.perf_counter() - T0
-    print(f"[5] elapsed {elapsed:.1f} s", flush=True)
+    print(f"[6] elapsed {elapsed:.1f} s", flush=True)
     if elapsed > TOTAL_LIMIT_S:
         raise RuntimeError(f"run took {elapsed:.0f} s, over "
                            f"{TOTAL_LIMIT_S:.0f} s")

@@ -26,16 +26,37 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
+# (vector, diagonal) type pairs that every kernel takes
+_PAIRS = ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")
 # C entry points and their argument types; every pointer and the stream
 # is a c_void_p, so ctypes never cuts a 64-bit address to 32 bits.
 _SIGNATURES = {
-    **{f"ktt_dia_spmv_{t}": (_P, _P, _I, _P, _P, _L, _P)
-       for t in ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")},
+    **{f"ktt_dia_spmv_{t}": (_P, _P, _I, _P, _P, _L, _P) for t in _PAIRS},
     **{f"ktt_cg_dia_init_{t}": (_P,) * 8 + (_L, _I, _D, _D, _P)
        for t in ("f32", "f64")},
     **{f"ktt_cg_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 8
        + (_L, _I, _I, _I, _P)
-       for t in ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")},
+       for t in _PAIRS},
+    # (pd, offsets, nd, b, work, partial, sc, st, n, grid, degree, atol,
+    # rtol, stream) and (pd, offsets, nd, work, partial, sc, st, n, grid,
+    # degree, iters, cap, stream)
+    **{f"ktt_cg_cheby_dia_init_{t}": (_P, _P, _I) + (_P,) * 5
+       + (_L, _I, _I, _D, _D, _P) for t in _PAIRS},
+    **{f"ktt_cg_cheby_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    # (pd, offsets, nd, b, work, partial, sc, st, n, grid, stream) and
+    # (pd, offsets, nd, work, partial, sc, st, n, grid, iters, cap, stream)
+    **{f"ktt_{k}_dia_init_{t}": (_P, _P, _I) + (_P,) * 5 + (_L, _I, _P)
+       for k in ("cr", "car") for t in _PAIRS},
+    **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _P) for k in ("cr", "car") for t in _PAIRS},
+    # (b, dinv, work, partial, sc, st, n, grid, window, stream) and (pd,
+    # offsets, nd, dinv, work, partial, sc, st, n, grid, window, iters, cap,
+    # stream)
+    **{f"ktt_minres_dia_init_{t}": (_P,) * 6 + (_L, _I, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ktt_minres_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 5
+       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
 }
 
 

@@ -24,6 +24,7 @@ import torch
 
 from . import stats as _stats
 from ._dtypes import sqrt_eps
+from .ops.dia import resolve_device
 
 # ---------------------------------------------------------------------------
 # status codes (device-side int32) → reference status strings (host-side)
@@ -101,6 +102,24 @@ def is_solved_code(code):
 # tolerances & history
 # ---------------------------------------------------------------------------
 
+def as_device_tensor(v, like):
+    """``v`` as a tensor on the device of ``like`` (an operator, or a
+    tensor already placed).
+
+    A tensor stays where it is.  Anything else goes to ``like.device``,
+    the device of the operator's data; where the operator holds no
+    tensor (``device`` is None, as for a FunctionOperator), it goes to
+    the card, and raises when there is none: an entry point never falls
+    back to the CPU on its own.
+    """
+    if isinstance(v, torch.Tensor):
+        return v
+    device = getattr(like, "device", None)
+    if device is None:
+        device = resolve_device("cuda")
+    return torch.as_tensor(v, device=device)
+
+
 def default_tol(tol, dtype):
     """atol/rtol default to √eps(T) of the real dtype (reference kwargs)."""
     return sqrt_eps(dtype) if tol is None else float(tol)
@@ -125,6 +144,16 @@ def hist_write(hist, idx, value, enabled):
     if enabled:
         hist.index_put_((idx.reshape(1).long(),),
                         value.reshape(1).to(hist.dtype))
+    return hist
+
+
+def hist_write_masked(hist, active, idx, value, enabled):
+    """hist[idx] = value where ``active``; an inactive step writes
+    hist[0] back unchanged, so its idx may lie past the buffer's end."""
+    if enabled:
+        i = torch.where(active, idx, torch.zeros_like(idx))
+        hist_write(hist, i, torch.where(active, value.to(hist.dtype),
+                                        hist[i.long()]), True)
     return hist
 
 
@@ -198,6 +227,18 @@ def final_status_code(state_status, niter, itmax, overtimed):
 def debug_header(verbose, text):
     if verbose > 0:
         print(text, flush=True)
+
+
+def debug_table(verbose, name, cols, m, n=None):
+    """Problem line and column labels (reference per-solver tables, e.g.
+    src/cg.jl:132,182), as krylov_tpu prints them."""
+    if verbose > 0:
+        if n is None or m == n:
+            print(f"{name}: system of size {m}", flush=True)
+        else:
+            print(f"{name}: system of {m} equations in {n} variables",
+                  flush=True)
+        print("  ".join(f"{c:>7s}" for c in cols), flush=True)
 
 
 def debug_row(verbose, iter_, fmt, *values):

@@ -37,42 +37,9 @@
 // Per iteration this design moves pd, p (read twice), ap (written and
 // read), x (read, written), r (read, written, read again) and, with
 // Jacobi, dinv twice: (28 + 44) B per row in f32 with M = I.
-#include <cfloat>
-
-#include "common.cuh"
+#include "cg_steps.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;        // vector launches
-constexpr int kReduceThreads = 1024; // the one-block scalar launches
-
-constexpr int RUNNING = 0;
-constexpr int SOLVED = 1;
-constexpr int ZERO_RESIDUAL = 2;
-constexpr int ZERO_CURVATURE = 5;
-
-// slots of the scalar arrays
-enum ScalarSlot { GAMMA = 0, PNORM2, RNORM, EPS_LIM, A_EFF, CR, CP, NSC };
-enum IntSlot { IT = 0, STATUS, VIOL, GO, SKIP, NST };
-
-template <typename T> __device__ __forceinline__ T eps_of();
-template <> __device__ __forceinline__ float eps_of<float>() { return FLT_EPSILON; }
-template <> __device__ __forceinline__ double eps_of<double>() { return DBL_EPSILON; }
-
-__device__ __forceinline__ long long first_row() {
-  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-}
-__device__ __forceinline__ long long row_stride() {
-  return static_cast<long long>(gridDim.x) * blockDim.x;
-}
-
-// Sum of the per-block partials in a fixed order; valid in thread 0.
-template <typename T>
-__device__ __forceinline__ T sum_partials(const T* partial, int nparts) {
-  T s = T(0);
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x) s += partial[i];
-  return ktt::block_sum(s);
-}
 
 // x = 0, r = b, p = z0 = dinv b (or b), partials of b'z0.
 template <typename T>
@@ -81,7 +48,7 @@ cg_init(const T* __restrict__ b, const T* __restrict__ dinv, T* __restrict__ x,
         T* __restrict__ r, T* __restrict__ p, T* __restrict__ partial,
         long long n) {
   T s = T(0);
-  for (long long i = first_row(); i < n; i += row_stride()) {
+  for (long long i = ktt::first_row(); i < n; i += ktt::row_stride()) {
     const T bi = b[i];
     const T zi = dinv ? dinv[i] * bi : bi;
     x[i] = T(0);
@@ -89,79 +56,7 @@ cg_init(const T* __restrict__ b, const T* __restrict__ dinv, T* __restrict__ x,
     p[i] = zi;
     s += bi * zi;
   }
-  s = ktt::block_sum(s);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-// gamma0, rnorm0, eps_lim and the starting status.
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-cg_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
-                double atol, double rtol) {
-  const T gamma0 = sum_partials(partial, nparts);
-  if (threadIdx.x != 0) return;
-  const T rnorm0 = sqrt(gamma0 > T(0) ? gamma0 : T(0));
-  const T eps_lim = static_cast<T>(atol) + static_cast<T>(rtol) * rnorm0;
-  sc[GAMMA] = gamma0;
-  sc[PNORM2] = gamma0;
-  sc[RNORM] = rnorm0;
-  sc[EPS_LIM] = eps_lim;
-  sc[A_EFF] = T(0);
-  sc[CR] = T(0);
-  sc[CP] = T(1);
-  st[IT] = 0;
-  st[STATUS] = gamma0 == T(0) ? ZERO_RESIDUAL
-               : (rnorm0 <= eps_lim ? SOLVED : RUNNING);
-  st[VIOL] = gamma0 < T(0) ? 1 : 0;
-  st[GO] = 0;
-  st[SKIP] = 0;
-}
-
-// 1. ap = A p and per-block partials of p'ap.  Reads the status and it
-// that the previous iteration's cg_beta wrote.
-template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads)
-cg_stencil(const P* __restrict__ pd, const long long* __restrict__ offsets,
-           int nd, const T* __restrict__ p, T* __restrict__ ap,
-           T* __restrict__ partial, const int* st, long long n, int cap) {
-  if (!(st[STATUS] == RUNNING && st[IT] < cap)) return;
-  T s = T(0);
-  for (long long i = first_row(); i < n; i += row_stride()) {
-    T acc = T(0);
-    for (int d = 0; d < nd; ++d) {
-      const long long j = i + __ldg(offsets + d);
-      if (j >= 0 && j < n) {
-        acc += ktt::widen<T>(pd[static_cast<long long>(d) * n + i]) * p[j];
-      }
-    }
-    ap[i] = acc;
-    s += p[i] * acc;
-  }
-  s = ktt::block_sum(s);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-// 2. Decide whether this iteration runs (GO, read by launches 3-5), then
-// alpha and the zero-curvature skip (reference src/cg.jl:198-211 with
-// linesearch = false, radius = 0).
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-cg_alpha(const T* __restrict__ partial, int nparts, T* sc, int* st, int cap) {
-  const bool go = st[STATUS] == RUNNING && st[IT] < cap;
-  if (!go) {
-    if (threadIdx.x == 0) st[GO] = 0;
-    return;
-  }
-  const T pAp = sum_partials(partial, nparts);
-  if (threadIdx.x != 0) return;
-  const T eps = eps_of<T>();
-  const T pNorm2 = sc[PNORM2];
-  const bool curv_small = pAp <= eps * pNorm2;
-  const bool zero_curv = curv_small && fabs(pAp) <= eps * pNorm2;
-  const T alpha = sc[GAMMA] / (pAp == T(0) ? T(1) : pAp);
-  sc[A_EFF] = zero_curv ? T(0) : alpha;
-  st[SKIP] = zero_curv ? 1 : 0;
-  st[GO] = 1;
+  ktt::store_partial(s, partial);
 }
 
 // 3. x += a p, r -= a ap, z = dinv r, per-block partials of r'z.
@@ -173,40 +68,14 @@ cg_update_xr(const T* __restrict__ dinv, T* __restrict__ x, T* __restrict__ r,
   if (!st[GO]) return;
   const T a = sc[A_EFF];
   T s = T(0);
-  for (long long i = first_row(); i < n; i += row_stride()) {
+  for (long long i = ktt::first_row(); i < n; i += ktt::row_stride()) {
     x[i] = x[i] + a * p[i];
     const T ri = r[i] - a * ap[i];
     r[i] = ri;
     const T zi = dinv ? dinv[i] * ri : ri;
     s += ri * zi;
   }
-  s = ktt::block_sum(s);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-// 4. gamma, beta, the stopping tests, status and it.
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-cg_beta(const T* __restrict__ partial, int nparts, T* sc, int* st) {
-  if (!st[GO]) return;
-  const T gamma_next = sum_partials(partial, nparts);
-  if (threadIdx.x != 0) return;
-  const bool skip = st[SKIP] != 0;
-  const T gamma = sc[GAMMA];
-  const T pNorm2 = sc[PNORM2];
-  if (gamma_next < T(0)) st[VIOL] = 1;
-  const T rnorm_next = sqrt(gamma_next > T(0) ? gamma_next : T(0));
-  const bool resid_mach = (rnorm_next + T(1)) <= T(1);
-  const bool solved = rnorm_next <= sc[EPS_LIM] || resid_mach;
-  const T beta = gamma_next / (gamma == T(0) ? T(1) : gamma);
-  const bool stay = !(solved || skip);
-  sc[CR] = stay ? T(1) : T(0);
-  sc[CP] = stay ? beta : T(1);
-  sc[GAMMA] = stay ? gamma_next : gamma;
-  sc[PNORM2] = stay ? gamma_next + beta * beta * pNorm2 : pNorm2;
-  if (!skip) sc[RNORM] = rnorm_next;
-  st[IT] += skip ? 0 : 1;
-  st[STATUS] = skip ? ZERO_CURVATURE : (solved ? SOLVED : RUNNING);
+  ktt::store_partial(s, partial);
 }
 
 // 5. p = cr z + cp p.
@@ -217,7 +86,7 @@ cg_update_p(const T* __restrict__ dinv, const T* __restrict__ r,
   if (!st[GO]) return;
   const T cr = sc[CR];
   const T cp = sc[CP];
-  for (long long i = first_row(); i < n; i += row_stride()) {
+  for (long long i = ktt::first_row(); i < n; i += ktt::row_stride()) {
     const T zi = dinv ? dinv[i] * r[i] : r[i];
     p[i] = cr * zi + cp * p[i];
   }

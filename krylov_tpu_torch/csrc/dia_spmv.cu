@@ -35,14 +35,7 @@ dia_spmv_kernel(const PT* __restrict__ pd, const long long* __restrict__ offsets
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    XT acc = XT(0);
-    for (int d = 0; d < nd; ++d) {
-      const long long j = i + __ldg(offsets + d);
-      if (j >= 0 && j < n) {
-        acc += ktt::widen<XT>(pd[static_cast<long long>(d) * n + i]) * x[j];
-      }
-    }
-    y[i] = acc;
+    y[i] = ktt::stencil_row(pd, offsets, nd, x, i, n);
   }
 }
 

@@ -10,16 +10,21 @@ src/krylov_utils.jl:305-307).
 import numpy as np
 import torch
 
-from ._runtime import full_fp32
+from ._runtime import as_device_tensor, full_fp32
 from .ops.cuda_dia import dia_align, dia_spmv_aligned, offsets_tensor
-from .ops.dia import DIAMatrix, dia_spmv
+from .ops.dia import DIAMatrix, dia_spmv, resolve_device
 
 
 class AbstractLinearOperator:
-    """Protocol: matvec, rmatvec, shape, dtype; optionally solve/rsolve."""
+    """Protocol: matvec, rmatvec, shape, dtype; optionally solve/rsolve.
+
+    ``device`` is the device of the operator's data, or None where it
+    holds no tensor (a solver then puts non-tensor inputs on the card).
+    """
 
     shape = None
     dtype = None
+    device = None
 
     def matvec(self, x):
         raise NotImplementedError
@@ -62,6 +67,7 @@ class DiagonalOperator(AbstractLinearOperator):
         self.d = torch.as_tensor(d)
         self.shape = (self.d.shape[0], self.d.shape[0])
         self.dtype = self.d.dtype
+        self.device = self.d.device
 
     def matvec(self, x):
         return self.d * x
@@ -84,6 +90,7 @@ class MatrixOperator(AbstractLinearOperator):
         self.A = torch.as_tensor(A)
         self.shape = tuple(self.A.shape)
         self.dtype = self.A.dtype
+        self.device = self.A.device
 
     def matvec(self, x):
         with full_fp32():
@@ -140,6 +147,7 @@ class DIAOperator(AbstractLinearOperator):
         self.dia = dia
         self.shape = dia.shape
         self.dtype = dia.dtype
+        self.device = dia.device
         if use_kernel is None:
             use_kernel = dia.data.is_cuda
         self.use_kernel = bool(use_kernel)
@@ -168,7 +176,9 @@ class DIAOperator(AbstractLinearOperator):
 
 def as_operator(A, device=None):
     """Coerce A (operator | DIAMatrix | dense tensor or array) to the
-    operator protocol.  A numpy array goes to ``device`` (default CPU)."""
+    operator protocol.  A tensor stays where it is; a numpy array goes to
+    ``device``, by default the card (raising when there is none, as the
+    constructors do)."""
     if A is None:
         return None
     if isinstance(A, AbstractLinearOperator):
@@ -178,11 +188,30 @@ def as_operator(A, device=None):
     if isinstance(A, (torch.Tensor, np.ndarray)):
         if A.ndim != 2:
             raise ValueError(f"expected a 2-D array, got ndim={A.ndim}")
-        return MatrixOperator(torch.as_tensor(A, device=device))
+        if isinstance(A, np.ndarray):
+            A = torch.as_tensor(A, device=resolve_device(
+                "cuda" if device is None else device))
+        return MatrixOperator(A)
     raise TypeError(
         f"cannot interpret {type(A).__name__} as a linear operator; "
         "wrap callables in FunctionOperator(matvec, shape, dtype)"
     )
+
+
+def solve_inputs(A, b, x0=None, M=None):
+    """(A, b, x0, M) of a solve, coerced to operators and tensors.
+
+    A numpy A goes where a tensor b lies, else to the card; b and x0
+    follow ``_runtime.as_device_tensor`` (a tensor stays where it is;
+    anything else goes to the operator's device, else to the card); x0
+    takes b's dtype, and a numpy M goes to b's device.
+    """
+    A = as_operator(A, device=b.device if isinstance(b, torch.Tensor)
+                    else None)
+    b = as_device_tensor(b, A)
+    if x0 is not None:
+        x0 = as_device_tensor(x0, b).to(b.dtype)
+    return A, b, x0, as_operator(M, device=b.device)
 
 
 def precond_apply(M, x, ldiv=False):

@@ -1,84 +1,124 @@
-"""Whole CG solve on a DIA matrix: the CUDA kernel and its plain version
-(counterpart of ``cg_dia_fused`` in ``krylov_tpu/ops/pallas_fused.py``).
+"""Whole solves on a DIA matrix: the CUDA kernels and their plain versions
+(counterpart of ``krylov_tpu/ops/pallas_fused.py``).
 
-``cg_dia_fused`` runs the solve of ``csrc/cg_dia.cu`` for CUDA tensors:
-five launches per iteration, no grid-wide barrier, the scalar state on
-the device, and the host reading the status once per chunk of
-iterations (``_runtime.drive``).  For CPU tensors it takes the plain
-version, ``cg_dia_fused_ref``, which runs the same arithmetic with the
-same chunked, masked semantics.
+Each wrapper runs its solve on the card for CUDA tensors, through the
+kernels of one ``csrc/*.cu`` file: a fixed sequence of launches per
+iteration, no grid-wide barrier, the scalar state on the device, and the
+host reading the status once per chunk of iterations
+(``_runtime.drive``).  For CPU tensors it takes its plain version, the
+``*_ref`` function beside it, which runs the same arithmetic with the
+same chunked, masked semantics, so that niter is exact across chunks.
+
+* ``cg_dia_fused``: CG with M = I or Jacobi (``csrc/cg_dia.cu``).
+* ``cg_cheby_dia_fused``: CG with a degree-d Chebyshev polynomial M
+  (``csrc/cg_cheby_dia.cu``).
+* ``cr_dia_fused``: conjugate residuals (``csrc/cr_dia.cu``).
+* ``car_dia_fused``: conjugate A-residuals (``csrc/car_dia.cu``).
+* ``minres_dia_fused``: MINRES for (A + λI)x = b, M = I or Jacobi
+  (``csrc/minres_dia.cu``).
 """
 
+import math
 import types
 
 import torch
 
 from .. import _build
-from .._runtime import (RUNNING, SOLVED, ZERO_CURVATURE, ZERO_RESIDUAL,
-                        drive)
+from .._runtime import (COND_EXCEEDED, FWD_ERR, ILL_COND_MACH, MIN_LSQ_X,
+                        RUNNING, SOLVED, SOLVED_LSQ, SOLVED_ZERO,
+                        ZERO_CURVATURE, ZERO_RESIDUAL, drive)
 from .cuda_dia import _check as _check_spmv
 from .cuda_dia import dia_spmv_aligned_ref
 
-# (b dtype, pd dtype) → (init entry, iterate entry)
-_ENTRY = {
-    (torch.float32, torch.float32): ("ktt_cg_dia_init_f32",
-                                     "ktt_cg_dia_iterate_f32_f32"),
-    (torch.float32, torch.bfloat16): ("ktt_cg_dia_init_f32",
-                                      "ktt_cg_dia_iterate_f32_bf16"),
-    (torch.float32, torch.float16): ("ktt_cg_dia_init_f32",
-                                     "ktt_cg_dia_iterate_f32_f16"),
-    (torch.float64, torch.float64): ("ktt_cg_dia_init_f64",
-                                     "ktt_cg_dia_iterate_f64_f64"),
+# CR-specific status codes (krylov_tpu/solvers/cr.py)
+NUMERICAL = 25
+ZERO_CURV_B = 26
+
+# (b dtype, pd dtype) → the name suffix of the C entry points
+_PAIR = {
+    (torch.float32, torch.float32): "f32_f32",
+    (torch.float32, torch.bfloat16): "f32_bf16",
+    (torch.float32, torch.float16): "f32_f16",
+    (torch.float64, torch.float64): "f64_f64",
 }
-# slots of the kernel's scalar arrays (csrc/cg_dia.cu ScalarSlot, IntSlot)
-_RNORM, _NSC = 2, 7
-_IT, _STATUS, _VIOL, _NST = 0, 1, 2, 5
 _THREADS = 256
 _BLOCKS_PER_SM = 8
+# slots of the kernels' scalar arrays (the ScalarSlot and IntSlot enums of
+# each csrc file); every int array has it in slot 0 and status in slot 1
+_IT, _STATUS = 0, 1
+_CG_RNORM, _CG_NSC, _CG_VIOL, _CG_NST = 2, 7, 2, 5
+_CR_RNORM, _CR_ATOL, _CR_NSC, _CR_INDEF, _CR_NST = 2, 9, 11, 2, 5
+_CAR_RNORM, _CAR_ARNORM, _CAR_ATOL, _CAR_NSC, _CAR_NST = 1, 2, 6, 8, 4
+_MR_RNORM, _MR_NSC, _MR_INCON, _MR_VIOL, _MR_NST = 18, 24, 2, 3, 5
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
     """Static gate: is there a kernel for these dtypes?
 
-    The TPU kernel's gate is its ~100 MB of VMEM.  Here the vectors live
-    in device memory and every iteration streams them, so no size is too
-    large; the kernel exists for f32 vectors with f32/bf16/f16 diagonals
-    and for f64 with f64.  Any other dtype takes the general route.
+    The TPU kernels' gate is their ~100 MB of VMEM.  Here the vectors
+    live in device memory and every iteration streams them, so no size
+    is too large; the kernels exist for f32 vectors with f32/bf16/f16
+    diagonals and for f64 with f64.  Any other dtype takes the general
+    route.  The same gate serves every whole-solve kernel here.
     """
     sd = dtype if stencil_dtype is None else stencil_dtype
-    return (dtype, sd) in _ENTRY
+    return (dtype, sd) in _PAIR
+
+
+cg_cheby_dia_fused_supported = cg_dia_fused_supported
+cr_dia_fused_supported = cg_dia_fused_supported
+car_dia_fused_supported = cg_dia_fused_supported
+minres_dia_fused_supported = cg_dia_fused_supported
 
 
 def _scalar(v, like):
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
-def cg_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, dinv=None):
-    """Plain PyTorch CG of A x = b with M = I or z = dinv·r.
+def _drive_ref(state, step, itmax):
+    """Run ``step`` in chunks of masked iterations from ``state``.
 
-    Returns (x, niter, rnorm, status, posdef_violation) as tensors, as
-    ``cg_dia_fused`` does.  Iterations run in chunks with every update
-    masked by ``status == RUNNING and it < cap``, the host reading the
-    status once per chunk.
-    """
-    T = b.dtype
-    eps = torch.finfo(T).eps
+    ``step(s)`` returns every field of the next state; each is kept only
+    where ``status == RUNNING and iter < cap``, so a chunk that runs past
+    the stop leaves the state bit-for-bit frozen."""
+    def run(s, cap, steps):
+        s = state if s is None else s
+        for _ in range(steps):
+            go = (s.status == RUNNING) & (s.iter < cap)
+            s = types.SimpleNamespace(**{
+                k: torch.where(go, v, getattr(s, k))
+                for k, v in step(s).items()})
+        return s
+
+    s, _ = drive(run, itmax, float("inf"))
+    return s
+
+
+def _i32(v, like):
+    return torch.as_tensor(v, dtype=torch.int32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# CG, M = I, Jacobi or Chebyshev: the plain versions
+# ---------------------------------------------------------------------------
+
+def _cg_ref(pd, offsets, b, atol, rtol, itmax, apply_m):
+    """Plain CG of A x = b with z = apply_m(r) (pallas_fused.py:141-185)."""
+    eps = torch.finfo(b.dtype).eps
     zero, one = _scalar(0, b), _scalar(1, b)
-    z0 = dinv * b if dinv is not None else b
+    z0 = apply_m(b)
     gamma0 = torch.sum(b * z0)
     rnorm0 = torch.sqrt(torch.clamp(gamma0, min=0))
     eps_lim = _scalar(atol, b) + _scalar(rtol, b) * rnorm0
     status0 = torch.where(
         gamma0 == 0, ZERO_RESIDUAL,
         torch.where(rnorm0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
-    s = types.SimpleNamespace(
+    s0 = types.SimpleNamespace(
         x=torch.zeros_like(b), r=b.clone(), p=z0.clone(), gamma=gamma0,
-        pNorm2=gamma0, rnorm=rnorm0,
-        iter=torch.zeros((), dtype=torch.int32, device=b.device),
-        status=status0, viol=gamma0 < 0)
+        pNorm2=gamma0, rnorm=rnorm0, iter=_i32(0, b), status=status0,
+        viol=gamma0 < 0)
 
-    def step(s, cap):
-        go = (s.status == RUNNING) & (s.iter < cap)
+    def step(s):
         ap = dia_spmv_aligned_ref(pd, offsets, s.p)
         pAp = torch.sum(s.p * ap)
         curv_small = pAp <= eps * s.pNorm2
@@ -88,7 +128,7 @@ def cg_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, dinv=None):
         a_eff = torch.where(skip, zero, alpha)
         x = s.x + a_eff * s.p
         r = s.r - a_eff * ap
-        z = dinv * r if dinv is not None else r
+        z = apply_m(r)
         gamma_next = torch.sum(r * z)
         viol = s.viol | (gamma_next < 0)
         rnorm_next = torch.sqrt(torch.clamp(gamma_next, min=0))
@@ -98,7 +138,7 @@ def cg_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, dinv=None):
         stay = ~(solved | skip)
         cr = torch.where(stay, one, zero)
         cp = torch.where(stay, beta, one)
-        new = dict(
+        return dict(
             x=x, r=r, p=cr * z + cp * s.p,
             gamma=torch.where(stay, gamma_next, s.gamma),
             pNorm2=torch.where(stay, gamma_next + beta * beta * s.pNorm2,
@@ -109,18 +149,292 @@ def cg_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, dinv=None):
                 zero_curv, ZERO_CURVATURE,
                 torch.where(solved, SOLVED, RUNNING)).to(torch.int32),
             viol=viol)
-        return types.SimpleNamespace(**{
-            k: torch.where(go, v, getattr(s, k)) for k, v in new.items()})
 
-    def run(state, cap, steps):
-        state = s if state is None else state
-        for _ in range(steps):
-            state = step(state, cap)
-        return state
-
-    s, _ = drive(run, itmax, float("inf"))
+    s = _drive_ref(s0, step, itmax)
     return s.x, s.iter, s.rnorm, s.status, s.viol.to(torch.int32)
 
+
+def cg_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, dinv=None):
+    """Plain PyTorch CG of A x = b with M = I or z = dinv·r.
+
+    Returns (x, niter, rnorm, status, posdef_violation) as tensors, as
+    ``cg_dia_fused`` does.
+    """
+    return _cg_ref(pd, offsets, b, atol, rtol, itmax,
+                   (lambda r: r) if dinv is None else (lambda r: dinv * r))
+
+
+def cheby_constants(lmin, lmax, degree, dtype, round_bounds=True):
+    """θ and the (c₁, c₂) of each of the degree − 1 Chebyshev steps.
+
+    They depend only on the interval and the degree, so they are computed
+    once, as 0-d tensors of ``dtype`` on the host and returned as Python
+    floats that hold those values exactly.  ``round_bounds=True`` rounds
+    lmin and lmax to ``dtype`` first, as the TPU kernel does
+    (pallas_fused.py:312-315); False takes θ and δ from the f64 bounds, as
+    ``ChebyshevPreconditioner.matvec`` does (precond.py:100-116).  Each
+    step is d = c₁d + c₂(r − A z), z = z + d.
+    """
+    def t(v):
+        return torch.tensor(v, dtype=dtype)
+
+    if round_bounds:
+        lo, hi = t(lmin), t(lmax)
+        theta = (hi + lo) * 0.5
+        delta = (hi - lo) * 0.5
+    else:
+        theta = t((lmax + lmin) / 2)
+        delta = t((lmax - lmin) / 2)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    steps = []
+    for _ in range(degree - 1):
+        rho_n = 1.0 / (2.0 * sigma - rho)
+        steps.append(((rho_n * rho).item(), (2.0 * rho_n / delta).item()))
+        rho = rho_n
+    return theta.item(), steps
+
+
+def _cheby_apply(pd, offsets, theta, steps):
+    def apply_m(r):
+        d = r / theta
+        z = d
+        for c1, c2 in steps:
+            w = dia_spmv_aligned_ref(pd, offsets, z)
+            d = c1 * d + c2 * (r - w)
+            z = z + d
+        return z
+    return apply_m
+
+
+def cg_cheby_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, lmin, lmax,
+                           degree):
+    """Plain PyTorch CG with the degree-``degree`` Chebyshev M on
+    [lmin, lmax] applied as the TPU kernel applies it
+    (pallas_fused.py:309-406).  Returns (x, niter, rnorm, status,
+    posdef_violation)."""
+    theta, steps = cheby_constants(lmin, lmax, int(degree), b.dtype)
+    return _cg_ref(pd, offsets, b, atol, rtol, itmax,
+                   _cheby_apply(pd, offsets, theta, steps))
+
+
+# ---------------------------------------------------------------------------
+# CR, CAR and MINRES: the plain versions
+# ---------------------------------------------------------------------------
+
+def cr_dia_fused_ref(pd, offsets, b, atol, rtol, itmax):
+    """Plain PyTorch CR of A x = b, M = I (pallas_fused.py:754-820).
+
+    Returns (x, niter, rnorm, status, indef_error) as tensors, as
+    ``cr_dia_fused`` does."""
+    sqeps = math.sqrt(torch.finfo(b.dtype).eps)
+    one = _scalar(1, b)
+    rnorm2_0 = torch.sum(b * b)
+    rnorm0 = torch.sqrt(rnorm2_0)
+    ar0 = dia_spmv_aligned_ref(pd, offsets, b)
+    rho0 = torch.sum(b * ar0)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * rnorm0
+    status0 = torch.where(
+        rnorm0 == 0, ZERO_RESIDUAL,
+        torch.where(rho0 == 0, ZERO_CURV_B,
+                    torch.where(rnorm0 <= eps_lim, SOLVED, RUNNING))
+    ).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), r=b.clone(), p=b.clone(), q=ar0,
+        iter=_i32(0, b), rho=rho0, rnorm2=rnorm2_0, rnorm=rnorm0,
+        pNorm2=rnorm2_0, pr=rnorm2_0, pAp=rho0, status=status0,
+        indef=torch.zeros((), dtype=torch.bool, device=b.device))
+
+    def step(s):
+        indef = s.indef | (s.pAp <= 0)
+        qq = torch.sum(s.q * s.q)
+        alpha = s.rho / torch.where(qq == 0, one, qq)
+        x = s.x + alpha * s.p
+        r = s.r - alpha * s.q
+        rnorm2 = torch.sum(r * r)
+        rnorm = torch.sqrt(rnorm2)
+        ar = dia_spmv_aligned_ref(pd, offsets, r)
+        solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+        rho_n = torch.sum(r * ar)
+        beta = rho_n / torch.where(s.rho == 0, one, s.rho)
+        pNorm2 = rnorm2 + 2 * beta * s.pr - 2 * beta * alpha * s.pAp \
+            + beta * beta * s.pNorm2
+        pr = rnorm2 + beta * s.pr - beta * alpha * s.pAp
+        pAp = rho_n + beta * beta * s.pAp
+        code = torch.where(solved, SOLVED,
+                           torch.where(pNorm2 <= -sqeps, NUMERICAL, RUNNING))
+        return dict(
+            x=x, r=r,
+            p=torch.where(solved, s.p, r + beta * s.p),
+            q=torch.where(solved, s.q, ar + beta * s.q),
+            iter=s.iter + 1,
+            rho=torch.where(solved, s.rho, rho_n), rnorm2=rnorm2,
+            rnorm=rnorm, pNorm2=torch.where(solved, s.pNorm2, pNorm2),
+            pr=torch.where(solved, s.pr, pr),
+            pAp=torch.where(solved, s.pAp, pAp),
+            status=code.to(torch.int32), indef=indef)
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.status, s.indef.to(torch.int32)
+
+
+def car_dia_fused_ref(pd, offsets, b, atol, rtol, itmax):
+    """Plain PyTorch CAR of A x = b, M = I (pallas_fused.py:903-960).
+
+    Returns (x, niter, rnorm, arnorm, status) as tensors, as
+    ``car_dia_fused`` does."""
+    one = _scalar(1, b)
+    rnorm0 = torch.sqrt(torch.sum(b * b))
+    s_ = dia_spmv_aligned_ref(pd, offsets, b)
+    t = dia_spmv_aligned_ref(pd, offsets, s_)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * rnorm0
+    status0 = torch.where(
+        rnorm0 == 0, ZERO_RESIDUAL,
+        torch.where(rnorm0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), r=b.clone(), p=b.clone(), s=s_, q=s_,
+        u=t, iter=_i32(0, b), rho=torch.sum(t * s_), rnorm=rnorm0,
+        arnorm=torch.sqrt(torch.sum(s_ * s_)), status=status0)
+
+    def step(st):
+        uu = torch.sum(st.u * st.u)
+        alpha = st.rho / torch.where(uu == 0, one, uu)
+        x = st.x + alpha * st.p
+        r = st.r - alpha * st.q
+        s_new = st.s - alpha * st.u
+        rnorm = torch.sqrt(torch.sum(r * r))
+        solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+        t = dia_spmv_aligned_ref(pd, offsets, s_new)
+        rho_next = torch.sum(t * s_new)
+        beta = rho_next / torch.where(st.rho == 0, one, st.rho)
+        return dict(
+            x=x, r=r, s=s_new,
+            p=torch.where(solved, st.p, r + beta * st.p),
+            q=torch.where(solved, st.q, s_new + beta * st.q),
+            u=torch.where(solved, st.u, t + beta * st.u),
+            iter=st.iter + 1,
+            rho=torch.where(solved, st.rho, rho_next), rnorm=rnorm,
+            arnorm=torch.where(solved, st.arnorm,
+                               torch.sqrt(torch.sum(s_new * s_new))),
+            status=torch.where(solved, SOLVED, RUNNING).to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.arnorm, s.status
+
+
+def minres_dia_fused_ref(pd, offsets, b, atol, rtol, etol, ctol, lam, itmax,
+                         window=5, dinv=None):
+    """Plain PyTorch MINRES of (A + λI) x = b, M = I or v = dinv·r₂
+    (pallas_fused.py:500-645).
+
+    Returns (x, niter, rnorm, status, inconsistent, precond_violation) as
+    tensors, as ``minres_dia_fused`` does."""
+    eps = torch.finfo(b.dtype).eps
+    tiny = torch.finfo(b.dtype).tiny
+    one = _scalar(1, b)
+    atol_v, rtol_v, etol_v, ctol_v, lam_v = (
+        _scalar(v, b) for v in (atol, rtol, etol, ctol, lam))
+    precond = dinv is not None
+    v0 = dinv * b if precond else b
+    beta1_sq = torch.sum(b * v0)
+    beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
+    eps_lim = atol_v + rtol_v * beta1
+    status0 = torch.where(
+        beta1 == 0, ZERO_RESIDUAL,
+        torch.where(beta1 <= eps_lim, SOLVED_ZERO, RUNNING)).to(torch.int32)
+    zero = _scalar(0, b)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), r1=b.clone(), r2=b.clone(), v=v0.clone(),
+        w1=torch.zeros_like(b), w2=torch.zeros_like(b), iter=_i32(0, b),
+        oldbeta=zero, beta=beta1, dbar=zero, eps_prev=zero, phibar=beta1,
+        gmax=zero, gmin=_scalar(math.inf, b), cs=-one, sn=zero,
+        anorm2=zero, xenorm2=zero, rnorm=beta1,
+        incon=torch.ones((), dtype=torch.bool, device=b.device),
+        status=status0, viol=beta1_sq < 0,
+        phis=torch.zeros(window, dtype=b.dtype, device=b.device))
+
+    def step(s):
+        it = s.iter + 1
+        y = dia_spmv_aligned_ref(pd, offsets, s.v) + lam_v * s.v
+        y = y / s.beta
+        safe_ob = torch.where(s.oldbeta == 0, one, s.oldbeta)
+        y = torch.where(it >= 2, y - (s.beta / safe_ob) * s.r1, y)
+        alpha = torch.sum(s.v * y) / s.beta
+        r2c = s.r2 if precond else s.v
+        y = y - (alpha / s.beta) * r2c
+        delta = s.cs * s.dbar + s.sn * alpha
+        w_unscaled = s.v / s.beta - delta * s.w2 - s.eps_prev * s.w1
+        if precond:
+            v = dinv * y
+            beta_sq = torch.sum(y * v)
+            viol = s.viol | (beta_sq < 0)
+            beta_sq = torch.clamp(beta_sq, min=0)
+        else:
+            v = y
+            beta_sq = torch.sum(y * y)
+            viol = s.viol
+        beta = torch.sqrt(beta_sq)
+        anorm2 = s.anorm2 + alpha * alpha + s.beta * s.beta + beta_sq
+        gbar = s.sn * s.dbar - s.cs * alpha
+        dbar = -s.cs * beta
+        root = torch.sqrt(gbar * gbar + dbar * dbar)
+        gamma = torch.clamp(torch.sqrt(gbar * gbar + beta_sq), min=eps)
+        w = w_unscaled / gamma
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * s.phibar
+        phibar = sn * s.phibar
+        x = s.x + phi * w
+        xenorm2 = s.xenorm2 + phi * phi
+        phis = torch.cat([s.phis[1:], phi.reshape(1)])
+        err2 = zero
+        for j in range(window):
+            err2 = err2 + phis[j] * phis[j]
+        err_lbnd = torch.sqrt(err2)
+        gmax = torch.maximum(s.gmax, gamma)
+        gmin = torch.minimum(s.gmin, gamma)
+        anorm = torch.sqrt(anorm2)
+        xnorm = torch.sqrt(torch.sum(x * x))
+        rnorm = phibar
+        test1 = rnorm / torch.clamp(anorm * xnorm, min=tiny)
+        test2 = root / torch.clamp(anorm, min=tiny)
+        acond = gmax / torch.where(gmin == 0, _scalar(tiny, b), gmin)
+
+        min_lsq_early = (it == 1) & (beta / beta1 <= 10 * eps)
+        ill_cond_mach = (1.0 + 1.0 / acond) <= 1.0
+        solved_mach = (1.0 + test2) <= 1.0
+        zero_resid_mach = (1.0 + test1) <= 1.0
+        resid_mach = (rnorm + 1.0) <= 1.0
+        ill_cond_lim = (1.0 / acond) <= ctol_v
+        solved_lim = test2 <= eps_lim
+        zero_resid_lim = (test1 <= eps) & (not precond)
+        resid_lim = rnorm <= eps_lim
+        fwd_err = (it >= window) & (err_lbnd <= etol_v * torch.sqrt(xenorm2))
+        zero_resid = zero_resid_mach | zero_resid_lim
+        solved = (solved_mach | solved_lim | zero_resid | fwd_err
+                  | resid_mach | resid_lim)
+        code = _i32(RUNNING, b)
+        for cond, c in ((ill_cond_mach, ILL_COND_MACH),
+                        (ill_cond_lim, COND_EXCEEDED), (solved, SOLVED_LSQ),
+                        (zero_resid, SOLVED_ZERO), (fwd_err, FWD_ERR),
+                        (min_lsq_early, MIN_LSQ_X)):
+            code = torch.where(cond, c, code)
+        return dict(
+            x=x, r1=r2c, r2=y if precond else s.r2, v=v, w1=s.w2, w2=w,
+            iter=it, oldbeta=s.beta, beta=beta, dbar=dbar,
+            eps_prev=s.sn * beta, phibar=phibar, gmax=gmax, gmin=gmin,
+            cs=cs, sn=sn, anorm2=anorm2, xenorm2=xenorm2, rnorm=rnorm,
+            incon=min_lsq_early | ~zero_resid, status=code.to(torch.int32),
+            viol=viol, phis=phis)
+
+    s = _drive_ref(s0, step, itmax)
+    return (s.x, s.iter, s.rnorm, s.status, s.incon.to(torch.int32),
+            s.viol.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers
+# ---------------------------------------------------------------------------
 
 def _check(pd, offsets, b, dinv):
     _check_spmv(pd, offsets, b)
@@ -128,6 +442,51 @@ def _check(pd, offsets, b, dinv):
                              or dinv.device != b.device
                              or not dinv.is_contiguous()):
         raise ValueError("dinv must be a contiguous vector like b")
+
+
+def _pair(name, b, pd):
+    """The C entry points' type suffix; raises where there is no kernel."""
+    pair = _PAIR.get((b.dtype, pd.dtype))
+    if pair is None or b.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for b {b.dtype} with pd "
+                         f"{pd.dtype} on {b.device}")
+    return pair
+
+
+def _grid(b):
+    nsm = torch.cuda.get_device_properties(b.device).multi_processor_count
+    return max(1, min(-(-b.shape[0] // _THREADS), _BLOCKS_PER_SM * nsm))
+
+
+def _host_scalars(nsc, b, values):
+    """The kernel's scalar array, on b's device, with ``values`` (slot →
+    value) set; each value is rounded to b's dtype, as the TPU kernels
+    round their scalar inputs."""
+    sc = torch.zeros(nsc, dtype=b.dtype)
+    for slot, v in values.items():
+        sc[slot] = v
+    return sc.to(b.device)
+
+
+def _run(wrapper, b, init_name, init_args, iter_name, iter_args, st, itmax):
+    """One init call, then iterate calls in chunks until the status read
+    at a chunk's end says the solve stopped (or the cap).  Each C call
+    counts as one launch of ``wrapper``'s kernel."""
+    lib = _build.library()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, init_name)(*init_args, stream)
+        wrapper.launches += 1
+        _build.check(err, init_name)
+        state = types.SimpleNamespace(status=st[_STATUS])
+
+        def run(_, cap, steps):
+            err = getattr(lib, iter_name)(*iter_args, steps, cap, stream)
+            wrapper.launches += 1
+            _build.check(err, iter_name)
+            return state
+
+        drive(run, itmax, float("inf"))
 
 
 def cg_dia_fused(pd, offsets, b, atol, rtol, itmax, dinv=None):
@@ -148,43 +507,154 @@ def cg_dia_fused(pd, offsets, b, atol, rtol, itmax, dinv=None):
     _check(pd, offsets, b, dinv)
     if b.device.type == "cpu":
         return cg_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, dinv)
-    entries = _ENTRY.get((b.dtype, pd.dtype))
-    if entries is None or b.device.type != "cuda":
-        raise ValueError(f"no CG kernel for b {b.dtype} with pd {pd.dtype} "
-                         f"on {b.device}")
-    init_name, iter_name = entries
-    lib = _build.library()
-    n = b.shape[0]
-    nsm = torch.cuda.get_device_properties(b.device).multi_processor_count
-    grid = max(1, min(-(-n // _THREADS), _BLOCKS_PER_SM * nsm))
+    pair = _pair("CG", b, pd)
+    n, grid = b.shape[0], _grid(b)
     # the kernels allocate nothing; every buffer starts zeroed
     x, r, p, ap = (torch.zeros_like(b) for _ in range(4))
     partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
-    sc = torch.zeros(_NSC, dtype=b.dtype, device=b.device)
-    st = torch.zeros(_NST, dtype=torch.int32, device=b.device)
+    sc = torch.zeros(_CG_NSC, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_CG_NST, dtype=torch.int32, device=b.device)
     dptr = None if dinv is None else dinv.data_ptr()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, init_name)(
-            b.data_ptr(), dptr, x.data_ptr(), r.data_ptr(), p.data_ptr(),
-            partial.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
-            float(atol), float(rtol), stream)
-        cg_dia_fused.launches += 1
-        _build.check(err, init_name)
-        state = types.SimpleNamespace(status=st[_STATUS])
-
-        def run(_, cap, steps):
-            err = getattr(lib, iter_name)(
-                pd.data_ptr(), offsets.data_ptr(), pd.shape[0], dptr,
-                x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-                partial.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
-                steps, cap, stream)
-            cg_dia_fused.launches += 1
-            _build.check(err, iter_name)
-            return state
-
-        drive(run, itmax, float("inf"))
-    return x, st[_IT], sc[_RNORM], st[_STATUS], st[_VIOL]
+    _run(cg_dia_fused, b, f"ktt_cg_dia_init_{pair[:3]}",
+         (b.data_ptr(), dptr, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+          partial.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
+          float(atol), float(rtol)),
+         f"ktt_cg_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], dptr,
+          x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+          partial.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid),
+         st, itmax)
+    return x, st[_IT], sc[_CG_RNORM], st[_STATUS], st[_CG_VIOL]
 
 
 cg_dia_fused.launches = 0
+
+
+def cg_cheby_dia_fused(pd, offsets, b, atol, rtol, itmax, lmin, lmax,
+                       degree):
+    """Full Chebyshev-preconditioned CG solve of A x = b for a DIA matrix.
+
+    M is the degree-``degree`` Chebyshev polynomial ≈ A⁻¹ on
+    [lmin, lmax] (``ChebyshevPreconditioner``), applied on the card with
+    degree − 1 stencil applications.  rnorm is the M-norm √(rᴴz).
+    Returns (x, niter, rnorm, status_code, posdef_violation) as tensors
+    on b's device.
+    """
+    _check(pd, offsets, b, None)
+    degree = int(degree)
+    if degree < 1:
+        raise ValueError("degree must be >= 1")
+    if b.device.type == "cpu":
+        return cg_cheby_dia_fused_ref(pd, offsets, b, atol, rtol, itmax,
+                                      lmin, lmax, degree)
+    pair = _pair("Chebyshev CG", b, pd)
+    n, grid = b.shape[0], _grid(b)
+    theta, steps = cheby_constants(lmin, lmax, degree, b.dtype)
+    consts = [theta] + [c for step in steps for c in step]
+    sc = _host_scalars(_CG_NSC + len(consts), b,
+                       {_CG_NSC + j: c for j, c in enumerate(consts)})
+    work = torch.zeros((7, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_CG_NST, dtype=torch.int32, device=b.device)
+    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0])
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, degree)
+    _run(cg_cheby_dia_fused, b, f"ktt_cg_cheby_dia_init_{pair}",
+         head + (b.data_ptr(),) + bufs + (float(atol), float(rtol)),
+         f"ktt_cg_cheby_dia_iterate_{pair}", head + bufs, st, itmax)
+    return work[0].clone(), st[_IT], sc[_CG_RNORM], st[_STATUS], \
+        st[_CG_VIOL]
+
+
+cg_cheby_dia_fused.launches = 0
+
+
+def _cr_like(wrapper, kind, pd, offsets, b, atol, rtol, itmax, nsc, atol_slot,
+             nvec, npart, nst):
+    pair = _pair(kind.upper(), b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(nsc, b, {atol_slot: atol, atol_slot + 1: rtol})
+    work = torch.zeros((nvec, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros((npart, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(nst, dtype=torch.int32, device=b.device)
+    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0])
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair}",
+         head + (b.data_ptr(),) + bufs, f"ktt_{kind}_dia_iterate_{pair}",
+         head + bufs, st, itmax)
+    return work[0].clone(), sc, st
+
+
+def cr_dia_fused(pd, offsets, b, atol, rtol, itmax):
+    """Full CR (conjugate residuals) solve of A x = b for a DIA matrix.
+
+    Returns (x, niter, rnorm, status_code, indef_error) as tensors on b's
+    device; indef_error says that some pᴴAp ≤ 0 was met (the solver
+    raises "Indefinite system and no trust region").
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return cr_dia_fused_ref(pd, offsets, b, atol, rtol, itmax)
+    x, sc, st = _cr_like(cr_dia_fused, "cr", pd, offsets, b, atol, rtol,
+                         itmax, _CR_NSC, _CR_ATOL, 5, 3, _CR_NST)
+    return x, st[_IT], sc[_CR_RNORM], st[_STATUS], st[_CR_INDEF]
+
+
+cr_dia_fused.launches = 0
+
+
+def car_dia_fused(pd, offsets, b, atol, rtol, itmax):
+    """Full CAR (min ‖A r‖) solve of A x = b for a DIA matrix.
+
+    Returns (x, niter, rnorm, arnorm, status_code) as tensors on b's
+    device.
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return car_dia_fused_ref(pd, offsets, b, atol, rtol, itmax)
+    x, sc, st = _cr_like(car_dia_fused, "car", pd, offsets, b, atol, rtol,
+                         itmax, _CAR_NSC, _CAR_ATOL, 7, 4, _CAR_NST)
+    return x, st[_IT], sc[_CAR_RNORM], sc[_CAR_ARNORM], st[_STATUS]
+
+
+car_dia_fused.launches = 0
+
+
+def minres_dia_fused(pd, offsets, b, atol, rtol, etol, ctol, lam, itmax,
+                     window=5, dinv=None):
+    """Full MINRES solve of (A + λI) x = b for a DIA matrix.
+
+    Args beyond CG's: etol (forward-error window stop), ctol = 1/conlim
+    (0 disables), lam (the shift λ), window (the number of φ values in
+    the forward-error estimate) and dinv (Jacobi: v = dinv·r₂, β² =
+    ⟨r₂, v⟩).
+    Returns (x, niter, rnorm, status_code, inconsistent,
+    precond_violation) as tensors on b's device.
+    """
+    _check(pd, offsets, b, dinv)
+    window = int(window)
+    if window < 1:
+        raise ValueError("window must be >= 1")
+    if b.device.type == "cpu":
+        return minres_dia_fused_ref(pd, offsets, b, atol, rtol, etol, ctol,
+                                    lam, itmax, window, dinv)
+    pair = _pair("MINRES", b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_MR_NSC + window, b,
+                       dict(enumerate((atol, rtol, etol, ctol, lam))))
+    work = torch.zeros((7, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros((3, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(_MR_NST, dtype=torch.int32, device=b.device)
+    dptr = None if dinv is None else dinv.data_ptr()
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, window)
+    _run(minres_dia_fused, b, f"ktt_minres_dia_init_{pair[:3]}",
+         (b.data_ptr(), dptr) + bufs, f"ktt_minres_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], dptr) + bufs,
+         st, itmax)
+    return (work[0].clone(), st[_IT], sc[_MR_RNORM], st[_STATUS],
+            st[_MR_INCON], st[_MR_VIOL])
+
+
+minres_dia_fused.launches = 0

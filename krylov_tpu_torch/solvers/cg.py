@@ -5,9 +5,11 @@ M-preconditioning, ldiv, trust-region ``radius`` via to_boundary,
 ``linesearch`` nonpositive-curvature exit with npc_dir capture, warm
 start, history, callback, verbose, ``precision="compensated"`` (Dot2
 reductions) and the status vocabulary of src/cg.jl:272-278.  A DIA
-operator with the default options goes to the whole-solve kernel
-(ops/cuda_fused.py); every other configuration runs ``_cg_core``, whose
-iterations ``_runtime.drive`` takes in chunks with masked updates.
+operator with the default options and M = I, a diagonal (Jacobi) M or a
+``ChebyshevPreconditioner`` on the same operator object goes to a
+whole-solve kernel (ops/cuda_fused.py); every other configuration runs
+``_cg_core``, whose iterations ``_runtime.drive`` takes in chunks with
+masked updates.
 """
 
 import time
@@ -18,8 +20,11 @@ import torch
 
 from .. import _runtime as rt
 from .._dtypes import real_dtype
-from ..operators import DiagonalOperator, as_operator, precond_apply
-from ..ops.cuda_fused import cg_dia_fused, cg_dia_fused_supported
+from ..operators import DiagonalOperator, precond_apply, solve_inputs
+from ..ops.cuda_fused import (cg_cheby_dia_fused,
+                              cg_cheby_dia_fused_supported, cg_dia_fused,
+                              cg_dia_fused_supported)
+from ..precond import ChebyshevPreconditioner
 from ..ops.kops import kdotr, kdotr2, to_boundary
 from ..stats import SimpleStats
 
@@ -209,12 +214,19 @@ def _cg_core(
     return state
 
 
-def _cg_fused_path(A, b, x0, atol, rtol, itmax, start, dinv=None):
-    """The whole-solve kernel (ops/cuda_fused.py): M = I or z = dinv·r
-    (Jacobi), the host reading the status once per chunk."""
-    b_eff = b if x0 is None else b - A.matvec(x0)
-    x, niter, rnorm, status, viol = cg_dia_fused(
-        A._pd, A._offsets, b_eff.contiguous(), atol, rtol, itmax, dinv=dinv)
+def _cg_fused_path(A, b, x0, atol, rtol, itmax, start, dinv=None,
+                   cheby=None):
+    """A whole-solve kernel (ops/cuda_fused.py): M = I or z = dinv·r
+    (Jacobi), or ``cheby`` a ChebyshevPreconditioner applied inside the
+    solve; the host reads the status once per chunk."""
+    b_eff = (b if x0 is None else b - A.matvec(x0)).contiguous()
+    if cheby is not None:
+        x, niter, rnorm, status, viol = cg_cheby_dia_fused(
+            A._pd, A._offsets, b_eff, atol, rtol, itmax, cheby.lmin,
+            cheby.lmax, cheby.degree)
+    else:
+        x, niter, rnorm, status, viol = cg_dia_fused(
+            A._pd, A._offsets, b_eff, atol, rtol, itmax, dinv=dinv)
     niter, code, viol = torch.stack([niter, status, viol]).tolist()
     if viol:
         raise ValueError(
@@ -242,13 +254,7 @@ def _cg_solve(
     history=False, callback=None, precision=None,
 ):
     start = time.perf_counter()
-    if type(M).__name__ == "ChebyshevPreconditioner":
-        raise NotImplementedError(
-            "Chebyshev preconditioners are not ported yet "
-            "(ROADMAP.md Queue 1 item 6, precond.py)")
-    b = torch.as_tensor(b)
-    A = as_operator(A, device=b.device)
-    M = as_operator(M, device=b.device)
+    A, b, x0, M = solve_inputs(A, b, x0, M)
     n = b.shape[0]
     if A.shape is not None:
         if A.shape[0] != A.shape[1]:
@@ -269,8 +275,6 @@ def _cg_solve(
     rtol = rt.default_tol(rtol, T)
     itmax = rt.resolve_itmax(itmax, 2 * n)
     hist_len = itmax + 1 if history else 0
-    x0 = None if x0 is None else torch.as_tensor(x0, dtype=b.dtype,
-                                                 device=b.device)
 
     if precision == "double_word":
         raise NotImplementedError(
@@ -278,21 +282,30 @@ def _cg_solve(
             "item 12, solvers/_refine.py)")
     dot2 = precision == "compensated"
 
-    # Fast path: DIA stencil + default config → whole-solve kernel
-    # (M = I or a diagonal/Jacobi preconditioner).
+    # Fast path: DIA stencil + default config → whole-solve kernel (M = I,
+    # a diagonal/Jacobi preconditioner, or a Chebyshev polynomial built on
+    # this very operator object: as_operator(DIAMatrix) makes a new one
+    # each call, so only a caller-held operator matches).
     diag_M = isinstance(M, DiagonalOperator)
-    if ((M is None or diag_M) and not linesearch and radius == 0
+    cheb_M = isinstance(M, ChebyshevPreconditioner) and M.A is A
+    if ((M is None or diag_M or cheb_M) and not linesearch and radius == 0
             and callback is None and verbose == 0 and not history
             and not dot2
             and timemax == float("inf")
             and getattr(A, "use_kernel", False)
-            and getattr(A, "_pd", None) is not None
-            and cg_dia_fused_supported(A.dia.offsets, n, b.dtype,
-                                       stencil_dtype=A._pd.dtype)):
-        dinv = None
-        if diag_M:
-            dinv = (1.0 / M.d if ldiv else M.d).to(b.dtype).contiguous()
-        return _cg_fused_path(A, b, x0, atol, rtol, itmax, start, dinv=dinv)
+            and getattr(A, "_pd", None) is not None):
+        if cheb_M:
+            if cg_cheby_dia_fused_supported(A.dia.offsets, n, b.dtype,
+                                            stencil_dtype=A._pd.dtype):
+                return _cg_fused_path(A, b, x0, atol, rtol, itmax, start,
+                                      cheby=M)
+        elif cg_dia_fused_supported(A.dia.offsets, n, b.dtype,
+                                    stencil_dtype=A._pd.dtype):
+            dinv = None
+            if diag_M:
+                dinv = (1.0 / M.d if ldiv else M.d).to(b.dtype).contiguous()
+            return _cg_fused_path(A, b, x0, atol, rtol, itmax, start,
+                                  dinv=dinv)
 
     if verbose > 0:
         rt.debug_header(verbose, f"CG: system of {n} equations in {n} variables")

@@ -132,7 +132,7 @@ def test_npc_exits_dense(case):
         kw = dict(radius=10.0)
     from krylov_tpu.solvers.cg import _cg_solve as _jcg_solve
     xj, sj, statej = _jcg_solve(A, b, **kw)
-    xt, st, statet = _cg_solve(np.asarray(A), b, **kw)
+    xt, st, statet = _cg_solve(torch.as_tensor(A), b, **kw)
     assert st.status == "nonpositive curvature"
     _same(xt, st, xj, sj, tol=1e-12)
     np.testing.assert_allclose(statet.npc_dir.numpy(),
@@ -212,7 +212,7 @@ def test_matrix_free_and_dense():
     At = torch.as_tensor(np.asarray(A))
     op = kt.FunctionOperator(lambda v: At @ v, (30, 30), At.dtype)
     for Aop in (op, At, kt.MatrixOperator(At)):
-        xt, st = kt.cg(Aop, b)
+        xt, st = kt.cg(Aop, torch.as_tensor(b))
         _same(xt, st, xj, sj, tol=1e-10)
 
 
@@ -229,12 +229,6 @@ def test_unported_options_raise():
     bt = torch.as_tensor(b)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         kt.cg(A, bt, precision="double_word")
-
-    class ChebyshevPreconditioner:
-        pass
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        kt.cg(A, bt, M=ChebyshevPreconditioner())
     with pytest.raises(ValueError):
         kt.cg(A, bt, radius=1.0, linesearch=True)
     with pytest.raises(ValueError):
@@ -242,3 +236,19 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         kt.cg(A, bt[:10])
 
+
+
+def test_chebyshev_preconditioner_accepted():
+    """A Chebyshev M runs (it raised NotImplementedError before it was
+    ported): the general route matches krylov_tpu.cg to 1e-8 with equal
+    niter and status, and cuts the iterations."""
+    D, A, b, _ = _poisson(N=8)
+    bt = torch.as_tensor(b)
+    Mj = kj.ChebyshevPreconditioner(D, degree=4, lmin=0.4, lmax=12.2)
+    Mt = kt.ChebyshevPreconditioner(A, degree=4, lmin=0.4, lmax=12.2)
+    xj, sj = kj.cg(D, b, M=Mj, atol=0.0, rtol=1e-8)
+    xt, st = kt.cg(A, bt, M=Mt, atol=0.0, rtol=1e-8)
+    assert st.status == SOLVED
+    _same(xt, st, xj, sj)
+    _, s0 = kt.cg(A, bt, atol=0.0, rtol=1e-8)
+    assert st.niter < s0.niter

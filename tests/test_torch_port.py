@@ -23,6 +23,7 @@ from krylov_tpu_torch.convert import dia_from_numpy
 from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
                                            dia_spmv_aligned_ref,
                                            offsets_tensor)
+from krylov_tpu_torch.ops import cuda_fused as cf
 from krylov_tpu_torch.ops.cuda_fused import cg_dia_fused, cg_dia_fused_ref
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -67,6 +68,40 @@ def test_constructors_default_to_card_and_raise_without_one(make,
         make()
 
 
+SOLVERS = ("cg", "cr", "car", "minres")
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_numpy_inputs_go_to_card_and_raise_without_one(solver, monkeypatch):
+    """An entry point puts inputs that are not tensors on the card: a
+    numpy system, or a numpy b beside an operator that holds no tensor,
+    raises on a machine without one instead of solving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    solve = getattr(kt, solver)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(2.0 * np.eye(4), np.ones(4))
+    op = kt.FunctionOperator(lambda v: 2.0 * v, (4, 4), torch.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(op, np.ones(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kt.as_operator(np.eye(4))
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_numpy_rhs_follows_a_cpu_operator(solver):
+    """A numpy b (and x0) next to an operator on the CPU stays on the
+    CPU, and a tensor b stays where it is."""
+    solve = getattr(kt, solver)
+    A = kt.poisson_dia(4, dtype=torch.float64, device="cpu")
+    for Aop in (A, kt.DIAOperator(A, use_kernel=True),
+                torch.as_tensor(kt.DIAOperator(A).dia.todense())):
+        x, st = solve(Aop, np.ones(64), np.zeros(64))
+        assert x.device.type == "cpu" and st.solved
+    x, st = solve(kt.as_operator(2.0 * np.eye(4), device="cpu"),
+                  torch.ones(4, dtype=torch.float64))
+    assert x.device.type == "cpu" and st.solved
+
+
 def test_constructors_on_cpu():
     A = kt.poisson_dia(3, 4, 5, dtype=torch.bfloat16, device="cpu")
     assert A.data.dtype == torch.bfloat16 and A.data.device.type == "cpu"
@@ -99,10 +134,14 @@ def test_build_key_tracks_sources():
 
 def test_kernel_launches_and_exports():
     got = kt.kernel_launches()
-    assert set(got) == {"dia_spmv", "cg_dia"}
+    assert set(got) == {"dia_spmv", "cg_dia", "cg_cheby_dia", "cr_dia",
+                        "car_dia", "minres_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["cg_dia"] == cg_dia_fused.launches
-    for name in ("cg", "poisson_dia", "convdiff_dia", "DIAMatrix",
+    for name in ("cg_cheby_dia", "cr_dia", "car_dia", "minres_dia"):
+        assert got[name] == getattr(kt, name + "_fused").launches
+    for name in ("cg", "cr", "car", "minres", "ChebyshevPreconditioner",
+                 "power_bound", "poisson_dia", "convdiff_dia", "DIAMatrix",
                  "DIAOperator", "DiagonalOperator", "MatrixOperator",
                  "FunctionOperator", "IdentityOperator", "SimpleStats"):
         assert hasattr(kt, name)
@@ -272,3 +311,81 @@ def test_cg_on_card_takes_both_kernels():
         "and rtol"
     assert n1["cg_dia"] > n0["cg_dia"] and n1["dia_spmv"] > n0["dia_spmv"]
     assert abs(st.niter - st2.niter) <= max(2, 0.1 * st2.niter)
+
+
+def _poisson_on_card(N, dtype, seed=9):
+    A = kt.poisson_dia(N, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(seed).standard_normal(n)).to(
+        "cuda", dtype)
+    return A, pd, ot, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["cheby1", "cheby8", "cr", "car",
+                                    "minres", "minres_lam",
+                                    "minres_jacobi"])
+def test_symmetric_kernels_match_plain_on_card(kernel, dtype):
+    """Each whole-solve kernel against its plain version on the same
+    inputs: same status and flags, niter within ±max(2, 10%) (equal in
+    f64), x to 1e-4 relative (1e-10 in f64)."""
+    _card()
+    _, pd, ot, b = _poisson_on_card(16, dtype)
+    n = b.shape[0]
+    rtol = 1e-6 if dtype == torch.float32 else 1e-10
+    dinv = 1.0 / (6.0 + 0.5 * torch.sin(torch.arange(n, device="cuda",
+                                                     dtype=dtype)))
+    wrapper, ref, args, kw = {
+        "cheby1": (cf.cg_cheby_dia_fused, cf.cg_cheby_dia_fused_ref,
+                   (0.0, rtol, 2 * n, 0.4, 12.2, 1), {}),
+        "cheby8": (cf.cg_cheby_dia_fused, cf.cg_cheby_dia_fused_ref,
+                   (0.0, rtol, 2 * n, 0.4, 12.2, 8), {}),
+        "cr": (cf.cr_dia_fused, cf.cr_dia_fused_ref, (0.0, rtol, 2 * n), {}),
+        "car": (cf.car_dia_fused, cf.car_dia_fused_ref, (0.0, rtol, 2 * n),
+                {}),
+        "minres": (cf.minres_dia_fused, cf.minres_dia_fused_ref,
+                   (0.0, rtol, rtol, 1e-8, 0.0, 2 * n), {}),
+        "minres_lam": (cf.minres_dia_fused, cf.minres_dia_fused_ref,
+                       (0.0, rtol, rtol, 1e-8, 0.5, 2 * n), {}),
+        "minres_jacobi": (cf.minres_dia_fused, cf.minres_dia_fused_ref,
+                          (0.0, rtol, rtol, 1e-8, 0.0, 2 * n),
+                          {"dinv": dinv}),
+    }[kernel]
+    before = wrapper.launches
+    k = wrapper(pd, ot, b, *args, **kw)
+    assert wrapper.launches > before
+    r = ref(pd, ot, b, *args, **kw)
+    kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+    rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+    assert kints[1:] == rints[1:]                   # status and flags
+    if dtype == torch.float64:
+        assert kints[0] == rints[0]
+        assert _rel(k[0], r[0]) <= 1e-10
+    else:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        assert _rel(k[0], r[0]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_solvers_on_card_take_their_kernels():
+    """cg with a Chebyshev M on the same operator, cr, car and minres run
+    their kernels on the card; a numpy b beside a card operator goes to
+    the card."""
+    _card()
+    A = kt.DIAOperator(kt.poisson_dia(16))
+    b = np.random.default_rng(13).standard_normal(16 ** 3).astype(
+        np.float32)
+    runs = [("cg_cheby_dia", lambda: kt.cg(
+                A, b, M=kt.ChebyshevPreconditioner(A, degree=4))),
+            ("cr_dia", lambda: kt.cr(A, b)),
+            ("car_dia", lambda: kt.car(A, b)),
+            ("minres_dia", lambda: kt.minres(A, b)),
+            ("cg_dia", lambda: kt.cg(A, b))]
+    for name, run in runs:
+        n0 = kt.kernel_launches()[name]
+        x, st = run()
+        assert x.is_cuda and x.dtype == torch.float32 and st.solved
+        assert kt.kernel_launches()[name] > n0
