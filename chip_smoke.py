@@ -6,10 +6,12 @@ Builds the CUDA kernels from the checkout, holds each against its plain
 PyTorch version at the shapes of the main path, solves the flagship
 system (the 3-D Poisson 7-point stencil in DIA form, 128^3 unknowns,
 float32; CG also at 256^3) through the public entry points: ``cg``
-(M = I, and a Chebyshev polynomial M), ``cr``, ``car`` and ``minres``,
-each by its whole-solve kernel and by the general route with its DIA
-SpMV kernel, and checks that each path launched its kernels.  Prints one
-line per phase, a ``{"kernels": [...]}`` line, and as its last line
+(M = I, and a Chebyshev polynomial M), ``cr``, ``car``, ``minres``,
+``cg_lanczos``, ``cg_lanczos_shift`` and ``symmlq``, each by its
+whole-solve kernel and by the general route with its DIA SpMV kernel,
+chains the padded-layout SpMV, solves the systems whose dtypes once had
+no SpMV kernel, and checks that each path launched its kernels.  Prints
+one line per phase, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 a CUDA device it exits non-zero before printing a result.
 """
@@ -157,17 +159,14 @@ def main():
                                                dia_spmv_aligned_ref,
                                                offsets_tensor)
     from krylov_tpu_torch import _runtime as rt
+    from krylov_tpu_torch.ops import cuda_dia
     from krylov_tpu_torch.ops import cuda_fused as cf
     from krylov_tpu_torch.ops.cuda_fused import (cg_dia_fused,
                                                  cg_dia_fused_ref)
-
-    wrappers = {"dia_spmv": dia_spmv_aligned, "cg_dia": cg_dia_fused,
-                "cg_cheby_dia": cf.cg_cheby_dia_fused,
-                "cr_dia": cf.cr_dia_fused, "car_dia": cf.car_dia_fused,
-                "minres_dia": cf.minres_dia_fused}
+    from krylov_tpu_torch.solvers.symmlq import _STATUS as symmlq_status
 
     def reset_counts():
-        for w in wrappers.values():
+        for w in kt.KERNELS.values():
             w.launches = 0
 
     dev = torch.device("cuda")
@@ -176,9 +175,14 @@ def main():
     def rhs(n, dtype=torch.float32, gen=rng):
         return torch.as_tensor(gen.standard_normal(n)).to(dev, dtype)
 
-    def true_rel_residual(pd, ot, b, x):
-        r = b.double() - dia_spmv_aligned_ref(pd.double(), ot, x.double())
-        return float(r.norm() / b.double().norm())
+    def true_rel_residual(pd, ot, b, x, sigma=0.0):
+        """‖b − (A + σI)x‖ / ‖b‖ in f64 (complex128 for complex b) with
+        the plain SpMV."""
+        wide = torch.complex128 if b.is_complex() else torch.float64
+        xd = x.to(wide)
+        r = b.to(wide) - (dia_spmv_aligned_ref(pd.double(), ot, xd)
+                          + sigma * xd)
+        return float(r.norm() / b.to(wide).norm())
 
     with Phase("1 build", 180):
         t = time.perf_counter()
@@ -228,6 +232,89 @@ def main():
                                           bound_by=bound_by,
                                           library_ms=lib_ms)
             del A, pd, x, y, y_ref
+        # the pairs that had no kernel before (64^3): the general routes
+        # of an f64 b on f32 diagonals, of complex systems and of bf16 or
+        # f16 vectors run them; tolerances relative to max|y| as in
+        # tests/test_torch_port.py (one ulp of the narrow types)
+        pairs = [(torch.float64, torch.float32, 1e-14),
+                 (torch.bfloat16, torch.bfloat16, 1e-2),
+                 (torch.float16, torch.float16, 1e-3),
+                 (torch.complex64, torch.float32, 1e-6),
+                 (torch.complex64, torch.complex64, 1e-6),
+                 (torch.complex128, torch.float64, 1e-14),
+                 (torch.complex128, torch.complex128, 1e-14)]
+        A = kt.poisson_dia(64, dtype=torch.float64)
+        ot = offsets_tensor(A.offsets, dev)
+        pd64 = dia_align(A.data, A.offsets, A.shape[0])
+        x64 = rhs(A.shape[0], torch.float64)
+        for xdt, pdt, tol in pairs:
+            pd = (pd64 * (1.0 + 0.5j) if pdt.is_complex else pd64).to(pdt)
+            x = (x64 * (0.5 - 1.0j) if xdt.is_complex else x64).to(xdt)
+            y = dia_spmv_aligned(pd, ot, x)
+            y_ref = dia_spmv_aligned_ref(pd, ot, x)
+            torch.cuda.synchronize()
+            rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+            check(y.dtype == xdt and rel <= tol,
+                  f"dia_spmv 64^3 x {xdt} with pd {pdt} agrees with its "
+                  f"plain version ({rel:.2e} <= {tol:g})")
+        del A, pd64, x64, pd, x, y, y_ref
+
+    with Phase("2b dia_spmv_padded kernel vs plain, chained", 60):
+        # two chained products at 128^3 f32 in the padded layout with the
+        # input halo full of NaN: the interior must agree with the plain
+        # version (1e-6 of max|y|, as dia_spmv) and stay finite.  The
+        # main path of this kernel is a chain of products through the
+        # public entry points (pad, 8 products, unpad), driven with the
+        # counts set to 0 just before and read just after.
+        A = kt.poisson_dia(128)
+        n = A.shape[0]
+        pd = dia_align(A.data, A.offsets, n)
+        ot = offsets_tensor(A.offsets, dev)
+        x = rhs(n)
+        xw = kt.dia_pad_layout(x, A.offsets)
+        h = (xw.shape[0] - n) // 2
+        xw[:h] = float("nan")
+        xw[h + n:] = float("nan")
+        y2w = kt.dia_spmv_padded(pd, ot, kt.dia_spmv_padded(pd, ot, xw, n),
+                                 n)
+        y2 = kt.dia_unpad_layout(y2w, A.offsets, n)
+        ref = dia_spmv_aligned_ref(pd, ot, dia_spmv_aligned_ref(pd, ot, x))
+        torch.cuda.synchronize()
+        err = float((y2 - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        check(bool(torch.isfinite(y2).all()) and rel <= 1e-6,
+              f"dia_spmv_padded chained twice with NaN halos agrees with "
+              f"its plain version ({rel:.2e} <= 1e-6)")
+        yw = kt.dia_spmv_padded(pd, ot, xw, n)
+        ms = event_ms(lambda: kt.dia_spmv_padded(pd, ot, yw, n))
+        plain_ms = event_ms(lambda: cuda_dia.dia_spmv_padded_ref(
+            pd, ot, yw, n), reps=1, warmup=0)
+        csr = csr_of(pd, A.offsets, torch.float32)
+        lib_ms = event_ms(lambda: torch.mv(csr, x))
+        del csr
+        nbytes = pd.numel() * pd.element_size() + 2 * n * x.element_size() \
+            + ot.numel() * 8
+        bound_ms = nbytes / bw * 1e3
+        print(f"  128^3 f32 padded (halo {h}): max_abs_err={err:.3e} ms="
+              f"{ms:.4f} plain_ms={plain_ms:.4f} csr_ms={lib_ms:.4f} "
+              f"bound_ms={bound_ms:.4f}", flush=True)
+        report["dia_spmv_padded"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by="bytes",
+                                         library_ms=lib_ms)
+        torch.cuda.synchronize()
+        reset_counts()
+        vw = kt.dia_pad_layout(x, A.offsets)
+        for _ in range(8):
+            vw = kt.dia_spmv_padded(pd, ot, vw, n)
+            vw = vw / kt.dia_unpad_layout(vw, A.offsets, n).abs().max()
+        v = kt.dia_unpad_layout(vw, A.offsets, n)
+        torch.cuda.synchronize()
+        launches_padded = kt.kernel_launches()["dia_spmv_padded"]
+        check(bool(torch.isfinite(v).all()) and launches_padded == 8,
+              f"the chained path launched dia_spmv_padded "
+              f"({launches_padded} times)")
+        del A, pd, x, xw, y2w, y2, ref, yw, vw, v
 
     with Phase("3 cg_dia kernel vs plain", 90):
         A = kt.poisson_dia(128)
@@ -274,15 +361,106 @@ def main():
                                         bound_by="bytes", library_ms=None)
         del A, pd, b
 
+    def hold_cases(cases, seed):
+        """Each whole-solve kernel against its plain version on the same
+        inputs.  A case is (label, N, dtype, kernel, wrapper args after
+        (pd, ot, b), kwargs, the vectors every iteration must read and
+        write beside the stencil's diagonals, the stencil applications
+        per iteration).  Tolerances: status and flags equal; niter within
+        ±max(2, 10%) in f32 and equal in f64; max|x - x_plain| /
+        max|x_plain| within 1e-2 in f32 (two solves stopped at rtol 1e-6
+        on a system of condition number about 6.7e3 may differ by about
+        7e-3) and 1e-8 in f64 (rtol 1e-10, the same iterations).  The
+        kwarg "jacobi" adds a variable Jacobi dinv, "flip" flips the sign
+        of the first half of the main diagonal (an indefinite stencil),
+        and a "shifts" list becomes a tensor on the card."""
+        systems = {}
+        # a generator of the phase's own, so that the later phases draw
+        # the same right-hand sides as they did before the phase existed
+        gen = np.random.default_rng(seed)
+        for label, N, dt, name, args, kw, nvec, napply in cases:
+            kw = dict(kw)
+            flip = kw.pop("flip", False)
+            if (N, dt, flip) not in systems:
+                A = kt.poisson_dia(N, dtype=dt)
+                data = A.data
+                if flip:
+                    data = data.clone()
+                    data[A.offsets.index(0), : N ** 3 // 2] *= -1.0
+                pd = dia_align(data, A.offsets, A.shape[0])
+                if (N, dt, False) in systems:
+                    b = systems[N, dt, False][2]
+                else:
+                    b = rhs(N ** 3, dt, gen)
+                systems[N, dt, flip] = (pd, offsets_tensor(A.offsets, dev),
+                                        b)
+                del A, data
+            pd, ot, b = systems[N, dt, flip]
+            n = b.shape[0]
+            if kw.pop("jacobi", False):
+                kw = {"dinv": 1.0 / (6.0 + 0.5 * torch.sin(torch.arange(
+                    n, device=dev, dtype=dt)))}
+            shifts_t = None
+            if "shifts" in kw:
+                shifts_t = torch.tensor(kw.pop("shifts"), dtype=dt,
+                                        device=dev)
+                args = (shifts_t,) + tuple(args)
+            kernel, plain = getattr(cf, name[:-4] + "_dia_fused"), \
+                getattr(cf, name[:-4] + "_dia_fused_ref")
+            k = kernel(pd, ot, b, *args, **kw)
+            r = plain(pd, ot, b, *args, **kw)
+            torch.cuda.synchronize()
+            kints = [i for v in k[1:] if v.dtype == torch.int32
+                     for i in v.reshape(-1).tolist()]
+            rints = [i for v in r[1:] if v.dtype == torch.int32
+                     for i in v.reshape(-1).tolist()]
+            err = float((k[0] - r[0]).abs().max())
+            rel = err / max(float(r[0].abs().max()), 1e-300)
+            f32 = dt == torch.float32
+            label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
+            ms = event_ms(lambda: kernel(pd, ot, b, *args, **kw), reps=3,
+                          warmup=1)
+            plain_ms = event_ms(lambda: plain(pd, ot, b, *args, **kw),
+                                reps=1, warmup=0)
+            it_bytes = (napply * pd.numel() * pd.element_size()
+                        + nvec * n * b.element_size())
+            bound_bytes = kints[0] * it_bytes
+            if shifts_t is not None:
+                # a shift's x and p (4 vectors read or written) move only
+                # while it is active; its active iterations are those of
+                # the same solve with that shift alone (the same Lanczos
+                # stream and the same arithmetic for that shift)
+                active = sum(int(kernel(pd, ot, b, shifts_t[i:i + 1],
+                                        *args[1:], **kw)[1])
+                             for i in range(shifts_t.shape[0]))
+                bound_bytes += active * 4 * n * b.element_size()
+                print(f"  shift-iterations active: {active} of "
+                      f"{kints[0] * shifts_t.shape[0]}", flush=True)
+            bound_ms = bound_bytes / bw * 1e3
+            print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
+                  f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err"
+                  f"(x)={err:.3e} rel={rel:.3e}; ms={ms:.3f} plain_ms="
+                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
+                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+            check(kints[1:] == rints[1:],
+                  f"{label}: same status and flags as the plain version")
+            if f32:
+                check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
+                      f"{label}: niter {kints[0]} within ±max(2, 10%) of "
+                      f"{rints[0]}")
+            else:
+                check(kints[0] == rints[0],
+                      f"{label}: niter {kints[0]} equals {rints[0]}")
+            check(rel <= (1e-2 if f32 else 1e-8),
+                  f"{label}: x agrees ({rel:.2e})")
+            if f32 and name not in report:
+                report[name] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by="bytes", library_ms=None)
+        del systems
+
     with Phase("3b symmetric-solver kernels vs plain", 120):
-        # (label, N, dtype, kernel, wrapper args after (pd, ot, b), kwargs,
-        # the vectors every iteration must read and write beside the
-        # stencil's diagonals, the stencil applications per iteration).
-        # Tolerances: status and flags equal; niter within ±max(2, 10%)
-        # in f32 and equal in f64; max|x - x_plain| / max|x_plain| within
-        # 1e-2 in f32 (two solves stopped at rtol 1e-6 on a system of
-        # condition number about 6.7e3 may differ by about 7e-3) and
-        # 1e-8 in f64 (rtol 1e-10, the same iterations).
         def cheby_case(label, N, dt, rtol, degree):
             n = N ** 3
             return (label, N, dt, "cg_cheby_dia",
@@ -311,62 +489,38 @@ def main():
                   (0.0, 1e-10, 2 * 64 ** 3), {}, 8, 1),
                  ("car", 64, torch.float64, "car_dia",
                   (0.0, 1e-10, 2 * 64 ** 3), {}, 12, 1)]
-        systems = {}
-        # a generator of its own, so that the later phases draw the same
-        # right-hand sides as they did before this phase existed
-        rng_3b = np.random.default_rng(SEED + 1)
-        for label, N, dt, name, args, kw, nvec, napply in cases:
-            if (N, dt) not in systems:
-                A = kt.poisson_dia(N, dtype=dt)
-                pd = dia_align(A.data, A.offsets, A.shape[0])
-                systems[N, dt] = (pd, offsets_tensor(A.offsets, dev),
-                                  rhs(N ** 3, dt, rng_3b))
-                del A
-            pd, ot, b = systems[N, dt]
-            n = b.shape[0]
-            if kw.pop("jacobi", False):
-                kw = {"dinv": 1.0 / (6.0 + 0.5 * torch.sin(torch.arange(
-                    n, device=dev, dtype=dt)))}
-            kernel, plain = getattr(cf, name[:-4] + "_dia_fused"), \
-                getattr(cf, name[:-4] + "_dia_fused_ref")
-            k = kernel(pd, ot, b, *args, **kw)
-            r = plain(pd, ot, b, *args, **kw)
-            torch.cuda.synchronize()
-            kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
-            rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
-            err = float((k[0] - r[0]).abs().max())
-            rel = err / float(r[0].abs().max())
-            f32 = dt == torch.float32
-            label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
-            ms = event_ms(lambda: kernel(pd, ot, b, *args, **kw), reps=3,
-                          warmup=1)
-            plain_ms = event_ms(lambda: plain(pd, ot, b, *args, **kw),
-                                reps=2, warmup=0)
-            it_bytes = (napply * pd.numel() * pd.element_size()
-                        + nvec * n * b.element_size())
-            bound_ms = kints[0] * it_bytes / bw * 1e3
-            print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
-                  f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err"
-                  f"(x)={err:.3e} rel={rel:.3e}; ms={ms:.3f} plain_ms="
-                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
-                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
-                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
-            check(kints[1:] == rints[1:],
-                  f"{label}: same status and flags as the plain version")
-            if f32:
-                check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
-                      f"{label}: niter {kints[0]} within ±max(2, 10%) of "
-                      f"{rints[0]}")
-            else:
-                check(kints[0] == rints[0],
-                      f"{label}: niter {kints[0]} equals {rints[0]}")
-            check(rel <= (1e-2 if f32 else 1e-8),
-                  f"{label}: x agrees ({rel:.2e})")
-            if f32 and name not in report:
-                report[name] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by="bytes", library_ms=None)
-        del systems
+        hold_cases(cases, SEED + 1)
+
+    with Phase("3c Lanczos-family kernels vs plain", 150):
+        # cg_lanczos (with check_curvature on the indefinite stencil of
+        # tests/test_fused.py:524-542), cg_lanczos_shift with shifts
+        # (0, 0.5, 1, 2), and symmlq plain, with lambda = 0.5 and without
+        # the CG-point transfer; per iteration each reads the diagonals
+        # once and v, vprev, the next v and x and p (wbar) read and
+        # written: 7 vectors (3, and 4 per active shift, for the shift
+        # solver).
+        shifts = [0.0, 0.5, 1.0, 2.0]
+
+        def lanczos_cases(N, dt, rtol):
+            n = N ** 3
+            return [
+                ("plain", N, dt, "cg_lanczos_dia", (0.0, rtol, 2 * n), {},
+                 7, 1),
+                ("check_curvature, indefinite", N, dt, "cg_lanczos_dia",
+                 (0.0, rtol, 2 * n), {"flip": True,
+                                      "check_curvature": True}, 7, 1),
+                ("shifts (0, 0.5, 1, 2)", N, dt, "cg_lanczos_shift_dia",
+                 (0.0, rtol, 2 * n), {"shifts": shifts}, 3, 1),
+                ("plain", N, dt, "symmlq_dia",
+                 (0.0, rtol, 1e-8, 0.0, 2 * n), {}, 7, 1),
+                ("lambda=0.5", N, dt, "symmlq_dia",
+                 (0.0, rtol, 1e-8, 0.5, 2 * n), {}, 7, 1),
+                ("transfer_to_cg=False", N, dt, "symmlq_dia",
+                 (0.0, rtol, 1e-8, 0.0, 2 * n), {"transfer_to_cg": False},
+                 7, 1)]
+
+        hold_cases(lanczos_cases(128, torch.float32, 1e-6)
+                   + lanczos_cases(64, torch.float64, 1e-10), SEED + 2)
 
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
@@ -491,8 +645,125 @@ def main():
             print(f"  {label} {kw}:", flush=True)
             profile_solve(lambda: solve(**kw), top=8)
 
+    with Phase("5c cg_lanczos, cg_lanczos_shift, symmlq end to end", 150):
+        # As phase 5, on the same 128^3 f32 system: each default solve
+        # through the public entry point reaches its kernel's plain
+        # version's status, with a true relative residual no worse than
+        # 1.5 times the plain version's for every shift; then one
+        # general-route solve (history=True) through the DIA SpMV kernel.
+        shifts = [0.0, 0.5, 1.0, 2.0]
+        shifts_t = torch.tensor(shifts, device=dev)
+        paths_c = [
+            ("cg_lanczos_dia", "cg_lanczos",
+             lambda **kw: kt.cg_lanczos(A, b, **kw),
+             lambda: cf.cg_lanczos_dia_fused_ref(pd, ot, b, tol, tol, 2 * n),
+             4, {cf.NEG_CURV: "negative curvature"}, [0.0]),
+            ("cg_lanczos_shift_dia", "cg_lanczos_shift",
+             lambda **kw: kt.cg_lanczos_shift(A, b, shifts, **kw),
+             lambda: cf.cg_lanczos_shift_dia_fused_ref(
+                 pd, ot, b, shifts_t, tol, tol, 2 * n), 3, {}, shifts),
+            ("symmlq_dia", "symmlq", lambda **kw: kt.symmlq(A, b, **kw),
+             lambda: cf.symmlq_dia_fused_ref(pd, ot, b, tol, tol, 1e-8, 0.0,
+                                             2 * n), 3, symmlq_status,
+             [0.0])]
+        for name, label, solve, plain, status_at, over, sigmas in paths_c:
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            x, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            counts = kt.kernel_launches()
+            ref = plain()
+            code = rt.final_status_code(ref[status_at], 0, 1, False)
+            want = rt.decode_status(code, over)
+            rows = [(sig, x.reshape(len(sigmas), n)[i],
+                     ref[0].reshape(len(sigmas), n)[i],
+                     xh.reshape(len(sigmas), n)[i])
+                    for i, sig in enumerate(sigmas)]
+            res = [[true_rel_residual(pd, ot, b, v, sig) for v in vs]
+                   for sig, *vs in rows]
+            print(f"  {label}: niter={stats.niter} status='{stats.status}'"
+                  f" ms/solve={ms:.2f} us/iter="
+                  f"{1e3 * ms / max(stats.niter, 1):.2f}; plain version: "
+                  f"status='{want}'; history=True: niter={sh.niter}; true "
+                  f"residuals (kernel, plain, history) per shift "
+                  f"{[[f'{r:.3e}' for r in rr] for rr in res]}; launches "
+                  f"{counts}", flush=True)
+            check(stats.solved and sh.solved, f"{label} solved (both routes)")
+            check(stats.status == want,
+                  f"{label}: the plain version's status")
+            check(x.shape == ref[0].shape and bool(torch.isfinite(x).all()),
+                  f"{label}: finite x of shape {tuple(x.shape)}")
+            for sig, (rk, rp, _) in zip(sigmas, res):
+                check(rk <= 1.5 * rp, f"{label} shift {sig}: true residual "
+                      f"{rk:.3e} <= 1.5 x the plain version's")
+            check(counts[name] > 0, f"{label} launched {name} "
+                  f"({counts[name]} times)")
+            check(counts["dia_spmv"] > 0, f"{label} (history=True) launched"
+                  f" dia_spmv ({counts['dia_spmv']} times)")
+            launches[name] = counts[name]
+            del ref
+
+    with Phase("5d profiles of the three 128^3 Lanczos-family solves", 90):
+        # symmlq with the default tolerances stops after two iterations on
+        # this right-hand side (test1 = ||r|| / (||A|| ||x||) <= atol +
+        # rtol ||b||, as minres), so its profile takes atol = 0 and
+        # rtol = 1e-6 (about 180 iterations)
+        for name, label, solve, *_ in paths_c:
+            kw = {"atol": 0.0, "rtol": 1e-6} if name == "symmlq_dia" else {}
+            print(f"  {label} {kw}:", flush=True)
+            profile_solve(lambda: solve(**kw), top=8)
+    del A, b, pd, ot
+
+    with Phase("5e dtype and device repairs on the card (64^3)", 90):
+        # An f64 numpy b on f32 diagonals (the general route, through the
+        # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
+        # SpMV) and a Jacobi M built from numpy d beside a card system
+        # (the CG kernel with dinv), each solved to its default tolerance
+        # with a true relative residual within 1.5 x rtol.
+        nb = np.random.default_rng(SEED + 3).standard_normal(64 ** 3)
+        A32 = kt.poisson_dia(64)
+        A64 = kt.poisson_dia(64, dtype=torch.float64)
+        pd64 = dia_align(A64.data, A64.offsets, A64.shape[0])
+        ot = offsets_tensor(A64.offsets, dev)
+        runs = [("cg, f64 numpy b on f32 diagonals", "dia_spmv",
+                 lambda: kt.cg(A32, nb), torch.from_numpy(nb)),
+                ("cr, complex128", "dia_spmv",
+                 lambda: kt.cr(A64, torch.as_tensor(nb * (1.0 + 0.5j),
+                                                    device=dev)),
+                 torch.from_numpy(nb * (1.0 + 0.5j))),
+                ("cg, Jacobi M from numpy d", "cg_dia",
+                 lambda: kt.cg(kt.DIAOperator(A32), nb.astype(np.float32),
+                               M=kt.DiagonalOperator(np.full(
+                                   64 ** 3, 1.0 / 6.0, np.float32))),
+                 torch.from_numpy(nb.astype(np.float32)))]
+        for label, kernel, solve, b_host in runs:
+            torch.cuda.synchronize()
+            reset_counts()
+            x, stats = solve()
+            torch.cuda.synchronize()
+            count = kt.kernel_launches()[kernel]
+            bd = b_host.to(dev)
+            res = true_rel_residual(pd64, ot, bd, x)
+            rtol = rt.default_tol(None, bd.dtype)
+            print(f"  {label}: x {x.dtype} on {x.device} niter={stats.niter}"
+                  f" status='{stats.status}' true_res={res:.3e} {kernel} "
+                  f"launches={count}", flush=True)
+            check(x.is_cuda and x.dtype == bd.dtype and stats.solved,
+                  f"{label} solved on the card")
+            check(res <= 1.5 * rtol, f"{label}: true residual {res:.2e} <= "
+                  "1.5·rtol")
+            check(count > 0, f"{label} launched {kernel} ({count} times)")
+        del A32, A64, pd64
+
+    launches["dia_spmv_padded"] = launches_padded
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
                             "krylov_tpu/ops/pallas_dia.py:105"),
+               "dia_spmv_padded": ("krylov_tpu_torch/csrc/dia_spmv.cu",
+                                   "krylov_tpu/ops/pallas_dia.py:226"),
                "cg_dia": ("krylov_tpu_torch/csrc/cg_dia.cu",
                           "krylov_tpu/ops/pallas_fused.py:73"),
                "cg_cheby_dia": ("krylov_tpu_torch/csrc/cg_cheby_dia.cu",
@@ -502,7 +773,14 @@ def main():
                "cr_dia": ("krylov_tpu_torch/csrc/cr_dia.cu",
                           "krylov_tpu/ops/pallas_fused.py:727"),
                "car_dia": ("krylov_tpu_torch/csrc/car_dia.cu",
-                           "krylov_tpu/ops/pallas_fused.py:879")}
+                           "krylov_tpu/ops/pallas_fused.py:879"),
+               "cg_lanczos_dia": ("krylov_tpu_torch/csrc/cg_lanczos_dia.cu",
+                                  "krylov_tpu/ops/pallas_fused.py:1021"),
+               "cg_lanczos_shift_dia": (
+                   "krylov_tpu_torch/csrc/cg_lanczos_shift_dia.cu",
+                   "krylov_tpu/ops/pallas_fused.py:1181"),
+               "symmlq_dia": ("krylov_tpu_torch/csrc/symmlq_dia.cu",
+                              "krylov_tpu/ops/pallas_fused.py:3722")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

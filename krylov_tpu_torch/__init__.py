@@ -1,10 +1,12 @@
 """krylov_tpu_torch — the PyTorch/CUDA port of ``krylov_tpu``.
 
 A second package beside the JAX one, ported slice by slice.  It carries
-``cg`` (with M = I, Jacobi or a Chebyshev polynomial), ``cr``, ``car``
-and ``minres`` on DIA stencil operators, through hand-written CUDA
-kernels for Hopper (``csrc/``): a DIA SpMV and a whole-solve kernel for
-each solver, each with a plain PyTorch version used on the CPU.
+``cg`` (with M = I, Jacobi or a Chebyshev polynomial), ``cr``, ``car``,
+``minres``, ``cg_lanczos``, ``cg_lanczos_shift`` and ``symmlq`` on DIA
+stencil operators, through hand-written CUDA kernels for Hopper
+(``csrc/``): a DIA SpMV (plain and in a padded, chainable layout) and a
+whole-solve kernel for each solver, each with a plain PyTorch version
+used on the CPU.
 Constructors put data on the card unless the caller passes
 ``device="cpu"``; solvers run on the device of their inputs, and put
 inputs that are not tensors on the card.
@@ -20,22 +22,36 @@ from .operators import (
     as_operator,
     precond_apply,
 )
-from .ops.cuda_dia import dia_spmv_aligned
+from .ops.cuda_dia import (dia_pad_layout, dia_spmv_aligned,
+                           dia_spmv_padded, dia_unpad_layout)
 from .ops.cuda_fused import (car_dia_fused, cg_cheby_dia_fused,
-                             cg_dia_fused, cr_dia_fused, minres_dia_fused)
+                             cg_dia_fused, cg_lanczos_dia_fused,
+                             cg_lanczos_shift_dia_fused, cr_dia_fused,
+                             minres_dia_fused, symmlq_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
+from .ops.kops import sym_givens
 from .precond import ChebyshevPreconditioner, power_bound
 from .solvers.cg import cg
+from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cr import car, cr
 from .solvers.minres import minres
-from .stats import SimpleStats
+from .solvers.symmlq import symmlq
+from .stats import (LanczosShiftStats, LanczosStats, SimpleStats,
+                    SymmlqStats)
+
+# each CUDA kernel wrapper by the name its launch count goes under
+KERNELS = {"dia_spmv": dia_spmv_aligned,
+           "dia_spmv_padded": dia_spmv_padded,
+           "cg_dia": cg_dia_fused,
+           "cg_cheby_dia": cg_cheby_dia_fused,
+           "cr_dia": cr_dia_fused,
+           "car_dia": car_dia_fused,
+           "minres_dia": minres_dia_fused,
+           "cg_lanczos_dia": cg_lanczos_dia_fused,
+           "cg_lanczos_shift_dia": cg_lanczos_shift_dia_fused,
+           "symmlq_dia": symmlq_dia_fused}
 
 
 def kernel_launches():
     """Launch counts of the CUDA kernel wrappers, by kernel."""
-    return {"dia_spmv": dia_spmv_aligned.launches,
-            "cg_dia": cg_dia_fused.launches,
-            "cg_cheby_dia": cg_cheby_dia_fused.launches,
-            "cr_dia": cr_dia_fused.launches,
-            "car_dia": car_dia_fused.launches,
-            "minres_dia": minres_dia_fused.launches}
+    return {name: w.launches for name, w in KERNELS.items()}

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, which ``ctypes`` loads.
-No PyTorch header is compiled, so the build takes seconds.  The library
-goes to ``build/krylov_tpu_torch/`` at the root of the checkout, beside
-a stamp holding the hash of the sources and flags; changed sources
-rebuild.  Nothing is built when the package is imported: the first
-kernel launch builds.
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each
+source for Hopper (``sm_90a``); one more links the objects into a shared
+library with a plain C interface, which ``ctypes`` loads.  No PyTorch
+header is compiled, so the build takes seconds.  The library goes to
+``build/krylov_tpu_torch/`` at the root of the checkout, beside a stamp
+holding the hash of the sources and flags; changed sources rebuild.
+Nothing is built when the package is imported: the first kernel launch
+builds.
 """
 
 import ctypes
@@ -22,16 +23,24 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "krylov_tpu_torch"
 LIB_PATH = BUILD_DIR / "libkrylov_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 # (vector, diagonal) type pairs that every kernel takes
 _PAIRS = ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")
+# the further pairs of the DIA SpMV kernels (ops/cuda_dia.py)
+_SPMV_PAIRS = _PAIRS + ("f64_f32", "bf16_bf16", "f16_f16", "c64_f32",
+                        "c64_c64", "c128_f64", "c128_c128")
 # C entry points and their argument types; every pointer and the stream
 # is a c_void_p, so ctypes never cuts a 64-bit address to 32 bits.
 _SIGNATURES = {
-    **{f"ktt_dia_spmv_{t}": (_P, _P, _I, _P, _P, _L, _P) for t in _PAIRS},
+    # (pd, offsets, nd, x, y, n[, halo], stream)
+    **{f"ktt_dia_spmv_{t}": (_P, _P, _I, _P, _P, _L, _P)
+       for t in _SPMV_PAIRS},
+    **{f"ktt_dia_spmv_padded_{t}": (_P, _P, _I, _P, _P, _L, _L, _P)
+       for t in _SPMV_PAIRS},
     **{f"ktt_cg_dia_init_{t}": (_P,) * 8 + (_L, _I, _D, _D, _P)
        for t in ("f32", "f64")},
     **{f"ktt_cg_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 8
@@ -57,6 +66,27 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"ktt_minres_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 5
        + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    # (b, work, partial, sc, st, n, grid[, nshifts], stream) and (pd,
+    # offsets, nd, work, partial, sc, st, n, grid[, nshifts],
+    # check_curvature, iters, cap, stream)
+    **{f"ktt_cg_lanczos_dia_init_{t}": (_P,) * 5 + (_L, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ktt_cg_lanczos_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_cg_lanczos_shift_dia_init_{t}": (_P,) * 5 + (_L, _I, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ktt_cg_lanczos_shift_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _I, _P) for t in _PAIRS},
+    # (pd, offsets, nd, b, work, partial, sc, st, n, grid, transfer_to_cg,
+    # stream), (pd, offsets, nd, work, partial, sc, st, n, grid,
+    # transfer_to_cg, iters, cap, stream) and (work, sc, st, n, grid,
+    # stream)
+    **{f"ktt_symmlq_dia_init_{t}": (_P, _P, _I) + (_P,) * 5
+       + (_L, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_symmlq_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_symmlq_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
+       for t in ("f32", "f64")},
 }
 
 
@@ -73,7 +103,7 @@ def _sources():
 
 
 def _key():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     cu, cuh = _sources()
     for f in cu + cuh:
         h.update(f.name.encode())
@@ -90,16 +120,36 @@ def build():
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == key:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
+    tag = os.getpid()
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}.tmp")
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in cu]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    results = [(cmd, proc, *proc.communicate())
+               for cmd, proc in zip(compiles, procs)]
+    link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc, out, err in results:
+            _check_run(cmd, proc.returncode, out, err)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_run(link, proc.returncode, proc.stdout, proc.stderr)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, LIB_PATH)
     stamp.write_text(key)
     return LIB_PATH
+
+
+def _check_run(cmd, returncode, out, err):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}{err}")
 
 
 @functools.cache

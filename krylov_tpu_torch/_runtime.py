@@ -10,7 +10,10 @@
   core takes every step with its updates masked by
   ``status == RUNNING and iter < cap``, so the host never waits for the
   device inside a chunk; it reads the status once per chunk.  A frozen
-  state stays bit-for-bit what it was, so niter is exact.
+  state stays bit-for-bit what it was, so niter is exact.  With a user
+  callback the host reads ``active`` before each step instead and ends
+  the chunk at the first inactive one (``take_steps``), so the callback
+  sees exactly the iterations the JAX package's ``while_loop`` runs.
 
 * ``history=True`` preallocates an (itmax+1,) buffer that the core writes
   at index ``iter``; the host trims it to ``niter+1``.
@@ -210,6 +213,22 @@ def drive(run, itmax, timemax, start_time=None, chunk=64):
             if (math.isfinite(timemax)
                     and time.perf_counter() - start_time > timemax):
                 return state, True
+
+
+def take_steps(body, state, steps, iter_cap, callback=None):
+    """``steps`` calls of ``state = body(state)``, each of which masks its
+    updates by ``status == RUNNING and iter < iter_cap`` on the device.
+
+    With a ``callback`` (the user's, which ``body`` calls) the host reads
+    that condition before each step and stops at the first inactive one,
+    so the callback never sees a masked step; without one the host never
+    waits for the device here."""
+    for _ in range(steps):
+        if callback is not None and not bool(
+                (state.status == RUNNING) & (state.iter < iter_cap)):
+            break
+        state = body(state)
+    return state
 
 
 def final_status_code(state_status, niter, itmax, overtimed):

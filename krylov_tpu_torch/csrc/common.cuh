@@ -27,6 +27,44 @@ __device__ __forceinline__ A widen(__half v) {
   return static_cast<A>(__half2float(v));
 }
 
+// A complex number laid out as PyTorch stores complex64 and complex128:
+// the real part, then the imaginary part.
+template <typename R>
+struct alignas(2 * sizeof(R)) complex {
+  R re, im;
+  __host__ __device__ complex(R r = R(0), R i = R(0)) : re(r), im(i) {}
+};
+
+// acc + p * x in the accumulation type A: a real diagonal entry and a
+// real x are widened to A; a complex x takes a real or a complex entry.
+template <typename A, typename P, typename X>
+__device__ __forceinline__ A madd(A acc, P p, X x) {
+  return acc + widen<A>(p) * widen<A>(x);
+}
+template <typename R>
+__device__ __forceinline__ complex<R> madd(complex<R> acc, R p,
+                                           complex<R> x) {
+  return complex<R>(acc.re + p * x.re, acc.im + p * x.im);
+}
+template <typename R>
+__device__ __forceinline__ complex<R> madd(complex<R> acc, complex<R> p,
+                                           complex<R> x) {
+  return complex<R>(acc.re + (p.re * x.re - p.im * x.im),
+                    acc.im + (p.re * x.im + p.im * x.re));
+}
+
+// The accumulator narrowed to the stored vector type.
+template <typename X, typename A>
+__device__ __forceinline__ X narrow(A v) { return static_cast<X>(v); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half, float>(float v) {
+  return __float2half(v);
+}
+
 // Machine epsilon and the smallest normal number of the vector type.
 template <typename T> __device__ __forceinline__ T eps_of();
 template <> __device__ __forceinline__ float eps_of<float>() { return FLT_EPSILON; }
@@ -44,21 +82,30 @@ __device__ __forceinline__ long long row_stride() {
 }
 
 // Row i of A x from output-aligned diagonals, pd[d, i] * x[i + k_d] summed
-// over d in order.  The read of x is masked, so nothing is loaded past
-// either end of x; row and diagonal indices are 64-bit.
+// over d in order in the accumulation type A.  The read of x is masked,
+// so nothing is loaded past either end of x; row and diagonal indices
+// are 64-bit.
+template <typename A, typename P, typename X>
+__device__ __forceinline__ A stencil_row_acc(
+    const P* __restrict__ pd, const long long* __restrict__ offsets, int nd,
+    const X* __restrict__ x, long long i, long long n) {
+  A acc = A(0);
+  for (int d = 0; d < nd; ++d) {
+    const long long j = i + __ldg(offsets + d);
+    if (j >= 0 && j < n) {
+      acc = madd(acc, pd[static_cast<long long>(d) * n + i], x[j]);
+    }
+  }
+  return acc;
+}
+
+// The same row for a real vector type T, accumulated in T.
 template <typename T, typename P>
 __device__ __forceinline__ T stencil_row(const P* __restrict__ pd,
                                          const long long* __restrict__ offsets,
                                          int nd, const T* __restrict__ x,
                                          long long i, long long n) {
-  T acc = T(0);
-  for (int d = 0; d < nd; ++d) {
-    const long long j = i + __ldg(offsets + d);
-    if (j >= 0 && j < n) {
-      acc += widen<T>(pd[static_cast<long long>(d) * n + i]) * x[j];
-    }
-  }
-  return acc;
+  return stencil_row_acc<T>(pd, offsets, nd, x, i, n);
 }
 
 // Sum of v over the block; the result is valid in thread 0 only.

@@ -60,11 +60,22 @@ class IdentityOperator(AbstractLinearOperator):
     rsolve = matvec
 
 
-class DiagonalOperator(AbstractLinearOperator):
-    """diag(d) — the Jacobi preconditioner building block."""
+def _placed(v, device):
+    """A tensor stays where it is; other data goes to ``device``, by
+    default the card (raising when there is none)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.as_tensor(v, device=resolve_device(
+        "cuda" if device is None else device))
 
-    def __init__(self, d):
-        self.d = torch.as_tensor(d)
+
+class DiagonalOperator(AbstractLinearOperator):
+    """diag(d) — the Jacobi preconditioner building block.  A tensor d
+    stays where it is; numpy data goes to ``device``, by default the
+    card."""
+
+    def __init__(self, d, device=None):
+        self.d = _placed(d, device)
         self.shape = (self.d.shape[0], self.d.shape[0])
         self.dtype = self.d.dtype
         self.device = self.d.device
@@ -84,10 +95,12 @@ class DiagonalOperator(AbstractLinearOperator):
 
 class MatrixOperator(AbstractLinearOperator):
     """Dense matrix operator.  Products run in full fp32, never TF32
-    (the counterpart of precision=HIGHEST in the JAX package)."""
+    (the counterpart of precision=HIGHEST in the JAX package).  A tensor
+    stays where it is; numpy data goes to ``device``, by default the
+    card."""
 
-    def __init__(self, A):
-        self.A = torch.as_tensor(A)
+    def __init__(self, A, device=None):
+        self.A = _placed(A, device)
         self.shape = tuple(self.A.shape)
         self.dtype = self.A.dtype
         self.device = self.A.device
@@ -188,10 +201,7 @@ def as_operator(A, device=None):
     if isinstance(A, (torch.Tensor, np.ndarray)):
         if A.ndim != 2:
             raise ValueError(f"expected a 2-D array, got ndim={A.ndim}")
-        if isinstance(A, np.ndarray):
-            A = torch.as_tensor(A, device=resolve_device(
-                "cuda" if device is None else device))
-        return MatrixOperator(A)
+        return MatrixOperator(A, device=device)
     raise TypeError(
         f"cannot interpret {type(A).__name__} as a linear operator; "
         "wrap callables in FunctionOperator(matvec, shape, dtype)"

@@ -1,23 +1,35 @@
-"""DIA SpMV on output-aligned diagonals: the CUDA kernel and its plain
-version (counterpart of ``krylov_tpu/ops/pallas_dia.py``).
+"""DIA SpMV on output-aligned diagonals: the CUDA kernels and their plain
+versions (counterpart of ``krylov_tpu/ops/pallas_dia.py``).
 
 ``dia_align`` shifts the stored diagonals once so that
 y[i] = Σ_d pd[d, i]·x[i+k_d].  ``dia_spmv_aligned`` launches the kernel
 of ``csrc/dia_spmv.cu`` for a CUDA tensor and takes the plain version,
-``dia_spmv_aligned_ref``, for a CPU tensor.
+``dia_spmv_aligned_ref``, for a CPU tensor.  ``dia_spmv_padded`` is the
+same product in a padded, chainable layout (``dia_pad_layout``).
 """
 
 import torch
 
 from .. import _build
 
-# (x dtype, pd dtype) → C entry point; the kernel accumulates in x's dtype
-_ENTRY = {
-    (torch.float32, torch.float32): "ktt_dia_spmv_f32_f32",
-    (torch.float32, torch.bfloat16): "ktt_dia_spmv_f32_bf16",
-    (torch.float32, torch.float16): "ktt_dia_spmv_f32_f16",
-    (torch.float64, torch.float64): "ktt_dia_spmv_f64_f64",
+# (x dtype, pd dtype) → the C entry points' type suffix.  The kernel
+# accumulates in f32 for f32, bf16 and f16 x, in f64 for f64 x and in
+# x's complex type for complex x (pallas_dia.py:165-166).
+_SUFFIX = {
+    (torch.float32, torch.float32): "f32_f32",
+    (torch.float32, torch.bfloat16): "f32_bf16",
+    (torch.float32, torch.float16): "f32_f16",
+    (torch.float64, torch.float64): "f64_f64",
+    (torch.float64, torch.float32): "f64_f32",
+    (torch.bfloat16, torch.bfloat16): "bf16_bf16",
+    (torch.float16, torch.float16): "f16_f16",
+    (torch.complex64, torch.float32): "c64_f32",
+    (torch.complex64, torch.complex64): "c64_c64",
+    (torch.complex128, torch.float64): "c128_f64",
+    (torch.complex128, torch.complex128): "c128_c128",
 }
+# the halo of the padded layout is a multiple of this many rows
+HALO_ROWS = 32
 
 
 def _span(k, n):
@@ -44,17 +56,24 @@ def offsets_tensor(offsets, device):
                         device=device)
 
 
+def _acc_dtype(dtype):
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+
+
 def dia_spmv_aligned_ref(pd, offsets, x):
     """Plain PyTorch y = A x from aligned diagonals; ``offsets`` is an
-    int64 tensor.  Accumulates in f32 for f32 x (f64 for f64), one
-    diagonal after another, as the kernel does."""
+    int64 tensor.  Accumulates one diagonal after another in the kernel's
+    type: f32 for f32, bf16 and f16 x, else x's own type."""
     n = x.shape[0]
-    acc = torch.zeros_like(x)
+    acc_t = _acc_dtype(x.dtype)
+    xa = x.to(acc_t)
+    acc = torch.zeros_like(xa)
     for d, k in enumerate(offsets.tolist()):
         lo, hi = _span(k, n)
         if lo < hi:
-            acc[lo:hi] += pd[d, lo:hi].to(x.dtype) * x[lo + k:hi + k]
-    return acc
+            acc[lo:hi] += pd[d, lo:hi].to(acc_t) * xa[lo + k:hi + k]
+    return acc.to(x.dtype)
 
 
 def _check(pd, offsets, x):
@@ -71,6 +90,28 @@ def _check(pd, offsets, x):
         raise ValueError("pd, offsets and x must be contiguous")
 
 
+def _entry(kind, x, pd):
+    """The C entry point for x and pd on the card; raises naming the pair
+    where there is none."""
+    suffix = _SUFFIX.get((x.dtype, pd.dtype))
+    if suffix is None or x.device.type != "cuda":
+        raise ValueError(f"no DIA SpMV kernel for x {x.dtype} with pd "
+                         f"{pd.dtype} on {x.device}")
+    return f"ktt_{kind}_{suffix}"
+
+
+def _launch(wrapper, entry, pd, offsets, x, y, *extra):
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(pd.data_ptr(), offsets.data_ptr(),
+                                  pd.shape[0], x.data_ptr(), y.data_ptr(),
+                                  *extra, stream)
+    wrapper.launches += 1
+    _build.check(err, entry)
+    return y
+
+
 def dia_spmv_aligned(pd, offsets, x):
     """y = A x from aligned diagonals ``pd`` (see dia_align).
 
@@ -80,20 +121,76 @@ def dia_spmv_aligned(pd, offsets, x):
     _check(pd, offsets, x)
     if x.device.type == "cpu":
         return dia_spmv_aligned_ref(pd, offsets, x)
-    entry = _ENTRY.get((x.dtype, pd.dtype))
-    if entry is None or x.device.type != "cuda":
-        raise ValueError(f"no DIA SpMV kernel for x {x.dtype} with pd "
-                         f"{pd.dtype} on {x.device}")
-    lib = _build.library()
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(pd.data_ptr(), offsets.data_ptr(),
-                                  pd.shape[0], x.data_ptr(), y.data_ptr(),
-                                  x.shape[0], stream)
-    dia_spmv_aligned.launches += 1
-    _build.check(err, entry)
-    return y
+    entry = _entry("dia_spmv", x, pd)
+    return _launch(dia_spmv_aligned, entry, pd, offsets, x,
+                   torch.empty_like(x), x.shape[0])
 
 
 dia_spmv_aligned.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the padded, chainable layout (pallas_dia.py:207-226)
+# ---------------------------------------------------------------------------
+
+def halo_width(offsets):
+    """Rows of halo on each side of the padded layout: the largest
+    |offset| rounded up to a multiple of HALO_ROWS (at least HALO_ROWS)."""
+    m = max((abs(int(k)) for k in offsets), default=0)
+    return max(1, -(-m // HALO_ROWS)) * HALO_ROWS
+
+
+def dia_pad_layout(x, offsets):
+    """x in the padded layout: a vector of length n + 2h whose rows
+    [h, h + n) hold x and whose halo rows are zero."""
+    h = halo_width(offsets)
+    xw = torch.zeros(x.shape[0] + 2 * h, dtype=x.dtype, device=x.device)
+    xw[h:h + x.shape[0]] = x
+    return xw
+
+
+def dia_unpad_layout(xw, offsets, n):
+    """The interior of a padded vector (a view); inverse of
+    dia_pad_layout."""
+    h = halo_width(offsets)
+    return xw[h:h + n]
+
+
+def _halo(pd, offsets, xw, n):
+    _check(pd, offsets, xw[:n])
+    h, odd = divmod(xw.shape[0] - n, 2)
+    if xw.dim() != 1 or h < 0 or odd:
+        raise ValueError(f"xw of shape {tuple(xw.shape)} is not a padded "
+                         f"layout of n = {n}")
+    return h
+
+
+def dia_spmv_padded_ref(pd, offsets, xw, n):
+    """Plain PyTorch version of ``dia_spmv_padded``: the interior of the
+    result is the aligned product of the interior of ``xw``; its halo is
+    left as ``torch.empty`` made it."""
+    h = _halo(pd, offsets, xw, n)
+    yw = torch.empty_like(xw)
+    yw[h:h + n] = dia_spmv_aligned_ref(pd, offsets, xw[h:h + n])
+    return yw
+
+
+def dia_spmv_padded(pd, offsets, xw, n):
+    """y = A x in the padded layout of ``dia_pad_layout`` — chainable.
+
+    ``xw`` holds x in rows [h, h + n) of a vector of length n + 2h; its
+    halo rows are don't-care (the kernel reads only the interior).  The
+    result has the same layout, and its halo is never written, so it
+    feeds the next product as it is.  ``offsets`` is an int64 tensor on
+    xw's device.  A CUDA tensor goes through the kernel of
+    ``csrc/dia_spmv.cu``; a CPU tensor through the plain version.
+    """
+    h = _halo(pd, offsets, xw, n)
+    if xw.device.type == "cpu":
+        return dia_spmv_padded_ref(pd, offsets, xw, n)
+    entry = _entry("dia_spmv_padded", xw, pd)
+    return _launch(dia_spmv_padded, entry, pd, offsets, xw,
+                   torch.empty_like(xw), n, h)
+
+
+dia_spmv_padded.launches = 0

@@ -16,6 +16,12 @@ same chunked, masked semantics, so that niter is exact across chunks.
 * ``car_dia_fused``: conjugate A-residuals (``csrc/car_dia.cu``).
 * ``minres_dia_fused``: MINRES for (A + λI)x = b, M = I or Jacobi
   (``csrc/minres_dia.cu``).
+* ``cg_lanczos_dia_fused``: CG-Lanczos, M = I, with the check_curvature
+  exit and the Anorm estimate (``csrc/cg_lanczos_dia.cu``).
+* ``cg_lanczos_shift_dia_fused``: every (A + σᵢI)xᵢ = b from one Lanczos
+  stream (``csrc/cg_lanczos_shift_dia.cu``).
+* ``symmlq_dia_fused``: SYMMLQ for (A + λI)x = b, M = I, with the CG-point
+  transfer (``csrc/symmlq_dia.cu``).
 """
 
 import math
@@ -29,10 +35,17 @@ from .._runtime import (COND_EXCEEDED, FWD_ERR, ILL_COND_MACH, MIN_LSQ_X,
                         ZERO_CURVATURE, ZERO_RESIDUAL, drive)
 from .cuda_dia import _check as _check_spmv
 from .cuda_dia import dia_spmv_aligned_ref
+from .kops import sym_givens
 
 # CR-specific status codes (krylov_tpu/solvers/cr.py)
 NUMERICAL = 25
 ZERO_CURV_B = 26
+# CG-LANCZOS negative curvature (krylov_tpu/solvers/cg_lanczos.py)
+NEG_CURV = 27
+# SYMMLQ-specific status codes (krylov_tpu/solvers/symmlq.py)
+SOLVED_GEN = 34
+SOLVED_LQ = 35
+SOLVED_CG_PT = 36
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -50,6 +63,12 @@ _CG_RNORM, _CG_NSC, _CG_VIOL, _CG_NST = 2, 7, 2, 5
 _CR_RNORM, _CR_ATOL, _CR_NSC, _CR_INDEF, _CR_NST = 2, 9, 11, 2, 5
 _CAR_RNORM, _CAR_ARNORM, _CAR_ATOL, _CAR_NSC, _CAR_NST = 1, 2, 6, 8, 4
 _MR_RNORM, _MR_NSC, _MR_INCON, _MR_VIOL, _MR_NST = 18, 24, 2, 3, 5
+_CGL_RNORM, _CGL_ANORM2, _CGL_NSC, _CGL_INDEF, _CGL_NST = 9, 7, 11, 2, 5
+# shift kernel: NSC scalars, then nshifts each of (shift, σ, ω, γ, rnorm);
+# NST ints, then nshifts each of (converged, indefinite, mask)
+_CGLS_NSC, _CGLS_NBLK, _CGLS_RNORM, _CGLS_NST, _CGLS_INDEF = 5, 5, 4, 4, 1
+_SQ_RNORM, _SQ_ANORM2, _SQ_GMAX, _SQ_GMIN, _SQ_NSC, _SQ_NST = \
+    18, 14, 15, 16, 24, 5
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -69,6 +88,9 @@ cg_cheby_dia_fused_supported = cg_dia_fused_supported
 cr_dia_fused_supported = cg_dia_fused_supported
 car_dia_fused_supported = cg_dia_fused_supported
 minres_dia_fused_supported = cg_dia_fused_supported
+cg_lanczos_dia_fused_supported = cg_dia_fused_supported
+cg_lanczos_shift_dia_fused_supported = cg_dia_fused_supported
+symmlq_dia_fused_supported = cg_dia_fused_supported
 
 
 def _scalar(v, like):
@@ -433,6 +455,211 @@ def minres_dia_fused_ref(pd, offsets, b, atol, rtol, etol, ctol, lam, itmax,
 
 
 # ---------------------------------------------------------------------------
+# CG-Lanczos, CG-Lanczos-shift and SYMMLQ: the plain versions
+# ---------------------------------------------------------------------------
+
+def _safe(d, one):
+    return torch.where(d == 0, one, d)
+
+
+def _lanczos_start(b, atol, rtol):
+    """β₀ = ‖b‖, ε = atol + rtol·β₀ and v = b/β₀ (b where β₀ = 0)."""
+    one = _scalar(1, b)
+    beta0 = torch.sqrt(torch.sum(b * b))
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * beta0
+    return beta0, eps_lim, b / _safe(beta0, one)
+
+
+def _lanczos_next(pd, offsets, s, one):
+    """One normalised Lanczos step from v (and vprev from the second
+    iteration on), in the TPU kernels' order: δ = vᴴAv, w = Av − δv −
+    βvprev, β' = ‖w‖ (pallas_fused.py:1076-1096)."""
+    av = dia_spmv_aligned_ref(pd, offsets, s.v)
+    delta = torch.sum(s.v * av)
+    w = av - delta * s.v
+    w = torch.where(s.iter > 0, w - s.beta * s.vprev, w)
+    beta = torch.sqrt(torch.sum(w * w))
+    return delta, beta, w / _safe(beta, one)
+
+
+def cg_lanczos_dia_fused_ref(pd, offsets, b, atol, rtol, itmax,
+                             check_curvature=False):
+    """Plain PyTorch CG-Lanczos of A x = b, M = I (pallas_fused.py:
+    1050-1129); with check_curvature an indefinite step is not applied
+    and stops the solve with status 27.
+
+    Returns (x, niter, rnorm, anorm, status, indefinite) as tensors, as
+    ``cg_lanczos_dia_fused`` does."""
+    zero, one = _scalar(0, b), _scalar(1, b)
+    beta0, eps_lim, v0 = _lanczos_start(b, atol, rtol)
+    status0 = torch.where(
+        beta0 == 0, ZERO_RESIDUAL,
+        torch.where(beta0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), p=b.clone(), v=v0, vprev=v0, iter=_i32(0, b),
+        beta=beta0, sigma=beta0, omega=zero, gamma=one, anorm2=zero,
+        beta_prev=zero, rnorm=beta0, status=status0,
+        indef=torch.zeros((), dtype=torch.bool, device=b.device))
+
+    def step(s):
+        delta, beta, v_new = _lanczos_next(pd, offsets, s, one)
+        gamma = 1.0 / (delta - s.omega / s.gamma)
+        indef = s.indef | (gamma <= 0)
+        skip = indef & check_curvature
+        anorm2 = s.anorm2 + s.beta_prev * s.beta_prev + beta * beta \
+            + delta * delta
+        om = beta * gamma
+        sigma = -om * s.sigma
+        rnorm = torch.abs(sigma)
+        solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+        new = dict(x=s.x + gamma * s.p, p=sigma * v_new + om * om * s.p,
+                   v=v_new, vprev=s.v, iter=s.iter + 1, beta=beta,
+                   sigma=sigma, omega=om * om, gamma=gamma, anorm2=anorm2,
+                   beta_prev=beta, rnorm=rnorm)
+        new = {k: torch.where(skip, getattr(s, k), v)
+               for k, v in new.items()}
+        new["status"] = torch.where(
+            skip, NEG_CURV, torch.where(solved, SOLVED, RUNNING)).to(
+                torch.int32)
+        new["indef"] = indef
+        return new
+
+    s = _drive_ref(s0, step, itmax)
+    return (s.x, s.iter, s.rnorm, torch.sqrt(s.anorm2), s.status,
+            s.indef.to(torch.int32))
+
+
+def cg_lanczos_shift_dia_fused_ref(pd, offsets, b, shifts, atol, rtol,
+                                   itmax, check_curvature=False):
+    """Plain PyTorch CG-Lanczos of every (A + σᵢI) xᵢ = b from one
+    Lanczos stream, M = I (pallas_fused.py:1215-1309).  ``shifts`` is a
+    1-D tensor on b's device.  A converged shift, and with
+    check_curvature an indefinite one, freezes; the solve stops when
+    every shift is done.
+
+    Returns (X (nshifts, n), niter, rnorms, status, indefinite) as
+    tensors, as ``cg_lanczos_shift_dia_fused`` does."""
+    one = _scalar(1, b)
+    ns = shifts.shape[0]
+    beta0, eps_lim, v0 = _lanczos_start(b, atol, rtol)
+    conv0 = (beta0 <= eps_lim).expand(ns).clone()
+    status0 = torch.where(
+        beta0 == 0, ZERO_RESIDUAL,
+        torch.where(conv0.all(), SOLVED, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        X=torch.zeros((ns, b.shape[0]), dtype=b.dtype, device=b.device),
+        P=b.expand(ns, -1).clone(), v=v0, vprev=v0, iter=_i32(0, b),
+        beta=beta0, sigma=beta0.expand(ns).clone(),
+        omega=torch.zeros_like(shifts), gamma=torch.ones_like(shifts),
+        rnorm=beta0.expand(ns).clone(), conv=conv0,
+        indef=torch.zeros(ns, dtype=torch.bool, device=b.device),
+        status=status0)
+
+    def step(s):
+        delta, beta, v_new = _lanczos_next(pd, offsets, s, one)
+        gamma = 1.0 / ((delta + shifts) - s.omega / s.gamma)
+        indef = s.indef | (gamma <= 0)
+        mask = ~(s.conv | (indef & check_curvature))
+        col = mask[:, None]
+        om = beta * gamma
+        sigma = torch.where(mask, -om * s.sigma, s.sigma)
+        om2 = torch.where(mask, om * om, s.omega)
+        rnorm = torch.where(mask, torch.abs(sigma), s.rnorm)
+        conv = torch.where(mask, rnorm <= eps_lim, s.conv)
+        done = (conv | (indef & check_curvature)).all()
+        return dict(
+            X=torch.where(col, s.X + gamma[:, None] * s.P, s.X),
+            P=torch.where(col, sigma[:, None] * v_new + om2[:, None] * s.P,
+                          s.P),
+            v=v_new, vprev=s.v, iter=s.iter + 1, beta=beta, sigma=sigma,
+            omega=om2, gamma=torch.where(mask, gamma, s.gamma),
+            rnorm=rnorm, conv=conv, indef=indef,
+            status=torch.where(done, SOLVED, RUNNING).to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    return s.X, s.iter, s.rnorm, s.status, s.indef.to(torch.int32)
+
+
+def symmlq_dia_fused_ref(pd, offsets, b, atol, rtol, ctol, lam, itmax,
+                         transfer_to_cg=True):
+    """Plain PyTorch SYMMLQ of (A + λI) x = b, M = I (pallas_fused.py:
+    3755-3881), with the CG-point transfer x += ζ̄·w̄ after the stop when
+    the CG test stopped the solve.
+
+    Returns (x, niter, rnorm, status, anorm2, gmax, gmin) as tensors, as
+    ``symmlq_dia_fused`` does."""
+    tiny = torch.finfo(b.dtype).tiny
+    zero, one = _scalar(0, b), _scalar(1, b)
+    ctol_v, lam_v = _scalar(ctol, b), _scalar(lam, b)
+    beta1, tol, vold = _lanczos_start(b, atol, rtol)
+    y = dia_spmv_aligned_ref(pd, offsets, vold) + lam_v * vold
+    alpha = torch.sum(vold * y)
+    y = y - alpha * vold
+    beta = torch.sqrt(torch.sum(y * y))
+    zetabar = beta1 / _safe(alpha, one)
+    rcg = beta1 * torch.abs(zetabar)
+    solved_cg0 = (alpha != 0) & (rcg <= tol) & transfer_to_cg
+    status0 = torch.where(
+        beta1 == 0, ZERO_RESIDUAL,
+        torch.where(beta1 <= tol, SOLVED_LQ,
+                    torch.where(solved_cg0, SOLVED_CG_PT, RUNNING))).to(
+                        torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), wbar=vold.clone(), vold=vold,
+        v=y / _safe(beta, one), iter=_i32(0, b), beta=beta, gbar=alpha,
+        dbar=beta, eps_old=zero, eta=beta1, zold=zero, zetabar=zetabar,
+        anorm2=alpha * alpha + beta * beta, gmax=_scalar(-math.inf, b),
+        gmin=_scalar(math.inf, b), xnorm2=zero, rnorm=beta1, rcg=rcg,
+        cgflag=solved_cg0, status=status0)
+
+    def step(s):
+        cs, sn, gamma = sym_givens(s.gbar, s.beta)
+        zeta = s.eta / _safe(gamma, one)
+        x = s.x + (cs * zeta) * s.wbar + (sn * zeta) * s.v
+        wbar = sn * s.wbar - cs * s.v
+        y = dia_spmv_aligned_ref(pd, offsets, s.v) + lam_v * s.v
+        alpha = torch.sum(s.v * y)
+        y = y - s.beta * s.vold - alpha * s.v
+        beta = torch.sqrt(torch.sum(y * y))
+        anorm2 = s.anorm2 + alpha * alpha + s.beta * s.beta + beta * beta
+        delta = s.dbar * cs + alpha * sn
+        gbar = s.dbar * sn - alpha * cs
+        eta = -s.eps_old * s.zold - delta * zeta
+        rnorm = torch.sqrt(gamma * gamma * zeta * zeta
+                           + s.eps_old * s.eps_old * s.zold * s.zold)
+        xnorm2 = s.xnorm2 + zeta * zeta
+        gbar_nz = gbar != 0
+        zetabar = torch.where(gbar_nz, eta / _safe(gbar, one), s.zetabar)
+        rcg = torch.where(gbar_nz, beta * torch.abs(sn * zeta - cs * zetabar),
+                          s.rcg)
+        gmax = torch.maximum(s.gmax, gamma)
+        gmin = torch.minimum(s.gmin, gamma)
+        acond = torch.clamp(gmax / torch.clamp(gmin, min=tiny), min=tiny)
+        test1 = rnorm / torch.clamp(torch.sqrt(anorm2) * torch.sqrt(xnorm2),
+                                    min=tiny)
+        solved_lq = rnorm <= tol
+        solved_cg = gbar_nz & (rcg <= tol) & transfer_to_cg
+        solved = (((1.0 + rnorm) <= 1.0) | solved_lq | solved_cg
+                  | ((1.0 + test1) <= 1.0) | (test1 <= tol))
+        code = _i32(RUNNING, b)
+        for cond, c in ((((1.0 + 1.0 / acond) <= 1.0), ILL_COND_MACH),
+                        ((1.0 / acond) <= ctol_v, COND_EXCEEDED),
+                        (solved, SOLVED_GEN), (solved & solved_lq, SOLVED_LQ),
+                        (solved & solved_cg, SOLVED_CG_PT)):
+            code = torch.where(cond, c, code)
+        return dict(
+            x=x, wbar=wbar, vold=s.v, v=y / _safe(beta, one),
+            iter=s.iter + 1, beta=beta, gbar=gbar, dbar=-beta * cs,
+            eps_old=beta * sn, eta=eta, zold=zeta, zetabar=zetabar,
+            anorm2=anorm2, gmax=gmax, gmin=gmin, xnorm2=xnorm2, rnorm=rnorm,
+            rcg=rcg, cgflag=solved_cg, status=code.to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    x = torch.where(s.cgflag, s.x + s.zetabar * s.wbar, s.x)
+    return x, s.iter, s.rnorm, s.status, s.anorm2, s.gmax, s.gmin
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -658,3 +885,117 @@ def minres_dia_fused(pd, offsets, b, atol, rtol, etol, ctol, lam, itmax,
 
 
 minres_dia_fused.launches = 0
+
+
+def cg_lanczos_dia_fused(pd, offsets, b, atol, rtol, itmax,
+                         check_curvature=False):
+    """Full CG-Lanczos solve of A x = b for a DIA matrix, M = I.
+
+    With ``check_curvature`` an indefinite step is not applied and stops
+    the solve with status 27 (negative curvature).
+    Returns (x, niter, rnorm, anorm, status_code, indefinite) as tensors
+    on b's device.
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return cg_lanczos_dia_fused_ref(pd, offsets, b, atol, rtol, itmax,
+                                        check_curvature)
+    pair = _pair("CG-Lanczos", b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_CGL_NSC, b, {0: atol, 1: rtol})
+    work = torch.zeros((5, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_CGL_NST, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(cg_lanczos_dia_fused, b, f"ktt_cg_lanczos_dia_init_{pair[:3]}",
+         (b.data_ptr(),) + bufs, f"ktt_cg_lanczos_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + bufs
+         + (int(bool(check_curvature)),), st, itmax)
+    return (work[0].clone(), st[_IT], sc[_CGL_RNORM],
+            torch.sqrt(sc[_CGL_ANORM2]), st[_STATUS], st[_CGL_INDEF])
+
+
+cg_lanczos_dia_fused.launches = 0
+
+
+def cg_lanczos_shift_dia_fused(pd, offsets, b, shifts, atol, rtol, itmax,
+                               check_curvature=False):
+    """Every shifted system (A + σᵢI) xᵢ = b from one Lanczos stream, for
+    a DIA matrix, M = I.  ``shifts`` is a 1-D tensor of b's dtype on b's
+    device; any number of shifts.
+
+    Returns (X (nshifts, n), niter, rnorms (nshifts,), status_code,
+    indefinite (nshifts,)) as tensors on b's device.
+    """
+    _check(pd, offsets, b, None)
+    if (shifts.dim() != 1 or shifts.dtype != b.dtype
+            or shifts.device != b.device or shifts.shape[0] < 1):
+        raise ValueError("shifts must be a non-empty vector of b's dtype "
+                         "on b's device")
+    if b.device.type == "cpu":
+        return cg_lanczos_shift_dia_fused_ref(pd, offsets, b, shifts, atol,
+                                              rtol, itmax, check_curvature)
+    pair = _pair("CG-Lanczos-shift", b, pd)
+    n, grid, ns = b.shape[0], _grid(b), shifts.shape[0]
+    sc = torch.zeros(_CGLS_NSC + _CGLS_NBLK * ns, dtype=b.dtype,
+                     device=b.device)
+    sc[:2] = torch.tensor([atol, rtol], dtype=b.dtype)
+    sc[_CGLS_NSC:_CGLS_NSC + ns] = shifts
+    work = torch.zeros((3 + 2 * ns, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_CGLS_NST + 3 * ns, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, ns)
+    _run(cg_lanczos_shift_dia_fused, b,
+         f"ktt_cg_lanczos_shift_dia_init_{pair[:3]}", (b.data_ptr(),) + bufs,
+         f"ktt_cg_lanczos_shift_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + bufs
+         + (int(bool(check_curvature)),), st, itmax)
+    rn = _CGLS_NSC + _CGLS_RNORM * ns
+    idf = _CGLS_NST + _CGLS_INDEF * ns
+    return (work[3:3 + ns].clone(), st[_IT], sc[rn:rn + ns].clone(),
+            st[_STATUS], st[idf:idf + ns].clone())
+
+
+cg_lanczos_shift_dia_fused.launches = 0
+
+
+def symmlq_dia_fused(pd, offsets, b, atol, rtol, ctol, lam, itmax,
+                     transfer_to_cg=True):
+    """Full SYMMLQ solve of (A + λI) x = b for a DIA matrix, M = I.
+
+    ctol = 1/conlim (0 disables).  With ``transfer_to_cg`` the solve
+    moves x to the CG point when the CG test stops it (one finishing
+    launch after the loop).
+    Returns (x, niter, rnorm, status_code, anorm2, gmax, gmin) as tensors
+    on b's device; the status codes add 34, 35 and 36 (SYMMLQ's own).
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return symmlq_dia_fused_ref(pd, offsets, b, atol, rtol, ctol, lam,
+                                    itmax, transfer_to_cg)
+    pair = _pair("SYMMLQ", b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_SQ_NSC, b, dict(enumerate((atol, rtol, ctol, lam))))
+    work = torch.zeros((5, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_SQ_NST, dtype=torch.int32, device=b.device)
+    args = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], work.data_ptr(),
+            partial.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
+            int(bool(transfer_to_cg)))
+    _run(symmlq_dia_fused, b, f"ktt_symmlq_dia_init_{pair}",
+         args[:3] + (b.data_ptr(),) + args[3:],
+         f"ktt_symmlq_dia_iterate_{pair}", args, st, itmax)
+    name = f"ktt_symmlq_dia_finish_{pair[:3]}"
+    with torch.cuda.device(b.device):
+        err = getattr(_build.library(), name)(
+            work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
+            torch.cuda.current_stream().cuda_stream)
+    symmlq_dia_fused.launches += 1
+    _build.check(err, name)
+    return (work[0].clone(), st[_IT], sc[_SQ_RNORM], st[_STATUS],
+            sc[_SQ_ANORM2], sc[_SQ_GMAX], sc[_SQ_GMIN])
+
+
+symmlq_dia_fused.launches = 0

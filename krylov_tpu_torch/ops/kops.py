@@ -1,7 +1,7 @@
 """L0 kernel layer ("k-ops"), counterpart of ``krylov_tpu/ops/kops.py``.
 
-The reductions, the compensated Dot2 reduction and the trust-region
-boundary step that CG needs, as torch expressions.  Every function is
+The reductions, the compensated Dot2 reduction, the trust-region
+boundary step and the symmetric Givens reflection, as torch expressions.  Every function is
 branchless over tensors, so a solver can call it inside a chunk of
 masked iterations without the host waiting for the device.
 """
@@ -79,6 +79,95 @@ def kdotr2(x, y):
         return kdotr2(x.real, y.real) + kdotr2(x.imag, y.imag)
     p, err = _two_prod_vec(x, y)
     return _comp_pairwise_sum(p) + _comp_pairwise_sum(err)
+
+
+# ---------------------------------------------------------------------------
+# Givens reflections
+# ---------------------------------------------------------------------------
+
+def _sym_givens_real(a, b):
+    abs_a, abs_b = torch.abs(a), torch.abs(b)
+    b_zero = abs_b == 0
+    a_zero = abs_a == 0
+    b_dominant = abs_b > abs_a
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+
+    # |b| > |a|: t = a/b, s = sign(b)/√(1+t²), c = s·t, ρ = b/s
+    t3 = a / _safe(b, b_zero)
+    s3 = torch.sign(b) / torch.sqrt(one + t3 * t3)
+    c3 = s3 * t3
+    rho3 = b / _safe(s3, s3 == 0)
+
+    # |a| ≥ |b|: t = b/a, c = sign(a)/√(1+t²), s = c·t, ρ = a/c
+    t4 = b / _safe(a, a_zero)
+    c4 = torch.sign(a) / torch.sqrt(one + t4 * t4)
+    s4 = c4 * t4
+    rho4 = a / _safe(c4, c4 == 0)
+
+    # sign(0) = 0; sign(a) + iszero(a) makes sym_givens(0, 0) = (1, 0, 0)
+    c = torch.where(b_zero, torch.sign(a) + a_zero.to(a.dtype),
+                    torch.where(a_zero, zero,
+                                torch.where(b_dominant, c3, c4)))
+    s = torch.where(b_zero, zero,
+                    torch.where(a_zero, torch.sign(b),
+                                torch.where(b_dominant, s3, s4)))
+    rho = torch.where(b_zero, abs_a,
+                      torch.where(a_zero, abs_b,
+                                  torch.where(b_dominant, rho3, rho4)))
+    return c, s, rho
+
+
+def _sym_givens_complex(a, b):
+    abs_a, abs_b = torch.abs(a), torch.abs(b)
+    b_zero = abs_b == 0
+    a_zero = abs_a == 0
+    b_dominant = abs_b > abs_a
+    one_r = torch.ones_like(abs_a)
+    # phase factor conj((b/|b|)/(a/|a|)); safe where either is zero
+    phase = torch.conj((b / _safe(abs_b, b_zero).to(a.dtype))
+                       / (a / _safe(abs_a, a_zero).to(a.dtype)))
+
+    # |b| > |a|: t = |a|/|b|, c₀ = 1/√(1+t²), s = c₀·phase, c = c₀·t,
+    # ρ = b/conj(s)
+    t3 = abs_a / _safe(abs_b, b_zero)
+    c0_3 = one_r / torch.sqrt(one_r + t3 * t3)
+    s3 = c0_3.to(a.dtype) * phase
+    c3 = c0_3 * t3
+    rho3 = b / _safe(torch.conj(s3), s3 == 0)
+
+    # |a| ≥ |b|: t = |b|/|a|, c = 1/√(1+t²), s = c·t·phase, ρ = a/c
+    t4 = abs_b / _safe(abs_a, a_zero)
+    c4 = one_r / torch.sqrt(one_r + t4 * t4)
+    s4 = (c4 * t4).to(a.dtype) * phase
+    rho4 = a / _safe(c4, c4 == 0).to(a.dtype)
+
+    c = torch.where(b_zero, one_r,
+                    torch.where(a_zero, torch.zeros_like(abs_a),
+                                torch.where(b_dominant, c3, c4)))
+    s = torch.where(b_zero, torch.zeros_like(a),
+                    torch.where(a_zero, torch.ones_like(a),
+                                torch.where(b_dominant, s3, s4)))
+    rho = torch.where(b_zero, a,
+                      torch.where(a_zero, b,
+                                  torch.where(b_dominant, rho3, rho4)))
+    return c, s, rho
+
+
+def sym_givens(a, b):
+    """Numerically stable symmetric Givens reflection.
+
+    Returns (c, s, ρ) with [c s; s̄ -c] applied to [a; b] giving [ρ; 0].
+    c is always real; s and ρ take the (possibly complex) promoted type
+    of a and b.  The branch structure is the JAX package's
+    (krylov_tpu/ops/kops.py:161-240, reference src/krylov_utils.jl:21-97),
+    branchless over 0-d tensors, with sym_givens(0, 0) = (1, 0, 0).
+    """
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dt), b.to(dt)
+    if dt.is_complex:
+        return _sym_givens_complex(a, b)
+    return _sym_givens_real(a, b)
 
 
 # ---------------------------------------------------------------------------

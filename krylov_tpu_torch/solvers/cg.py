@@ -209,9 +209,7 @@ def _cg_core(
             old if name == "hist" else torch.where(active, new, old)
             for name, new, old in zip(CgState._fields, s_new, s)))
 
-    for _ in range(steps):
-        state = body(state)
-    return state
+    return rt.take_steps(body, state, steps, iter_cap, callback)
 
 
 def _cg_fused_path(A, b, x0, atol, rtol, itmax, start, dinv=None,

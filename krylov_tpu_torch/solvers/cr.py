@@ -344,9 +344,7 @@ def _cr_core(
                          xNorm, rNorm_out, s_new.quad)
         return _masked(CrState._fields, active, s_new, s)
 
-    for _ in range(steps):
-        state = body(state)
-    return state
+    return rt.take_steps(body, state, steps, iter_cap, callback)
 
 
 def _trim(hist, niter, history):
@@ -571,9 +569,7 @@ def _car_core(
                          rNorm, ArNorm, alpha, beta)
         return _masked(CarState._fields, active, s_new, st)
 
-    for _ in range(steps):
-        state = body(state)
-    return state
+    return rt.take_steps(body, state, steps, iter_cap, callback)
 
 
 def _car_solve(

@@ -269,9 +269,7 @@ def _minres_core(
                 rNorm, ArNorm, beta, cs, sn, anorm, acond, test1, test2)
         return _masked(MinresState._fields, active, s_new, s, keep=_HIST)
 
-    for _ in range(steps):
-        state = body(state)
-    return state
+    return rt.take_steps(body, state, steps, iter_cap, callback)
 
 
 def _minres_solve(

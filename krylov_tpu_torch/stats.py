@@ -2,11 +2,13 @@
 
 A copy of the part of ``krylov_tpu/stats.py`` that the ported solvers
 use (numpy only; the port imports nothing of the JAX package): the
-shared status vocabulary, ``KrylovStatsBase`` and ``SimpleStats``, with
-the same fields and ``repr`` (reference: src/krylov_stats.jl:24-36).
+shared status vocabulary, ``KrylovStatsBase``, ``SimpleStats``,
+``LanczosStats``, ``LanczosShiftStats`` and ``SymmlqStats``, with the
+same fields and ``repr`` (reference: src/krylov_stats.jl).
 """
 
 from dataclasses import dataclass, field
+from typing import List
 
 import numpy as np
 
@@ -48,3 +50,36 @@ class SimpleStats(KrylovStatsBase):
     @property
     def npcCount(self):
         return self.npc_count
+
+
+@dataclass
+class LanczosStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:127-137."""
+    solved: bool = False
+    residuals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    indefinite: bool = False
+    Anorm: float = 0.0
+    Acond: float = 0.0
+
+
+@dataclass
+class LanczosShiftStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:169-179."""
+    solved: bool = False
+    residuals: List[np.ndarray] = field(default_factory=list)
+    indefinite: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, dtype=bool))
+    Anorm: float = 0.0
+    Acond: float = 0.0
+
+
+@dataclass
+class SymmlqStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:215-227 (Missing ↦ np.nan)."""
+    solved: bool = False
+    residuals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    residualscg: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    errors: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    errorscg: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    Anorm: float = 0.0
+    Acond: float = 0.0

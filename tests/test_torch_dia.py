@@ -20,11 +20,17 @@ import krylov_tpu_torch as ktt
 from krylov_tpu.ops.dia import (convdiff_dia as jconvdiff, dia_spmv as
                                 jdia_spmv, poisson_dia as jpoisson)
 from krylov_tpu.ops.pallas_dia import dia_align as jdia_align
+from krylov_tpu.ops.pallas_dia import dia_pad_layout as jdia_pad_layout
+from krylov_tpu.ops.pallas_dia import dia_spmv_padded as jdia_spmv_padded
 from krylov_tpu.ops.pallas_dia import dia_spmv_pallas
+from krylov_tpu.ops.pallas_dia import dia_unpad_layout as jdia_unpad_layout
 from krylov_tpu.operators import DIAOperator as JDIAOperator
 from krylov_tpu_torch.convert import dia_from_numpy
-from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
+from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_pad_layout,
+                                           dia_spmv_aligned,
                                            dia_spmv_aligned_ref,
+                                           dia_spmv_padded,
+                                           dia_unpad_layout, halo_width,
                                            offsets_tensor)
 from krylov_tpu_torch.ops.dia import dia_spmv
 
@@ -168,3 +174,82 @@ def test_dia_from_scipy_matches_dense():
                                M @ x, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(A.todense().numpy(), M.toarray())
 
+
+
+# the further (x, diagonal) pairs of the SpMV kernel and their tolerance
+# against the JAX package, relative to max|y|: the accumulator is f32 for
+# bf16 and f16 x (rounded to x's type at the end, so the two may differ
+# by one ulp of the narrow type), else x's own type
+PAIRS = [
+    (np.float64, np.float32, 1e-12),
+    (np.complex64, np.float32, 1e-5),
+    (np.complex64, np.complex64, 1e-5),
+    (np.complex128, np.float64, 1e-12),
+    (np.complex128, np.complex128, 1e-12),
+    ("bfloat16", "bfloat16", 1e-2),
+    (np.float16, np.float16, 1e-3),
+]
+
+
+@pytest.mark.parametrize("xdt,pdt,tol", PAIRS,
+                         ids=[f"{np.dtype(x).name}-{np.dtype(p).name}"
+                              for x, p, _ in PAIRS])
+def test_aligned_ref_new_pairs_match_jax(xdt, pdt, tol):
+    """The plain version for the pairs that got kernels in this slice,
+    against the JAX package's product on the same rounded inputs (its
+    Pallas kernel for the narrow types, its plain product otherwise)."""
+    data, offs, x = _case("random_offsets", CASES[1][1], np.float64, 6)
+    n = x.shape[0]
+    data = jnp.asarray(data).astype(pdt)
+    xj = jnp.asarray(x).astype(xdt)
+    if np.dtype(xdt).kind == "c":
+        data = data * (1.0 + 0.5j if np.dtype(pdt).kind == "c" else 1.0)
+        xj = xj * (0.5 - 1.0j)
+    pd_j = jdia_align(data, offs, n)
+    if np.dtype(xdt).itemsize < 4:
+        y_j = dia_spmv_pallas(pd_j, offs, xj, interpret=True)
+    else:
+        y_j = jdia_spmv(data, offs, xj)
+    pd_t = torch.from_numpy(np.array(pd_j.astype(jnp.float32))).to(
+        torch.bfloat16) if pdt == "bfloat16" else torch.from_numpy(
+            np.array(pd_j))
+    x_t = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        torch.bfloat16) if xdt == "bfloat16" else torch.from_numpy(
+            np.array(xj))
+    y = dia_spmv_aligned(pd_t, offsets_tensor(offs, "cpu"), x_t)
+    assert y.dtype == x_t.dtype
+    y = y.to(torch.complex128 if y.is_complex() else torch.float64)
+    want = np.asarray(y_j.astype(jnp.complex128))
+    assert np.max(np.abs(y.numpy() - want)) <= tol * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name,offs", CASES)
+def test_padded_ref_chains_like_jax(name, offs, dtype):
+    """Two chained products in the padded layout, with the port's input
+    halo full of NaN, against the JAX package's dia_spmv_padded in
+    interpret mode after unpadding (tests/test_pallas_spmv.py:214)."""
+    data, offs, x = _case(name, offs, dtype, seed=7)
+    n = x.shape[0]
+    pd_j = jdia_align(jnp.asarray(data), offs, n)
+    yw = jdia_spmv_padded(pd_j, offs, jdia_pad_layout(jnp.asarray(x), offs),
+                          n, interpret=True)
+    y2w = jdia_spmv_padded(pd_j, offs, yw, n, interpret=True)
+    pd = dia_align(torch.as_tensor(data), offs, n)
+    ot = offsets_tensor(offs, "cpu")
+    xw = dia_pad_layout(torch.as_tensor(x), offs)
+    h = halo_width(offs)
+    assert h % 32 == 0 and h >= max(abs(k) for k in offs)
+    assert xw.shape == (n + 2 * h,) and float(xw[:h].abs().max()) == 0
+    xw[:h] = float("nan")
+    xw[h + n:] = float("nan")
+    before = dia_spmv_padded.launches
+    tw = dia_spmv_padded(pd, ot, xw, n)
+    t2w = dia_spmv_padded(pd, ot, tw, n)
+    assert dia_spmv_padded.launches == before    # CPU: the plain version
+    for got, want in ((tw, yw), (t2w, y2w)):
+        got = dia_unpad_layout(got, offs, n).numpy()
+        assert np.isfinite(got).all()
+        assert _rel(got, jdia_unpad_layout(want, offs, n)) <= TOL[dtype]
+    with pytest.raises(ValueError):
+        dia_spmv_padded(pd, ot, xw[1:], n)

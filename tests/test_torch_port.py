@@ -68,7 +68,7 @@ def test_constructors_default_to_card_and_raise_without_one(make,
         make()
 
 
-SOLVERS = ("cg", "cr", "car", "minres")
+SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq")
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -85,6 +85,27 @@ def test_numpy_inputs_go_to_card_and_raise_without_one(solver, monkeypatch):
         solve(op, np.ones(4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kt.as_operator(np.eye(4))
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: kt.DiagonalOperator(np.full(4, 2.0), **kw),
+    lambda **kw: kt.MatrixOperator(2.0 * np.eye(4), **kw),
+], ids=["DiagonalOperator", "MatrixOperator"])
+def test_numpy_operator_data_goes_to_card(make, monkeypatch):
+    """Numpy data in DiagonalOperator and MatrixOperator goes to the card
+    by default and raises without one; ``device="cpu"`` keeps it on the
+    CPU, and a tensor stays where it is."""
+    op = make(device="cpu")
+    assert op.device.type == "cpu"
+    x, st = kt.cg(op, torch.ones(4, dtype=torch.float64))
+    assert x.device.type == "cpu" and st.solved
+    kept = type(op)(getattr(op, "d", getattr(op, "A", None)))
+    assert kept.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kt.cg(kt.MatrixOperator(2.0 * np.eye(4)), np.ones(4))
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -134,16 +155,24 @@ def test_build_key_tracks_sources():
 
 def test_kernel_launches_and_exports():
     got = kt.kernel_launches()
-    assert set(got) == {"dia_spmv", "cg_dia", "cg_cheby_dia", "cr_dia",
-                        "car_dia", "minres_dia"}
+    assert set(got) == {"dia_spmv", "dia_spmv_padded", "cg_dia",
+                        "cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
+                        "cg_lanczos_dia", "cg_lanczos_shift_dia",
+                        "symmlq_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
+    assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
-    for name in ("cg_cheby_dia", "cr_dia", "car_dia", "minres_dia"):
+    for name in ("cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
+                 "cg_lanczos_dia", "cg_lanczos_shift_dia", "symmlq_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
-    for name in ("cg", "cr", "car", "minres", "ChebyshevPreconditioner",
-                 "power_bound", "poisson_dia", "convdiff_dia", "DIAMatrix",
-                 "DIAOperator", "DiagonalOperator", "MatrixOperator",
-                 "FunctionOperator", "IdentityOperator", "SimpleStats"):
+    for name in ("cg", "cr", "car", "minres", "cg_lanczos",
+                 "cg_lanczos_shift", "symmlq", "sym_givens",
+                 "dia_spmv_padded", "dia_pad_layout", "dia_unpad_layout",
+                 "ChebyshevPreconditioner", "power_bound", "poisson_dia",
+                 "convdiff_dia", "DIAMatrix", "DIAOperator",
+                 "DiagonalOperator", "MatrixOperator", "FunctionOperator",
+                 "IdentityOperator", "SimpleStats", "LanczosStats",
+                 "LanczosShiftStats", "SymmlqStats"):
         assert hasattr(kt, name)
 
 
@@ -199,6 +228,10 @@ def test_foundation_matches_jax_package():
               residuals=np.arange(3.0))
     assert repr(kt.SimpleStats(**kw)) == repr(kj_stats.SimpleStats(**kw))
     assert kt.SimpleStats().npcCount == 0
+    kw = dict(niter=3, timer=0.5, status="x", solved=True, Anorm=2.0)
+    for name in ("LanczosStats", "LanczosShiftStats", "SymmlqStats"):
+        assert repr(getattr(kt, name)(**kw)) == \
+            repr(getattr(kj_stats, name)(**kw))
 
 
 def test_kops_match_jax_package():
@@ -242,32 +275,83 @@ def _card():
 
 
 def _rel(a, b):
-    a = a.double().cpu()
-    b = b.double().cpu()
+    dt = torch.complex128 if a.is_complex() or b.is_complex() \
+        else torch.float64
+    a = a.to(dt).cpu()
+    b = b.to(dt).cpu()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("xdt,pdt,tol", [
+# every (x, diagonal) pair of the SpMV kernels, and the tolerance of the
+# kernel against its plain version relative to max|y|: the kernel fuses
+# each multiply-add, so they differ by a few ulps of max|y| of the
+# accumulator, and by one ulp of the narrow type for bf16 and f16 x
+SPMV_PAIRS = [
     (torch.float32, torch.float32, 1e-6),
     (torch.float32, torch.bfloat16, 1e-6),
     (torch.float32, torch.float16, 1e-6),
     (torch.float64, torch.float64, 1e-14),
-])
-def test_spmv_kernel_matches_plain_on_card(xdt, pdt, tol):
-    """Kernel against its plain version on the same inputs; the kernel
-    fuses each multiply-add, so they differ by a few ulps of max|y|."""
-    _card()
-    rng = np.random.default_rng(8)
+    (torch.float64, torch.float32, 1e-14),
+    (torch.bfloat16, torch.bfloat16, 1e-2),
+    (torch.float16, torch.float16, 1e-3),
+    (torch.complex64, torch.float32, 1e-6),
+    (torch.complex64, torch.complex64, 1e-6),
+    (torch.complex128, torch.float64, 1e-14),
+    (torch.complex128, torch.complex128, 1e-14),
+]
+
+
+def _spmv_operands(xdt, pdt, seed=8):
+    rng = np.random.default_rng(seed)
     n, offs = 1080, (-300, -129, -1, 0, 5, 131, 257)
     data = torch.as_tensor(rng.standard_normal((len(offs), n)))
+    x = torch.as_tensor(rng.standard_normal(n))
+    if pdt.is_complex:
+        data = data * (1.0 + 0.5j)
+    if xdt.is_complex:
+        x = x * (0.5 - 1.0j)
     pd = dia_align(data, offs, n).to("cuda", pdt)
-    ot = offsets_tensor(offs, "cuda")
-    x = torch.as_tensor(rng.standard_normal(n)).to("cuda", xdt)
+    return pd, offsets_tensor(offs, "cuda"), x.to("cuda", xdt), offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,pdt,tol", SPMV_PAIRS,
+                         ids=[f"{x}-{p}".replace("torch.", "")
+                              for x, p, _ in SPMV_PAIRS])
+def test_spmv_kernel_matches_plain_on_card(xdt, pdt, tol):
+    """The aligned and the padded kernel against their plain versions on
+    the same inputs; the padded one chained twice with NaN halos."""
+    _card()
+    pd, ot, x, offs = _spmv_operands(xdt, pdt)
+    n = x.shape[0]
     before = dia_spmv_aligned.launches
     y = dia_spmv_aligned(pd, ot, x)
     assert dia_spmv_aligned.launches == before + 1
+    assert y.dtype == xdt
     assert _rel(y, dia_spmv_aligned_ref(pd, ot, x)) <= tol
+    xw = kt.dia_pad_layout(x, offs)
+    h = (xw.shape[0] - n) // 2
+    xw[:h] = float("nan")
+    xw[h + n:] = float("nan")
+    before = kt.dia_spmv_padded.launches
+    y2w = kt.dia_spmv_padded(pd, ot, kt.dia_spmv_padded(pd, ot, xw, n), n)
+    assert kt.dia_spmv_padded.launches == before + 2
+    y2 = kt.dia_unpad_layout(y2w, offs, n)
+    assert bool(torch.isfinite(torch.view_as_real(y2) if y2.is_complex()
+                               else y2).all())
+    want = dia_spmv_aligned_ref(pd, ot, dia_spmv_aligned_ref(pd, ot, x))
+    assert _rel(y2, want) <= 4 * tol
+
+
+@pytest.mark.cuda
+def test_spmv_kernel_raises_for_other_pairs():
+    _card()
+    pd, ot, x, _ = _spmv_operands(torch.float32, torch.float64)
+    with pytest.raises(ValueError, match="float32 with pd torch.float64"):
+        dia_spmv_aligned(pd, ot, x)
+    pd, ot, x, _ = _spmv_operands(torch.float32, torch.complex64)
+    with pytest.raises(ValueError, match="complex64"):
+        dia_spmv_aligned(pd, ot, x)
 
 
 @pytest.mark.cuda
@@ -370,6 +454,93 @@ def test_symmetric_kernels_match_plain_on_card(kernel, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["cg_lanczos", "cg_lanczos_curvature",
+                                    "shift", "shift_curvature", "symmlq",
+                                    "symmlq_lam", "symmlq_no_transfer",
+                                    "symmlq_init_transfer"])
+def test_lanczos_kernels_match_plain_on_card(kernel, dtype):
+    """The CG-Lanczos, CG-Lanczos-shift and SYMMLQ kernels against their
+    plain versions on the same inputs: same status and flags, niter
+    within ±max(2, 10%) (equal in f64), x to 1e-4 relative (1e-10 in
+    f64)."""
+    _card()
+    A, pd, ot, b = _poisson_on_card(16, dtype)
+    n = b.shape[0]
+    rtol = 1e-6 if dtype == torch.float32 else 1e-10
+    if kernel.endswith("curvature") and not kernel.startswith("shift"):
+        data = A.data.clone()
+        data[A.offsets.index(0), : n // 2] *= -1.0
+        pd = dia_align(data, A.offsets, n)
+    shifts = torch.tensor([-2.0, 0.0, 0.5, 2.0] if kernel ==
+                          "shift_curvature" else [0.0, 0.5, 1.0, 2.0],
+                          dtype=dtype, device="cuda")
+    if kernel == "symmlq_init_transfer":
+        b = b / b.norm()
+    wrapper, ref, args, kw = {
+        "cg_lanczos": (cf.cg_lanczos_dia_fused, cf.cg_lanczos_dia_fused_ref,
+                       (0.0, rtol, 2 * n), {}),
+        "cg_lanczos_curvature": (cf.cg_lanczos_dia_fused,
+                                 cf.cg_lanczos_dia_fused_ref,
+                                 (0.0, rtol, 2 * n),
+                                 {"check_curvature": True}),
+        "shift": (cf.cg_lanczos_shift_dia_fused,
+                  cf.cg_lanczos_shift_dia_fused_ref,
+                  (shifts, 0.0, rtol, 2 * n), {}),
+        "shift_curvature": (cf.cg_lanczos_shift_dia_fused,
+                            cf.cg_lanczos_shift_dia_fused_ref,
+                            (shifts, 0.0, rtol, 2 * n),
+                            {"check_curvature": True}),
+        "symmlq": (cf.symmlq_dia_fused, cf.symmlq_dia_fused_ref,
+                   (0.0, rtol, 1e-8, 0.0, 2 * n), {}),
+        "symmlq_lam": (cf.symmlq_dia_fused, cf.symmlq_dia_fused_ref,
+                       (0.0, rtol, 1e-8, 0.5, 2 * n), {}),
+        "symmlq_no_transfer": (cf.symmlq_dia_fused, cf.symmlq_dia_fused_ref,
+                               (0.0, rtol, 1e-8, 0.0, 2 * n),
+                               {"transfer_to_cg": False}),
+        "symmlq_init_transfer": (cf.symmlq_dia_fused,
+                                 cf.symmlq_dia_fused_ref,
+                                 (0.5, 0.0, 1e-8, 0.0, 2 * n), {}),
+    }[kernel]
+    before = wrapper.launches
+    k = wrapper(pd, ot, b, *args, **kw)
+    assert wrapper.launches > before
+    r = ref(pd, ot, b, *args, **kw)
+    kints = [v.tolist() for v in k[1:] if v.dtype == torch.int32]
+    rints = [v.tolist() for v in r[1:] if v.dtype == torch.int32]
+    assert kints[1:] == rints[1:]                   # status and flags
+    if kernel == "symmlq_init_transfer":
+        assert kints[0] == 0 and kints[1] == cf.SOLVED_CG_PT
+    if dtype == torch.float64:
+        assert kints[0] == rints[0]
+        assert _rel(k[0], r[0]) <= 1e-10
+    else:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        assert _rel(k[0], r[0]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_repaired_faults_on_card():
+    """An f64 numpy b on f32 diagonals, a complex128 system and a Jacobi
+    M built from numpy all solve on the card through the general route's
+    SpMV kernel."""
+    _card()
+    A = kt.poisson_dia(16)
+    b = np.random.default_rng(14).standard_normal(16 ** 3)
+    n0 = kt.kernel_launches()["dia_spmv"]
+    x, st = kt.cg(A, b)
+    assert x.is_cuda and x.dtype == torch.float64 and st.solved
+    assert kt.kernel_launches()["dia_spmv"] > n0
+    A64 = kt.poisson_dia(16, dtype=torch.float64)
+    x, st = kt.cr(A64, (1.0 + 0.5j) * b)
+    assert x.is_cuda and x.dtype == torch.complex128 and st.solved
+    M = kt.DiagonalOperator(np.full(16 ** 3, 1.0 / 6.0, np.float32))
+    assert M.d.is_cuda
+    x, st = kt.cg(kt.DIAOperator(A), b.astype(np.float32), M=M)
+    assert x.is_cuda and st.solved
+
+
+@pytest.mark.cuda
 def test_solvers_on_card_take_their_kernels():
     """cg with a Chebyshev M on the same operator, cr, car and minres run
     their kernels on the card; a numpy b beside a card operator goes to
@@ -383,7 +554,11 @@ def test_solvers_on_card_take_their_kernels():
             ("cr_dia", lambda: kt.cr(A, b)),
             ("car_dia", lambda: kt.car(A, b)),
             ("minres_dia", lambda: kt.minres(A, b)),
-            ("cg_dia", lambda: kt.cg(A, b))]
+            ("cg_dia", lambda: kt.cg(A, b)),
+            ("cg_lanczos_dia", lambda: kt.cg_lanczos(A, b)),
+            ("cg_lanczos_shift_dia",
+             lambda: kt.cg_lanczos_shift(A, b, [0.0, 1.0])),
+            ("symmlq_dia", lambda: kt.symmlq(A, b))]
     for name, run in runs:
         n0 = kt.kernel_launches()[name]
         x, st = run()
