@@ -7,10 +7,12 @@ PyTorch version at the shapes of the main path, solves the flagship
 system (the 3-D Poisson 7-point stencil in DIA form, 128^3 unknowns,
 float32; CG also at 256^3) through the public entry points: ``cg``
 (M = I, and a Chebyshev polynomial M), ``cr``, ``car``, ``minres``,
-``cg_lanczos``, ``cg_lanczos_shift`` and ``symmlq``, each by its
-whole-solve kernel and by the general route with its DIA SpMV kernel,
-chains the padded-layout SpMV, solves the systems whose dtypes once had
-no SpMV kernel, and checks that each path launched its kernels.  Prints
+``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``, ``minres_qlp`` and
+``minares``, each by its whole-solve kernel and by the general route
+with its DIA SpMV kernel, chains the padded-layout SpMV, solves the
+systems whose dtypes once had no SpMV kernel, drives every ported
+method through ``krylov_solve`` and a workspace round trip, and checks
+that each path launched its kernels.  Prints
 one line per phase, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 a CUDA device it exits non-zero before printing a result.
@@ -163,6 +165,7 @@ def main():
     from krylov_tpu_torch.ops import cuda_fused as cf
     from krylov_tpu_torch.ops.cuda_fused import (cg_dia_fused,
                                                  cg_dia_fused_ref)
+    from krylov_tpu_torch.solvers.minares import _STATUS as minares_status
     from krylov_tpu_torch.solvers.symmlq import _STATUS as symmlq_status
 
     def reset_counts():
@@ -373,29 +376,37 @@ def main():
         7e-3) and 1e-8 in f64 (rtol 1e-10, the same iterations).  The
         kwarg "jacobi" adds a variable Jacobi dinv, "flip" flips the sign
         of the first half of the main diagonal (an indefinite stencil),
-        and a "shifts" list becomes a tensor on the card."""
+        "three_eigenvalues" keeps only the main diagonal, set to 1, 2, 3,
+        1, 2, ... (the Krylov space is exhausted at the third step), and a
+        "shifts" list becomes a tensor on the card."""
         systems = {}
         # a generator of the phase's own, so that the later phases draw
         # the same right-hand sides as they did before the phase existed
         gen = np.random.default_rng(seed)
         for label, N, dt, name, args, kw, nvec, napply in cases:
             kw = dict(kw)
-            flip = kw.pop("flip", False)
-            if (N, dt, flip) not in systems:
+            # the stencil, or one of its two variants
+            variant = next((v for v in ("flip", "three_eigenvalues")
+                            if kw.pop(v, False)), None)
+            if (N, dt, variant) not in systems:
                 A = kt.poisson_dia(N, dtype=dt)
                 data = A.data
-                if flip:
+                if variant == "three_eigenvalues":
+                    data = torch.zeros_like(data)
+                    data[A.offsets.index(0)] = 1.0 + torch.arange(
+                        N ** 3, device=dev) % 3
+                elif variant == "flip":
                     data = data.clone()
                     data[A.offsets.index(0), : N ** 3 // 2] *= -1.0
                 pd = dia_align(data, A.offsets, A.shape[0])
-                if (N, dt, False) in systems:
-                    b = systems[N, dt, False][2]
+                if (N, dt, None) in systems:
+                    b = systems[N, dt, None][2]
                 else:
                     b = rhs(N ** 3, dt, gen)
-                systems[N, dt, flip] = (pd, offsets_tensor(A.offsets, dev),
-                                        b)
+                systems[N, dt, variant] = (
+                    pd, offsets_tensor(A.offsets, dev), b)
                 del A, data
-            pd, ot, b = systems[N, dt, flip]
+            pd, ot, b = systems[N, dt, variant]
             n = b.shape[0]
             if kw.pop("jacobi", False):
                 kw = {"dinv": 1.0 / (6.0 + 0.5 * torch.sin(torch.arange(
@@ -521,6 +532,38 @@ def main():
 
         hold_cases(lanczos_cases(128, torch.float32, 1e-6)
                    + lanczos_cases(64, torch.float64, 1e-10), SEED + 2)
+
+    with Phase("3d MINRES-QLP and MINARES kernels vs plain", 150):
+        # each plain, with lambda = 0.5, with lambda = -2 (an indefinite
+        # system, tests/test_fused.py:920-931 and 963-970) and on the
+        # diagonal with three distinct eigenvalues, where MINARES's
+        # Lanczos process stops at its breakdown while the iteration
+        # finishes; Artol = 0, so that rtol alone stops the solve.  The
+        # indefinite system needs thousands of iterations (3,800 at 32^3,
+        # the plain version on the CPU), so it runs 200, where two f32
+        # solves still agree to about 1e-5.  Per iteration MINRES-QLP
+        # reads the diagonals once, v and v_{k-1}, writes the next v, and
+        # reads and writes x, w_{k-1} and w_k (9 vectors); MINARES reads
+        # v_k, v_{k+1}, two W and two D columns, writes the next v, one W
+        # and one D column, and reads and writes x (11 vectors).
+        def qlp_cases(N, dt, rtol):
+            n = N ** 3
+            cases = []
+            for name, nvec in (("minres_qlp_dia", 9), ("minares_dia", 11)):
+                cases += [
+                    ("plain", N, dt, name, (0.0, rtol, 0.0, 0.0, 2 * n), {},
+                     nvec, 1),
+                    ("lambda=0.5", N, dt, name, (0.0, rtol, 0.0, 0.5, 2 * n),
+                     {}, nvec, 1),
+                    ("lambda=-2, 200 iterations", N, dt, name,
+                     (0.0, rtol, 0.0, -2.0, 200), {}, nvec, 1),
+                    ("three eigenvalues", N, dt, name,
+                     (0.0, rtol, 0.0, 0.0, 2 * n),
+                     {"three_eigenvalues": True}, nvec, 1)]
+            return cases
+
+        hold_cases(qlp_cases(128, torch.float32, 1e-6)
+                   + qlp_cases(64, torch.float64, 1e-10), SEED + 4)
 
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
@@ -716,6 +759,76 @@ def main():
             kw = {"atol": 0.0, "rtol": 1e-6} if name == "symmlq_dia" else {}
             print(f"  {label} {kw}:", flush=True)
             profile_solve(lambda: solve(**kw), top=8)
+
+    with Phase("5f minres_qlp and minares end to end", 150):
+        # As phase 5c, on the same 128^3 f32 system: each default solve
+        # and each solve with atol = 0, rtol = 1e-6 through the public
+        # entry point reaches its kernel's plain version's status, with a
+        # true relative residual no worse than 1.5 times the plain
+        # version's; then one general-route solve (history=True) through
+        # the DIA SpMV kernel.  The counts are set to 0 just before each
+        # path and read after.
+        paths_q = [
+            ("minres_qlp_dia", "minres_qlp",
+             lambda **kw: kt.minres_qlp(A, b, **kw),
+             cf.minres_qlp_dia_fused_ref, 3, {}),
+            ("minares_dia", "minares", lambda **kw: kt.minares(A, b, **kw),
+             cf.minares_dia_fused_ref, 4, minares_status)]
+        for name, label, solve, plain, status_at, over in paths_q:
+            torch.cuda.synchronize()
+            reset_counts()
+            runs = []
+            for kw in ({}, {"atol": 0.0, "rtol": 1e-6}):
+                t = time.perf_counter()
+                x, stats = solve(**kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                runs.append((kw, x, stats, ms))
+            counts_fused = kt.kernel_launches()
+            xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            counts = kt.kernel_launches()
+            res_h = true_rel_residual(pd, ot, b, xh)
+            for kw, x, stats, ms in runs:
+                ref = plain(pd, ot, b, kw.get("atol", tol),
+                            kw.get("rtol", tol), tol, 0.0, 2 * n)
+                code = rt.final_status_code(ref[status_at], 0, 1, False)
+                want = rt.decode_status(code, over)
+                res = true_rel_residual(pd, ot, b, x)
+                res_p = true_rel_residual(pd, ot, b, ref[0])
+                print(f"  {label} {kw}: niter={stats.niter} status="
+                      f"'{stats.status}' true_res={res:.3e} ms/solve="
+                      f"{ms:.2f} us/iter={1e3 * ms / max(stats.niter, 1):.2f}"
+                      f"; plain version: niter={int(ref[1])} status="
+                      f"'{want}' true_res={res_p:.3e}", flush=True)
+                check(stats.solved, f"{label} {kw} solved")
+                check(stats.status == want,
+                      f"{label} {kw}: the plain version's status")
+                check(x.shape == b.shape and bool(torch.isfinite(x).all()),
+                      f"{label} {kw}: finite x of shape {tuple(x.shape)}")
+                check(res <= 1.5 * res_p, f"{label} {kw}: true residual "
+                      f"{res:.3e} <= 1.5 x the plain version's")
+                del ref
+            print(f"  {label} history=True: niter={sh.niter} status="
+                  f"'{sh.status}' true_res={res_h:.3e}; launches {counts}",
+                  flush=True)
+            check(sh.solved and sh.residuals.size == sh.niter + 1,
+                  f"{label} (history=True) solved with its history")
+            check(counts_fused[name] > 0, f"{label} default calls launched "
+                  f"{name} ({counts_fused[name]} times)")
+            check(counts["dia_spmv"] > 0, f"{label} (history=True) launched"
+                  f" dia_spmv ({counts['dia_spmv']} times)")
+            launches[name] = counts[name]
+
+    with Phase("5g profiles of the two 128^3 solves", 60):
+        # atol = 0, rtol = 1e-6 and Artol = 0: with the default
+        # tolerances the relative tests (MINRES-QLP's backward error,
+        # MINARES's ||Ar|| against Artol ||Ar_0||) may stop these solves
+        # early, as minres and symmlq (phases 5b and 5d)
+        kw = {"atol": 0.0, "rtol": 1e-6, "Artol": 0.0}
+        for name, label, solve, *_ in paths_q:
+            print(f"  {label} {kw}:", flush=True)
+            profile_solve(lambda: solve(**kw), top=8)
     del A, b, pd, ot
 
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
@@ -759,6 +872,40 @@ def main():
             check(count > 0, f"{label} launched {kernel} ({count} times)")
         del A32, A64, pd64
 
+    with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
+        # Each of the nine ported methods through krylov_solve, against a
+        # direct call of its solver on the same inputs: the same status,
+        # niter and x (bit for bit: the kernels sum in a fixed order);
+        # then one workspace round trip (krylov_workspace, warm_start,
+        # krylov_solve_inplace) whose show_workspace reports the GPU.
+        A = kt.DIAOperator(kt.poisson_dia(64))
+        b = rhs(64 ** 3, gen=np.random.default_rng(SEED + 5))
+        for method in ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift",
+                       "symmlq", "minres", "minres_qlp", "minares"):
+            extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
+            x, st = kt.krylov_solve(method, A, b, *extra)
+            xd, sd = getattr(kt, method)(A, b, *extra)
+            torch.cuda.synchronize()
+            print(f"  {method}: niter={st.niter} status='{st.status}'",
+                  flush=True)
+            check(x.is_cuda and st.status == sd.status
+                  and st.niter == sd.niter and torch.equal(x, xd),
+                  f"krylov_solve('{method}') equals {method}(A, b)")
+        ws = kt.krylov_workspace("minres_qlp", A, b)
+        x0 = 0.5 * kt.minres_qlp(A, b)[0]
+        kt.warm_start(ws, x0)
+        kt.krylov_solve_inplace(ws, A, b)
+        torch.cuda.synchronize()
+        shown = kt.show_workspace(ws)
+        print(shown, flush=True)
+        res = true_rel_residual(A._pd, A._offsets, b, kt.solution(ws))
+        check(kt.issolved(ws) and kt.iteration_count(ws) >= 1,
+              f"workspace round trip solved ({kt.iteration_count(ws)} "
+              f"iterations from the warm start, true residual {res:.2e})")
+        check("architecture       GPU" in shown,
+              "show_workspace reports the GPU")
+        del A, b
+
     launches["dia_spmv_padded"] = launches_padded
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
                             "krylov_tpu/ops/pallas_dia.py:105"),
@@ -780,7 +927,11 @@ def main():
                    "krylov_tpu_torch/csrc/cg_lanczos_shift_dia.cu",
                    "krylov_tpu/ops/pallas_fused.py:1181"),
                "symmlq_dia": ("krylov_tpu_torch/csrc/symmlq_dia.cu",
-                              "krylov_tpu/ops/pallas_fused.py:3722")}
+                              "krylov_tpu/ops/pallas_fused.py:3722"),
+               "minres_qlp_dia": ("krylov_tpu_torch/csrc/minres_qlp_dia.cu",
+                                  "krylov_tpu/ops/pallas_fused.py:3935"),
+               "minares_dia": ("krylov_tpu_torch/csrc/minares_dia.cu",
+                               "krylov_tpu/ops/pallas_fused.py:4217")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

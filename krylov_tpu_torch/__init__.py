@@ -2,11 +2,12 @@
 
 A second package beside the JAX one, ported slice by slice.  It carries
 ``cg`` (with M = I, Jacobi or a Chebyshev polynomial), ``cr``, ``car``,
-``minres``, ``cg_lanczos``, ``cg_lanczos_shift`` and ``symmlq`` on DIA
-stencil operators, through hand-written CUDA kernels for Hopper
-(``csrc/``): a DIA SpMV (plain and in a padded, chainable layout) and a
-whole-solve kernel for each solver, each with a plain PyTorch version
-used on the CPU.
+``minres``, ``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``,
+``minres_qlp`` and ``minares`` on DIA stencil operators, through
+hand-written CUDA kernels for Hopper (``csrc/``): a DIA SpMV (plain and
+in a padded, chainable layout) and a whole-solve kernel for each solver,
+each with a plain PyTorch version used on the CPU; and the generic
+``krylov_solve`` / ``krylov_workspace`` interface over those methods.
 Constructors put data on the card unless the caller passes
 ``device="cpu"``; solvers run on the device of their inputs, and put
 inputs that are not tensors on the card.
@@ -27,17 +28,30 @@ from .ops.cuda_dia import (dia_pad_layout, dia_spmv_aligned,
 from .ops.cuda_fused import (car_dia_fused, cg_cheby_dia_fused,
                              cg_dia_fused, cg_lanczos_dia_fused,
                              cg_lanczos_shift_dia_fused, cr_dia_fused,
-                             minres_dia_fused, symmlq_dia_fused)
+                             minares_dia_fused, minres_dia_fused,
+                             minres_qlp_dia_fused, symmlq_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
 from .ops.kops import sym_givens
 from .precond import ChebyshevPreconditioner, power_bound
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cr import car, cr
+from .solvers.minares import minares
 from .solvers.minres import minres
+from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
 from .stats import (LanczosShiftStats, LanczosStats, SimpleStats,
                     SymmlqStats)
+
+# Generic interface + workspaces.
+from .interface import (KRYLOV_METHODS, krylov_solve, krylov_solve_inplace,
+                        krylov_workspace)
+from .show import kstdout, show_stats, show_workspace
+from .workspaces import (METHOD_TABLE, Aprod_count, Atprod_count,
+                         BlockKrylovWorkspace, KrylovConstructor,
+                         KrylovWorkspace, elapsed_time, issolved,
+                         iteration_count, results, solution, statistics,
+                         warm_start)
 
 # each CUDA kernel wrapper by the name its launch count goes under
 KERNELS = {"dia_spmv": dia_spmv_aligned,
@@ -49,7 +63,9 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "minres_dia": minres_dia_fused,
            "cg_lanczos_dia": cg_lanczos_dia_fused,
            "cg_lanczos_shift_dia": cg_lanczos_shift_dia_fused,
-           "symmlq_dia": symmlq_dia_fused}
+           "symmlq_dia": symmlq_dia_fused,
+           "minres_qlp_dia": minres_qlp_dia_fused,
+           "minares_dia": minares_dia_fused}
 
 
 def kernel_launches():

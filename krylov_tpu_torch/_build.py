@@ -87,6 +87,22 @@ _SIGNATURES = {
        + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
     **{f"ktt_symmlq_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
        for t in ("f32", "f64")},
+    # (b, work, partial, sc, st, n, grid, stream), (pd, offsets, nd, work,
+    # partial, sc, st, n, grid, iters, cap, stream) and (work, sc, st, n,
+    # grid, stream)
+    **{f"ktt_minres_qlp_dia_init_{t}": (_P,) * 5 + (_L, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ktt_minres_qlp_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_minres_qlp_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
+       for t in ("f32", "f64")},
+    # (pd, offsets, nd, b, work, partial, sc, st, n, grid, itmax, stream)
+    # and (pd, offsets, nd, work, partial, sc, st, n, grid, iters, cap,
+    # stream)
+    **{f"ktt_minares_dia_init_{t}": (_P, _P, _I) + (_P,) * 5
+       + (_L, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_minares_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _P) for t in _PAIRS},
 }
 
 

@@ -108,6 +108,44 @@ __device__ __forceinline__ T stencil_row(const P* __restrict__ pd,
   return stencil_row_acc<T>(pd, offsets, nd, x, i, n);
 }
 
+// d, or 1 where d is 0: keeps a division whose result is not taken
+// finite.
+template <typename T>
+__device__ __forceinline__ T safe(T d) { return d == T(0) ? T(1) : d; }
+
+template <typename T>
+__device__ __forceinline__ T sign(T v) {
+  return v > T(0) ? T(1) : (v < T(0) ? T(-1) : T(0));
+}
+
+// The symmetric Givens reflection (c, s, rho) of (a, b), real case,
+// branch for branch as krylov_tpu/ops/kops.py:_sym_givens_real, with
+// sym_givens(0, 0) = (1, 0, 0).
+template <typename T>
+__device__ void sym_givens(T a, T b, T& c, T& s, T& rho) {
+  const T abs_a = fabs(a);
+  const T abs_b = fabs(b);
+  if (abs_b == T(0)) {
+    c = sign(a) + (abs_a == T(0) ? T(1) : T(0));
+    s = T(0);
+    rho = abs_a;
+  } else if (abs_a == T(0)) {
+    c = T(0);
+    s = sign(b);
+    rho = abs_b;
+  } else if (abs_b > abs_a) {
+    const T t = a / b;
+    s = sign(b) / sqrt(T(1) + t * t);
+    c = s * t;
+    rho = b / safe(s);
+  } else {
+    const T t = b / a;
+    c = sign(a) / sqrt(T(1) + t * t);
+    s = c * t;
+    rho = a / safe(c);
+  }
+}
+
 // Sum of v over the block; the result is valid in thread 0 only.
 // blockDim.x must be a multiple of 32 and at most 1024.  A kernel that
 // takes a second sum calls __syncthreads() between the two, since both

@@ -72,40 +72,8 @@ __device__ __forceinline__ T* lanczos(T* work, int slot, long long n) {
   return work + static_cast<long long>(VL0 + slot % 3) * n;
 }
 
-template <typename T>
-__device__ __forceinline__ T safe(T d) { return d == T(0) ? T(1) : d; }
-
-template <typename T>
-__device__ __forceinline__ T sign(T v) {
-  return v > T(0) ? T(1) : (v < T(0) ? T(-1) : T(0));
-}
-
-// The symmetric Givens reflection (c, s, rho) of (a, b), real case,
-// branch for branch as krylov_tpu/ops/kops.py:_sym_givens_real.
-template <typename T>
-__device__ void sym_givens(T a, T b, T& c, T& s, T& rho) {
-  const T abs_a = fabs(a);
-  const T abs_b = fabs(b);
-  if (abs_b == T(0)) {
-    c = sign(a) + (abs_a == T(0) ? T(1) : T(0));
-    s = T(0);
-    rho = abs_a;
-  } else if (abs_a == T(0)) {
-    c = T(0);
-    s = sign(b);
-    rho = abs_b;
-  } else if (abs_b > abs_a) {
-    const T t = a / b;
-    s = sign(b) / sqrt(T(1) + t * t);
-    c = s * t;
-    rho = b / safe(s);
-  } else {
-    const T t = b / a;
-    c = sign(a) / sqrt(T(1) + t * t);
-    s = c * t;
-    rho = a / safe(c);
-  }
-}
+using ktt::safe;
+using ktt::sym_givens;
 
 // The rotation of the next iteration from gbar and beta: c, s, gamma and
 // zeta = eta / gamma.

@@ -22,6 +22,11 @@ same chunked, masked semantics, so that niter is exact across chunks.
   stream (``csrc/cg_lanczos_shift_dia.cu``).
 * ``symmlq_dia_fused``: SYMMLQ for (A + λI)x = b, M = I, with the CG-point
   transfer (``csrc/symmlq_dia.cu``).
+* ``minres_qlp_dia_fused``: MINRES-QLP for (A + λI)x = b, M = I, with the
+  final direction correction (``csrc/minres_qlp_dia.cu``).
+* ``minares_dia_fused``: MINARES for (A + λI)x = b, with the Lanczos
+  stream one step ahead and stopped at its breakdown
+  (``csrc/minares_dia.cu``).
 """
 
 import math
@@ -30,8 +35,8 @@ import types
 import torch
 
 from .. import _build
-from .._runtime import (COND_EXCEEDED, FWD_ERR, ILL_COND_MACH, MIN_LSQ_X,
-                        RUNNING, SOLVED, SOLVED_LSQ, SOLVED_ZERO,
+from .._runtime import (BREAKDOWN, COND_EXCEEDED, FWD_ERR, ILL_COND_MACH,
+                        MIN_LSQ_X, RUNNING, SOLVED, SOLVED_LSQ, SOLVED_ZERO,
                         ZERO_CURVATURE, ZERO_RESIDUAL, drive)
 from .cuda_dia import _check as _check_spmv
 from .cuda_dia import dia_spmv_aligned_ref
@@ -46,6 +51,8 @@ NEG_CURV = 27
 SOLVED_GEN = 34
 SOLVED_LQ = 35
 SOLVED_CG_PT = 36
+# MINARES's solved code (krylov_tpu/solvers/minares.py)
+SOLVED_ARTOL = 37
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -69,6 +76,8 @@ _CGL_RNORM, _CGL_ANORM2, _CGL_NSC, _CGL_INDEF, _CGL_NST = 9, 7, 11, 2, 5
 _CGLS_NSC, _CGLS_NBLK, _CGLS_RNORM, _CGLS_NST, _CGLS_INDEF = 5, 5, 4, 4, 1
 _SQ_RNORM, _SQ_ANORM2, _SQ_GMAX, _SQ_GMIN, _SQ_NSC, _SQ_NST = \
     18, 14, 15, 16, 24, 5
+_QLP_RNORM, _QLP_ARNORM, _QLP_NSC, _QLP_INCON, _QLP_NST = 23, 24, 31, 2, 6
+_MNA_RNORM, _MNA_ARNORM, _MNA_NSC, _MNA_NST = 34, 35, 45, 7
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -91,6 +100,8 @@ minres_dia_fused_supported = cg_dia_fused_supported
 cg_lanczos_dia_fused_supported = cg_dia_fused_supported
 cg_lanczos_shift_dia_fused_supported = cg_dia_fused_supported
 symmlq_dia_fused_supported = cg_dia_fused_supported
+minres_qlp_dia_fused_supported = cg_dia_fused_supported
+minares_dia_fused_supported = cg_dia_fused_supported
 
 
 def _scalar(v, like):
@@ -660,6 +671,310 @@ def symmlq_dia_fused_ref(pd, offsets, b, atol, rtol, ctol, lam, itmax,
 
 
 # ---------------------------------------------------------------------------
+# MINRES-QLP and MINARES: the plain versions
+# ---------------------------------------------------------------------------
+
+def minres_qlp_dia_fused_ref(pd, offsets, b, atol, rtol, artol, lam, itmax):
+    """Plain PyTorch MINRES-QLP of (A + λI) x = b, M = I (pallas_fused.py:
+    3966-4160): the Lanczos stream, the QR and LQ rotations with the
+    iter == 1 / 2 / ≥ 3 selects, the μmin/μmax and Artol tests, and the
+    final correction x += τₖ₋₁wₖ₋₁ + τₖwₖ after the stop (τₖ dropped
+    when the last iteration found the system inconsistent).
+
+    Returns (x, niter, rnorm, status, inconsistent, arnorm) as tensors,
+    as ``minres_qlp_dia_fused`` does."""
+    eps = torch.finfo(b.dtype).eps
+    tiny = torch.finfo(b.dtype).tiny
+    btol = _scalar(eps ** 0.75, b)
+    zero, one = _scalar(0, b), _scalar(1, b)
+    artol_v, lam_v = _scalar(artol, b), _scalar(lam, b)
+    beta1, eps_lim, v0 = _lanczos_start(b, atol, rtol)
+    status0 = torch.where(
+        beta1 == 0, ZERO_RESIDUAL,
+        torch.where(beta1 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), v=v0, vkm1=torch.zeros_like(b),
+        wkm1=torch.zeros_like(b), wk=torch.zeros_like(b), iter=_i32(0, b),
+        beta_k=beta1, zetabar=beta1, xi_km1=zero, tau_km2=zero,
+        tau_km1=zero, tau_k=zero, psibar_km2=zero, mubis_km2=zero,
+        mubar_km1=zero, c_km2=one, c_km1=one, s_km2=zero, s_km1=zero,
+        mumin=zero, mumax=zero, anorm2=zero, rnorm=beta1, arnorm=zero,
+        kappa=zero, incon=torch.zeros((), dtype=torch.bool, device=b.device),
+        status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2, ge3 = it == 1, it == 2, it >= 2, it >= 3
+        p = dia_spmv_aligned_ref(pd, offsets, s.v) + lam_v * s.v
+        p = p - torch.where(ge2, s.beta_k, zero) * s.vkm1
+        alpha = torch.sum(s.v * p)
+        p = p - alpha * s.v
+        beta_kp1 = torch.sqrt(torch.sum(p * p))
+        vkp1 = torch.where(beta_kp1 > btol, p / _safe(beta_kp1, one), p)
+        anorm2 = s.anorm2 + alpha * alpha + s.beta_k * s.beta_k \
+            + beta_kp1 * beta_kp1
+
+        eps_km2 = torch.where(ge3, s.s_km2 * s.beta_k, zero)
+        gbar_km1 = torch.where(ge3, -s.c_km2 * s.beta_k,
+                               torch.where(is2, s.beta_k, zero))
+        g_km1 = s.c_km1 * gbar_km1 + s.s_km1 * alpha
+        lbar_k = torch.where(is1, alpha, s.s_km1 * gbar_km1 - s.c_km1 * alpha)
+        ck, sk, l_k = sym_givens(lbar_k, beta_kp1)
+        zeta = ck * s.zetabar
+        zetabar_next = sk * s.zetabar
+
+        cp2, sp2, mubis2 = sym_givens(s.mubar_km1, g_km1)
+        cp3, sp3, mu_km2 = sym_givens(s.mubis_km2, eps_km2)
+        psi_km2 = cp3 * s.psibar_km2 + sp3 * g_km1
+        theta_k = sp3 * s.psibar_km2 - cp3 * g_km1
+        rho_km2 = sp3 * l_k
+        eta_k = -cp3 * l_k
+        cd, sd, mubis3 = sym_givens(s.mubar_km1, theta_k)
+        mubar_k = torch.where(is1, l_k,
+                              torch.where(is2, -cp2 * l_k, -cd * eta_k))
+        psibar_km1 = torch.where(is2, sp2 * l_k,
+                                 torch.where(ge3, sd * eta_k, zero))
+        mubis_km1 = torch.where(is2, mubis2, torch.where(ge3, mubis3, zero))
+        cp = torch.where(is2, cp2, cp3)
+        sp = torch.where(is2, sp2, sp3)
+
+        tau_km2 = torch.where(ge3, s.tau_km1 * s.mubis_km2
+                              / _safe(mu_km2, one), s.tau_km2)
+        tau_km1 = torch.where(
+            is2, s.tau_k * s.mubar_km1 / _safe(mubis2, one),
+            torch.where(ge3, (s.xi_km1 - psi_km2 * tau_km2)
+                        / _safe(mubis3, one), s.tau_km1))
+        xi_k = torch.where(ge3, zeta - rho_km2 * tau_km2, zeta)
+        tau_k = torch.where(
+            is1, zeta / _safe(mubar_k, one),
+            (xi_k - psibar_km1 * tau_km1) / _safe(mubar_k, one))
+
+        waux = sp * s.wkm1 - cp * s.v
+        wkm1 = torch.where(is1, s.wkm1, torch.where(
+            is2, cp * s.wk + sp * s.v, cd * s.wk + sd * waux))
+        wk = torch.where(is1, s.v, torch.where(
+            is2, sp * s.wk - cp * s.v, sd * s.wk - cd * waux))
+        x_add = torch.where(ge3, tau_km2, zero)
+        x = s.x + (x_add * cp) * s.wkm1 + (x_add * sp) * s.v
+
+        rnorm = torch.abs(zetabar_next)
+        arnorm = torch.abs(s.zetabar) * torch.sqrt(
+            lbar_k * lbar_k + (s.c_km1 * beta_kp1) ** 2)
+        kappa = torch.where(is1, _scalar(atol, b) + artol_v * arnorm,
+                            s.kappa)
+        abs_mubar = torch.abs(mubar_k)
+        lo = torch.minimum(mubis_km1, abs_mubar)
+        hi = torch.maximum(mubis_km1, abs_mubar)
+        mumin = torch.where(is1, abs_mubar, torch.where(
+            is2, torch.minimum(s.mumin, lo),
+            torch.minimum(s.mumin, torch.minimum(mu_km2, lo))))
+        mumax = torch.where(is1, abs_mubar, torch.where(
+            is2, torch.maximum(s.mumax, hi),
+            torch.maximum(s.mumax, torch.maximum(mu_km2, hi))))
+        acond = mumax / torch.clamp(mumin, min=tiny)
+        xnorm = torch.sqrt(torch.sum(x * x))
+        backward = rnorm / torch.clamp(torch.sqrt(anorm2) * xnorm, min=tiny)
+
+        zero_resid = ((1.0 + backward) <= 1.0) | (backward <= eps)
+        solved = ((1.0 + rnorm) <= 1.0) | (rnorm <= eps_lim) | zero_resid
+        incon = ((arnorm <= kappa) & (abs_mubar <= artol_v)) \
+            | ((beta_kp1 <= btol) & ~solved)
+        code = _i32(RUNNING, b)
+        for cond, c in (((1.0 + 1.0 / torch.clamp(acond, min=tiny)) <= 1.0,
+                         ILL_COND_MACH), (incon, SOLVED_LSQ),
+                        (zero_resid, SOLVED_ZERO), (solved, SOLVED)):
+            code = torch.where(cond, c, code)
+        return dict(
+            x=x, v=vkp1, vkm1=s.v, wkm1=wkm1, wk=wk, iter=it,
+            beta_k=beta_kp1, zetabar=zetabar_next, xi_km1=xi_k,
+            tau_km2=tau_km2, tau_km1=tau_km1, tau_k=tau_k,
+            psibar_km2=torch.where(ge2, psibar_km1, s.psibar_km2),
+            mubis_km2=torch.where(ge2, mubis_km1, s.mubis_km2),
+            mubar_km1=mubar_k, c_km2=torch.where(ge2, s.c_km1, s.c_km2),
+            c_km1=ck, s_km2=torch.where(ge2, s.s_km1, s.s_km2), s_km1=sk,
+            mumin=mumin, mumax=mumax, anorm2=anorm2, rnorm=rnorm,
+            arnorm=arnorm, kappa=kappa, incon=incon,
+            status=code.to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    add1 = torch.where(s.iter >= 2, s.tau_km1, zero)
+    add2 = torch.where(s.incon, zero, s.tau_k)
+    x = torch.where(s.iter >= 1, s.x + add1 * s.wkm1 + add2 * s.wk, s.x)
+    return x, s.iter, s.rnorm, s.status, s.incon.to(torch.int32), s.arnorm
+
+
+def minares_dia_fused_ref(pd, offsets, b, atol, rtol, artol, lam, itmax):
+    """Plain PyTorch MINARES of (A + λI) x = b (pallas_fused.py:
+    4248-4485): the Lanczos stream one step ahead of the iteration,
+    stopped at its breakdown (it ≤ ℓ − 1) while the iteration goes on,
+    the QR-within-QR reflection cascade, the W and D recurrences and the
+    π/τ residual estimates.
+
+    Returns (x, niter, rnorm, arnorm, status) as tensors, as
+    ``minares_dia_fused`` does; the status codes are 0 running, 2 zero
+    residual, 7 breakdown and 37 solved."""
+    btol = _scalar(torch.finfo(b.dtype).eps ** 0.75, b)
+    zero, one = _scalar(0, b), _scalar(1, b)
+    lam_v = _scalar(lam, b)
+    beta1, eps_lim, vk = _lanczos_start(b, atol, rtol)
+    q = dia_spmv_aligned_ref(pd, offsets, vk) + lam_v * vk
+    alpha1 = torch.sum(vk * q)
+    q = q - alpha1 * vk
+    beta2 = torch.sqrt(torch.sum(q * q))
+    b1a1, b1b2 = beta1 * alpha1, beta1 * beta2
+    arnorm0 = torch.sqrt(b1a1 * b1a1 + b1b2 * b1b2)
+    kappa = _scalar(atol, b) + _scalar(artol, b) * arnorm0
+    status0 = torch.where(
+        beta1 == 0, ZERO_RESIDUAL,
+        torch.where((beta1 <= eps_lim) | (arnorm0 <= kappa), SOLVED_ARTOL,
+                    RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), vk=vk,
+        vkp1=torch.where(beta2 != 0, q / _safe(beta2, one), q),
+        **{k: torch.zeros_like(b) for k in ("wkm2", "wkm1", "dkm2", "dkm1")},
+        **{k: zero for k in (
+            "gamma_km1", "lambdabar_k", "gammabar_k", "eps_km2", "eps_km1",
+            "xi_km1", "tau_km2", "tau_km1", "tau_k", "thetabar_km2",
+            "psibis_km2", "psibar_km1", "pi_km2", "pi_km1", "chibar_k",
+            "ct4", "st4", "ct3", "st3", "ct2", "st2")},
+        iter=_i32(0, b), alpha_k=alpha1, beta_k=beta1, beta_kp1=beta2,
+        zetabis_k=b1a1, zetabar_kp1=b1b2, ell=_i32(itmax + 2, b),
+        rnorm=beta1, arnorm=arnorm0, status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2, ge3 = it == 1, it == 2, it >= 2, it >= 3
+        lambdabar_k = torch.where(is1, s.alpha_k, s.lambdabar_k)
+        gammabar_k = torch.where(is1, s.beta_kp1, s.gammabar_k)
+        chibar_k = torch.where(is1, s.beta_k, s.chibar_k)
+        ck, sk, l_k = sym_givens(lambdabar_k, s.beta_kp1)
+        w_k = (s.vk - s.gamma_km1 * s.wkm1 - s.eps_km2 * s.wkm2) \
+            / _safe(l_k, one)
+
+        lan_ok = it <= s.ell - 1
+        q = dia_spmv_aligned_ref(pd, offsets, s.vkp1) + lam_v * s.vkp1 \
+            - s.beta_kp1 * s.vk
+        alpha_kp1 = torch.sum(q * s.vkp1)
+        q = q - alpha_kp1 * s.vkp1
+        beta_kp2 = torch.sqrt(torch.sum(q * q))
+        brk = beta_kp2 <= btol
+        ell = torch.where(lan_ok & brk, it + 1, s.ell).to(torch.int32)
+        v_next = torch.where(lan_ok & ~brk, q / _safe(beta_kp2, one), q)
+        alpha_kp1 = torch.where(lan_ok, alpha_kp1, s.alpha_k)
+        beta_kp2 = torch.where(lan_ok, beta_kp2, zero)
+
+        two_ok = it <= ell - 2
+        one_ok = it <= ell - 1
+        eps_k = torch.where(two_ok, sk * beta_kp2, zero)
+        gammabar_kp1 = torch.where(two_ok, -ck * beta_kp2, zero)
+        gamma_k = torch.where(one_ok, ck * gammabar_k + sk * alpha_kp1, zero)
+        lambdabar_kp1 = torch.where(one_ok, sk * gammabar_k - ck * alpha_kp1,
+                                    zero)
+
+        rho_km2 = torch.where(ge3, s.st4 * l_k, zero)
+        lhat_k = torch.where(ge3, -s.ct4 * l_k, torch.where(is2, l_k, zero))
+        phibar_km1 = torch.where(ge2, s.st3 * lhat_k, zero)
+        mubar_k = torch.where(ge2, -s.ct3 * lhat_k, l_k)
+        phi_km1 = torch.where(ge2, torch.where(
+            one_ok, s.ct2 * phibar_km1 + s.st2 * gamma_k, phibar_km1), zero)
+        ghat_k = torch.where(ge2, torch.where(
+            one_ok, s.st2 * phibar_km1 - s.ct2 * gamma_k, zero), gamma_k)
+
+        ct1n, st1n, mubis_k_g = sym_givens(mubar_k, ghat_k)
+        ct1 = torch.where(one_ok, ct1n, one)
+        st1 = torch.where(one_ok, st1n, zero)
+        mubis_k = torch.where(one_ok, mubis_k_g, mubar_k)
+        ct0n, st0n, mu_k_g = sym_givens(mubis_k, eps_k)
+        ct0 = torch.where(two_ok, ct0n, one)
+        st0 = torch.where(two_ok, st0n, zero)
+        mu_k = torch.where(two_ok, mu_k_g, mubis_k)
+
+        zring_k = torch.where(one_ok, ct1 * s.zetabis_k
+                              + st1 * s.zetabar_kp1, s.zetabis_k)
+        zetabis_kp1 = torch.where(one_ok, st1 * s.zetabis_k
+                                  - ct1 * s.zetabar_kp1, zero)
+        zeta_k = torch.where(two_ok, ct0 * zring_k, zring_k)
+        zetabar_kp2 = torch.where(two_ok, st0 * zring_k, zero)
+
+        d_k = (w_k - phi_km1 * s.dkm1 - rho_km2 * s.dkm2) / _safe(mu_k, one)
+        x = s.x + zeta_k * d_k
+        arnorm = torch.where(
+            two_ok, torch.sqrt(zetabis_kp1 ** 2 + zetabar_kp2 ** 2),
+            torch.where(it == ell - 1, torch.abs(zetabis_kp1), zero))
+
+        chm3_2, shm3_2, psibis2 = sym_givens(s.psibar_km1, phi_km1)
+        chm4, shm4, psi_km2 = sym_givens(s.psibis_km2, rho_km2)
+        theta_km2 = chm4 * s.thetabar_km2 + shm4 * phi_km1
+        delta_k = shm4 * s.thetabar_km2 - chm4 * phi_km1
+        omega_km2 = shm4 * mu_k
+        eta_k = -chm4 * mu_k
+        chm3_3, shm3_3, psibis3 = sym_givens(s.psibar_km1, delta_k)
+        psibar_k = torch.where(is1, mu_k, torch.where(
+            is2, -chm3_2 * mu_k, -chm3_3 * eta_k))
+        thetabar_km1 = torch.where(is2, shm3_2 * mu_k, torch.where(
+            ge3, shm3_3 * eta_k, zero))
+        psibis_km1 = torch.where(is2, psibis2,
+                                 torch.where(ge3, psibis3, zero))
+
+        tau_km2 = torch.where(ge3, s.tau_km1 * s.psibis_km2
+                              / _safe(psi_km2, one), s.tau_km2)
+        tau_km1 = torch.where(
+            is2, s.tau_k * s.psibar_km1 / _safe(psibis2, one),
+            torch.where(ge3, (s.xi_km1 - theta_km2 * tau_km2)
+                        / _safe(psibis3, one), s.tau_km1))
+        xi_k = torch.where(ge3, zeta_k - omega_km2 * tau_km2, zeta_k)
+        tau_k = torch.where(
+            is1, zeta_k / _safe(psibar_k, one),
+            (xi_k - thetabar_km1 * tau_km1) / _safe(psibar_k, one))
+
+        chi_k = ck * chibar_k
+        chibar_kp1 = sk * chibar_k
+        pi3a_k = shm4 * s.pi_km2 - chm4 * chi_k
+        pi_km1_mid = torch.where(
+            is2, chm3_2 * s.pi_km1 + shm3_2 * chi_k,
+            torch.where(ge3, chm3_3 * s.pi_km1 + shm3_3 * pi3a_k, s.pi_km1))
+        pi_k = torch.where(is1, chi_k, torch.where(
+            is2, shm3_2 * s.pi_km1 - chm3_2 * chi_k,
+            shm3_3 * s.pi_km1 - chm3_3 * pi3a_k))
+        pi_km2 = torch.where(ge3, chm4 * s.pi_km2 + shm4 * chi_k, s.pi_km2)
+        rnorm = torch.where(
+            is1, torch.sqrt((pi_k - tau_k) ** 2 + chibar_kp1 ** 2),
+            torch.sqrt((pi_km1_mid - tau_km1) ** 2 + (pi_k - tau_k) ** 2
+                       + chibar_kp1 ** 2))
+
+        solved = (rnorm <= eps_lim) | (arnorm <= kappa)
+        code = torch.where(solved, SOLVED_ARTOL, torch.where(
+            s.beta_kp1 <= btol, BREAKDOWN, RUNNING)).to(torch.int32)
+        return dict(
+            x=x, vk=s.vkp1, vkp1=v_next,
+            wkm2=torch.where(ge2, s.wkm1, s.wkm2), wkm1=w_k,
+            dkm2=torch.where(ge2, s.dkm1, s.dkm2), dkm1=d_k, iter=it,
+            alpha_k=torch.where(one_ok, alpha_kp1, s.alpha_k),
+            beta_k=s.beta_kp1,
+            beta_kp1=torch.where(one_ok, beta_kp2, s.beta_kp1),
+            gamma_km1=torch.where(one_ok, gamma_k, s.gamma_km1),
+            lambdabar_k=torch.where(one_ok, lambdabar_kp1, lambdabar_k),
+            gammabar_k=torch.where(two_ok, gammabar_kp1, gammabar_k),
+            eps_km2=torch.where(ge2, s.eps_km1, s.eps_km2),
+            eps_km1=torch.where(two_ok, eps_k, s.eps_km1),
+            xi_km1=xi_k, tau_km2=tau_km2, tau_km1=tau_km1, tau_k=tau_k,
+            thetabar_km2=torch.where(ge2, thetabar_km1, s.thetabar_km2),
+            psibis_km2=torch.where(ge2, psibis_km1, s.psibis_km2),
+            psibar_km1=psibar_k,
+            pi_km2=torch.where(ge2, pi_km1_mid, pi_km2), pi_km1=pi_k,
+            chibar_k=chibar_kp1,
+            zetabis_k=torch.where(one_ok, zetabis_kp1, s.zetabis_k),
+            zetabar_kp1=torch.where(two_ok, zetabar_kp2, s.zetabar_kp1),
+            ct4=torch.where(ge2, s.ct2, s.ct4),
+            st4=torch.where(ge2, s.st2, s.st4),
+            ct3=ct1, st3=st1, ct2=ct0, st2=st0, ell=ell, rnorm=rnorm,
+            arnorm=arnorm, status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.arnorm, s.status
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -714,6 +1029,16 @@ def _run(wrapper, b, init_name, init_args, iter_name, iter_args, st, itmax):
             return state
 
         drive(run, itmax, float("inf"))
+
+
+def _finish(wrapper, name, b, args):
+    """One finishing launch after the loop (it reads the final state on
+    the device), counted as a launch of ``wrapper``'s kernel."""
+    with torch.cuda.device(b.device):
+        err = getattr(_build.library(), name)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    wrapper.launches += 1
+    _build.check(err, name)
 
 
 def cg_dia_fused(pd, offsets, b, atol, rtol, itmax, dinv=None):
@@ -987,15 +1312,78 @@ def symmlq_dia_fused(pd, offsets, b, atol, rtol, ctol, lam, itmax,
     _run(symmlq_dia_fused, b, f"ktt_symmlq_dia_init_{pair}",
          args[:3] + (b.data_ptr(),) + args[3:],
          f"ktt_symmlq_dia_iterate_{pair}", args, st, itmax)
-    name = f"ktt_symmlq_dia_finish_{pair[:3]}"
-    with torch.cuda.device(b.device):
-        err = getattr(_build.library(), name)(
-            work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
-            torch.cuda.current_stream().cuda_stream)
-    symmlq_dia_fused.launches += 1
-    _build.check(err, name)
+    _finish(symmlq_dia_fused, f"ktt_symmlq_dia_finish_{pair[:3]}", b,
+            (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid))
     return (work[0].clone(), st[_IT], sc[_SQ_RNORM], st[_STATUS],
             sc[_SQ_ANORM2], sc[_SQ_GMAX], sc[_SQ_GMIN])
 
 
 symmlq_dia_fused.launches = 0
+
+
+def minres_qlp_dia_fused(pd, offsets, b, atol, rtol, artol, lam, itmax):
+    """Full MINRES-QLP solve of (A + λI) x = b for a DIA matrix, M = I.
+
+    artol is the tolerance of the inconsistency test on ‖Ar‖ and |μ̄ₖ|.
+    After the loop one finishing launch applies x += τₖ₋₁wₖ₋₁ + τₖwₖ
+    (τₖ dropped when the system was found inconsistent).
+    Returns (x, niter, rnorm, status_code, inconsistent, arnorm) as
+    tensors on b's device.
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return minres_qlp_dia_fused_ref(pd, offsets, b, atol, rtol, artol,
+                                        lam, itmax)
+    pair = _pair("MINRES-QLP", b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_QLP_NSC, b, dict(enumerate(
+        (atol, rtol, artol, lam, torch.finfo(b.dtype).eps ** 0.75))))
+    work = torch.zeros((6, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_QLP_NST, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(minres_qlp_dia_fused, b, f"ktt_minres_qlp_dia_init_{pair[:3]}",
+         (b.data_ptr(),) + bufs, f"ktt_minres_qlp_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + bufs, st, itmax)
+    _finish(minres_qlp_dia_fused, f"ktt_minres_qlp_dia_finish_{pair[:3]}",
+            b, bufs[:1] + bufs[2:])
+    return (work[0].clone(), st[_IT], sc[_QLP_RNORM], st[_STATUS],
+            st[_QLP_INCON], sc[_QLP_ARNORM])
+
+
+minres_qlp_dia_fused.launches = 0
+
+
+def minares_dia_fused(pd, offsets, b, atol, rtol, artol, lam, itmax):
+    """Full MINARES solve of (A + λI) x = b for a DIA matrix.
+
+    artol is the tolerance of the ‖Ar‖ stop.  Once the Lanczos process
+    breaks down (βₖ₊₂ ≤ eps^¾) its stencil launch is skipped by a device
+    flag while the iteration finishes.
+    Returns (x, niter, rnorm, arnorm, status_code) as tensors on b's
+    device; the status codes are 0 running, 2 zero residual, 7
+    breakdown and 37 solved.
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return minares_dia_fused_ref(pd, offsets, b, atol, rtol, artol, lam,
+                                     itmax)
+    pair = _pair("MINARES", b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_MNA_NSC, b, dict(enumerate(
+        (atol, rtol, artol, lam, torch.finfo(b.dtype).eps ** 0.75))))
+    work = torch.zeros((10, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(grid, dtype=b.dtype, device=b.device)
+    st = torch.zeros(_MNA_NST, dtype=torch.int32, device=b.device)
+    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0])
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(minares_dia_fused, b, f"ktt_minares_dia_init_{pair}",
+         head + (b.data_ptr(),) + bufs + (int(itmax),),
+         f"ktt_minares_dia_iterate_{pair}", head + bufs, st, itmax)
+    return (work[0].clone(), st[_IT], sc[_MNA_RNORM], sc[_MNA_ARNORM],
+            st[_STATUS])
+
+
+minares_dia_fused.launches = 0

@@ -277,7 +277,7 @@ def _cg_solve(
     if precision == "double_word":
         raise NotImplementedError(
             "precision='double_word' is not ported yet (ROADMAP.md Queue 1 "
-            "item 12, solvers/_refine.py)")
+            "item 8, solvers/_refine.py)")
     dot2 = precision == "compensated"
 
     # Fast path: DIA stencil + default config → whole-solve kernel (M = I,

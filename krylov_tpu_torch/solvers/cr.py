@@ -452,7 +452,7 @@ def _no_double_word(method, precision):
     if precision == "double_word":
         raise NotImplementedError(
             "precision='double_word' is not ported yet (ROADMAP.md Queue 1 "
-            "item 12, solvers/_refine.py)")
+            "item 8, solvers/_refine.py)")
 
 
 def cr(A, b, x0=None, *, precision=None, **kwargs):
@@ -460,7 +460,7 @@ def cr(A, b, x0=None, *, precision=None, **kwargs):
 
     ``precision="double_word"`` raises NotImplementedError until the
     iterative refinement (solvers/_refine.py, ROADMAP.md Queue 1
-    item 12) is ported."""
+    item 8) is ported."""
     _no_double_word("CR", precision)
     x, stats, _ = _cr_solve(A, b, x0, **kwargs)
     return x, stats
@@ -639,7 +639,7 @@ def car(A, b, x0=None, *, precision=None, **kwargs):
 
     ``precision="double_word"`` raises NotImplementedError until the
     iterative refinement (solvers/_refine.py, ROADMAP.md Queue 1
-    item 12) is ported."""
+    item 8) is ported."""
     _no_double_word("CAR", precision)
     x, stats, _ = _car_solve(A, b, x0, **kwargs)
     return x, stats

@@ -381,7 +381,7 @@ def minres(A, b, x0=None, *, precision=None, **kwargs):
 
     ``precision="double_word"`` raises NotImplementedError until the
     iterative refinement (solvers/_refine.py, ROADMAP.md Queue 1
-    item 12) is ported."""
+    item 8) is ported."""
     _no_double_word("MINRES", precision)
     x, stats, _ = _minres_solve(A, b, x0, **kwargs)
     return x, stats

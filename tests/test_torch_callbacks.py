@@ -20,7 +20,8 @@ import krylov_tpu_torch as kt
 from krylov_tpu.ops.dia import poisson_dia as jpoisson
 from krylov_tpu_torch.convert import dia_from_numpy
 
-SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq")
+SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq", "minres_qlp",
+           "minares")
 
 
 @pytest.mark.parametrize("solver", SOLVERS)

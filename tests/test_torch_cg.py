@@ -227,7 +227,7 @@ def test_verbose_prints_table(capsys):
 def test_unported_options_raise():
     D, A, b, _ = _poisson(N=4)
     bt = torch.as_tensor(b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         kt.cg(A, bt, precision="double_word")
     with pytest.raises(ValueError):
         kt.cg(A, bt, radius=1.0, linesearch=True)

@@ -240,7 +240,7 @@ def test_history_and_timemax_take_general_route(method):
 def test_precision_options(method):
     A, b = fx.symmetric_definite()
     ts = SOLVERS[method][1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         ts(torch.as_tensor(A), b, precision="double_word")
     with pytest.raises(ValueError):
         ts(torch.as_tensor(A), b, precision="quad")

@@ -1,0 +1,199 @@
+"""The port's generic interface and workspaces against krylov_tpu's
+(tests/test_interface.py, tests/test_storage.py and
+tests/test_stats_show.py for the methods the port has).
+
+Inputs are made with numpy from a seed (or the fixture generators) and
+given to both packages.  Tolerances: in f64 the status string and niter
+are equal and x agrees to 1e-8 relative (reductions are summed in
+another order).  Every method the port does not have yet raises
+``NotImplementedError`` naming its item of ROADMAP.md Queue 1 when its
+workspace is built.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+torch = pytest.importorskip("torch")
+
+import fixtures as fx
+import krylov_tpu as kj
+import krylov_tpu_torch as kt
+from krylov_tpu_torch import workspaces as tws
+
+PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
+          "minres", "minres_qlp", "minares")
+# the ROADMAP.md Queue 1 item that ports each other method
+QUEUE_ITEM = {
+    **dict.fromkeys(("gmres", "fgmres", "fom", "diom", "dqgmres", "bicgstab",
+                     "cgs", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
+                     "trilqr", "usymlqr"), 4),
+    **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
+                     "cgls_lanczos_shift", "cgne", "crmr", "craig",
+                     "craigmr", "lnlq"), 5),
+    **dict.fromkeys(("tricg", "trimr", "gpmr"), 6),
+    **dict.fromkeys(("block_minres", "block_gmres"), 7),
+}
+SHIFTS = [0.0, 1.0]
+N_, NSH = 10, 2
+# element budgets for the large tensors (size ≥ n) of each state, copied
+# from tests/test_storage.py:35-46 (reference docs/src/storage.md:50-80)
+BUDGETS = {
+    "cg": lambda n: 4 * n,
+    "cr": lambda n: 5 * n,
+    "car": lambda n: 7 * n,
+    "cg_lanczos": lambda n: 5 * n,
+    "cg_lanczos_shift": lambda n: 3 * n + 2 * n * NSH + 5 * NSH,
+    "symmlq": lambda n: 6 * n,
+    "minres": lambda n: 6 * n,
+    "minres_qlp": lambda n: 6 * n,
+    "minares": lambda n: 8 * n,
+}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+
+def _system(n=20):
+    A, b = fx.symmetric_definite(n=n)
+    return np.asarray(A), np.asarray(b)
+
+
+def _extra(method):
+    return (SHIFTS,) if method == "cg_lanczos_shift" else ()
+
+
+def test_method_table_is_the_reference_table():
+    assert kt.METHOD_TABLE == kj.METHOD_TABLE
+    assert kt.KRYLOV_METHODS == kj.KRYLOV_METHODS
+    assert set(PORTED) | set(QUEUE_ITEM) == set(kt.METHOD_TABLE)
+
+
+@pytest.mark.parametrize("method", PORTED)
+def test_krylov_solve_matches_jax(method):
+    A, b = _system()
+    xj, sj = kj.krylov_solve(method, A, b, *_extra(method))
+    xt, st = kt.krylov_solve(method, torch.as_tensor(A), b, *_extra(method))
+    assert st.status == sj.status and st.niter == sj.niter
+    assert st.solved == sj.solved
+    assert _rel(xt.numpy(), xj) <= 1e-8
+    xd, sd = getattr(kt, method)(torch.as_tensor(A), b, *_extra(method))
+    assert sd.niter == st.niter and torch.equal(xd, xt)
+
+
+@pytest.mark.parametrize("method", sorted(QUEUE_ITEM))
+def test_unported_method_raises_naming_its_queue_item(method):
+    A, b = _system()
+    match = f"Queue 1 item {QUEUE_ITEM[method]}"
+    with pytest.raises(NotImplementedError, match=match):
+        kt.krylov_workspace(method)
+    with pytest.raises(NotImplementedError, match=match):
+        kt.krylov_solve(method, torch.as_tensor(A), b)
+
+
+def test_unknown_method_and_workspace_classes():
+    with pytest.raises(ValueError, match="unknown Krylov method"):
+        kt.krylov_workspace("not_a_method")
+    A, b = _system()
+    ws = tws.MinresQlpWorkspace(torch.as_tensor(A), torch.as_tensor(b))
+    assert (ws.m, ws.n, ws.dtype) == (20, 20, torch.float64)
+    kc = kt.KrylovConstructor(torch.as_tensor(b))
+    ws = kt.KrylovWorkspace("minares", kc)
+    assert (ws.m, ws.n, ws.dtype) == (20, 20, torch.float64)
+    assert issubclass(tws.BlockMinresWorkspace, kt.BlockKrylovWorkspace)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tws.BlockMinresWorkspace(4, 4)
+
+
+@pytest.mark.parametrize("method", ["cg", "minres_qlp", "minares"])
+def test_workspace_accessors_match_jax(method):
+    A, b = _system(30)
+    wj = kj.krylov_workspace(method, A, b)
+    wt = kt.krylov_workspace(method, torch.as_tensor(A), b)
+    kj.krylov_solve_inplace(wj, A, b)
+    kt.krylov_solve_inplace(wt, torch.as_tensor(A), b)
+    assert kt.issolved(wt) == kj.issolved(wj)
+    assert kt.iteration_count(wt) == kj.iteration_count(wj)
+    assert kt.Aprod_count(wt) == kj.Aprod_count(wj)
+    assert kt.Atprod_count(wt) == kj.Atprod_count(wj) == 0
+    assert kt.elapsed_time(wt) > 0
+    assert kt.statistics(wt).status == kj.statistics(wj).status
+    x, stats = kt.results(wt)
+    assert stats is kt.statistics(wt) and x is kt.solution(wt)
+    assert _rel(kt.solution(wt).numpy(), kj.solution(wj)) <= 1e-8
+    with pytest.raises(ValueError, match="only one solution"):
+        kt.solution(wt, 2)
+    assert wt.rNorm is not None and "state storage" in repr(wt)
+    # a warm start from half the solution, then a second system
+    x0 = 0.5 * np.asarray(kj.solution(wj))
+    kj.warm_start(wj, x0)
+    kt.warm_start(wt, x0)
+    kj.krylov_solve_inplace(wj, A, b)
+    kt.krylov_solve_inplace(wt, torch.as_tensor(A), b)
+    assert kt.iteration_count(wt) == kj.iteration_count(wj)
+    assert _rel(kt.solution(wt).numpy(), kj.solution(wj)) <= 1e-8
+    assert wt._x0 is None
+    kt.krylov_solve_inplace(wt, torch.as_tensor(2.0 * A), b)
+    kj.krylov_solve_inplace(wj, 2.0 * A, b)
+    assert kt.iteration_count(wt) == kj.iteration_count(wj)
+    assert _rel(kt.solution(wt).numpy(), kj.solution(wj)) <= 1e-8
+
+
+def test_warm_start_refused_and_double_word_through_the_workspace():
+    A, b = _system()
+    with pytest.raises(ValueError, match="does not support warm starts"):
+        kt.warm_start(kt.krylov_workspace("cg_lanczos_shift"), b)
+    ws = kt.krylov_workspace("minres_qlp", precision="double_word")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        kt.krylov_solve_inplace(ws, torch.as_tensor(A), b)
+    x, st = kt.krylov_solve("cg", torch.as_tensor(A), b,
+                            precision="compensated")
+    assert st.solved
+
+
+@pytest.mark.parametrize("method", ["cg_lanczos", "cg_lanczos_shift",
+                                    "symmlq", "minres_qlp"])
+def test_show_stats_matches_jax(method):
+    """The port's stats classes render as the JAX package's do, field for
+    field, given the same values."""
+    A, b = _system()
+    _, sj = kj.krylov_solve(method, A, b, *_extra(method), history=True)
+    port_cls = getattr(kt, type(sj).__name__)
+    st = port_cls(**{f.name: getattr(sj, f.name)
+                     for f in dataclasses.fields(sj)})
+    assert kt.show_stats(st) == kj.show_stats(sj)
+
+
+def test_show_workspace_and_kstdout():
+    A, b = _system()
+    ws = kt.krylov_workspace("minres_qlp", torch.as_tensor(A), b)
+    kt.krylov_solve_inplace(ws, torch.as_tensor(A), b)
+    shown = kt.show_workspace(ws)
+    assert "method=minres_qlp" in shown and "w_km1" in shown
+    assert "architecture       CPU" in shown
+    total = sum(t.numel() * t.element_size()
+                for _, t in tws.state_tensors(ws.state))
+    assert f"total storage      {total} bytes" in shown
+    assert kt.kstdout is not None
+
+
+def _storage_system(n=N_):
+    """The SPD fixture of tests/fixtures.py:drive_method."""
+    A = np.diag(4.0 * np.ones(n)) + np.diag(-np.ones(n - 1), 1) \
+        + np.diag(-np.ones(n - 1), -1)
+    b = np.random.default_rng(42).standard_normal(n)
+    return torch.as_tensor(A), torch.as_tensor(b)
+
+
+@pytest.mark.parametrize("method", PORTED)
+def test_state_within_storage_budget(method):
+    A, b = _storage_system()
+    solve, _ = tws._resolve(method)
+    shifts = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
+    _, stats, state = solve(A, b, *shifts)
+    assert state is not None and stats.niter > 0
+    big = sum(t.numel() for _, t in tws.state_tensors(state)
+              if t.numel() >= N_)
+    assert big <= BUDGETS[method](N_), (method, big)

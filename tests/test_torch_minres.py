@@ -228,7 +228,7 @@ def test_history_takes_general_route():
 
 def test_precision_options():
     A, b = fx.symmetric_definite()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         kt.minres(torch.as_tensor(A), b, precision="double_word")
     with pytest.raises(ValueError):
         kt.minres(torch.as_tensor(A), b, precision="quad")

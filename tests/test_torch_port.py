@@ -68,7 +68,8 @@ def test_constructors_default_to_card_and_raise_without_one(make,
         make()
 
 
-SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq")
+SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq",
+           "minres_qlp", "minares")
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -147,6 +148,38 @@ def test_sources_define_every_bound_entry_point():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def _enum(source, name):
+    """The members of ``enum name { ... }`` in a csrc file, in order."""
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / source).read_text()
+    body = re.search(r"enum " + name + r" \{([^}]*)\}", text).group(1)
+    return [m.split("=")[0].strip() for m in body.split(",")]
+
+
+@pytest.mark.parametrize("source,slots", [
+    ("minres_qlp_dia.cu", {"ScalarSlot": {"RNORM": cf._QLP_RNORM,
+                                          "ARNORM": cf._QLP_ARNORM,
+                                          "NSC": cf._QLP_NSC},
+                           "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                       "INCON": cf._QLP_INCON,
+                                       "NST": cf._QLP_NST}}),
+    ("minares_dia.cu", {"ScalarSlot": {"RNORM": cf._MNA_RNORM,
+                                       "ARNORM": cf._MNA_ARNORM,
+                                       "NSC": cf._MNA_NSC},
+                        "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                    "NST": cf._MNA_NST}}),
+])
+def test_wrapper_slots_match_kernel_enums(source, slots):
+    """The slots the wrappers read and the array sizes they allocate are
+    the kernels' enum values; the host sets ATOL, RTOL, ARTOL, LAM and
+    BTOL in that order."""
+    for enum, want in slots.items():
+        members = _enum(source, enum)
+        for name, slot in want.items():
+            assert members.index(name) == slot, (source, name)
+    assert _enum(source, "ScalarSlot")[:5] == ["ATOL", "RTOL", "ARTOL",
+                                               "LAM", "BTOL"]
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -158,15 +191,23 @@ def test_kernel_launches_and_exports():
     assert set(got) == {"dia_spmv", "dia_spmv_padded", "cg_dia",
                         "cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
                         "cg_lanczos_dia", "cg_lanczos_shift_dia",
-                        "symmlq_dia"}
+                        "symmlq_dia", "minres_qlp_dia", "minares_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
     for name in ("cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
-                 "cg_lanczos_dia", "cg_lanczos_shift_dia", "symmlq_dia"):
+                 "cg_lanczos_dia", "cg_lanczos_shift_dia", "symmlq_dia",
+                 "minres_qlp_dia", "minares_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
-                 "cg_lanczos_shift", "symmlq", "sym_givens",
+                 "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
+                 "krylov_solve", "krylov_workspace", "krylov_solve_inplace",
+                 "KRYLOV_METHODS", "show_stats", "show_workspace",
+                 "kstdout", "KrylovConstructor", "KrylovWorkspace",
+                 "BlockKrylovWorkspace", "METHOD_TABLE", "solution",
+                 "statistics", "results", "issolved", "iteration_count",
+                 "Aprod_count", "Atprod_count", "warm_start",
+                 "elapsed_time", "sym_givens",
                  "dia_spmv_padded", "dia_pad_layout", "dia_unpad_layout",
                  "ChebyshevPreconditioner", "power_bound", "poisson_dia",
                  "convdiff_dia", "DIAMatrix", "DIAOperator",
@@ -520,6 +561,59 @@ def test_lanczos_kernels_match_plain_on_card(kernel, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["minres_qlp", "minres_qlp_lam",
+                                    "minres_qlp_indefinite",
+                                    "minres_qlp_three_eigenvalues",
+                                    "minares", "minares_lam",
+                                    "minares_indefinite",
+                                    "minares_three_eigenvalues"])
+def test_qlp_and_minares_kernels_match_plain_on_card(kernel, dtype):
+    """The MINRES-QLP and MINARES kernels against their plain versions on
+    the same inputs: same status and flags, niter within ±max(2, 10%)
+    (equal in f64), x to 1e-4 relative (1e-10 in f64).  λ = −2 makes the
+    stencil indefinite; it runs 40 iterations, a tenth of the five
+    hundred it needs, where two f32 solves still agree to about 1e-6
+    (at 60 they part by 6e-5 in the plain versions' f32 against f64 on
+    the CPU).
+    The diagonal matrix with three distinct eigenvalues exhausts the
+    Krylov space at the third step: MINARES's Lanczos process stops (ℓ)
+    while the iteration finishes."""
+    _card()
+    _, pd, ot, b = _poisson_on_card(16, dtype)
+    n = b.shape[0]
+    rtol = 1e-6 if dtype == torch.float32 else 1e-10
+    artol = 1e-6 if dtype == torch.float32 else 1e-10
+    lam, itmax = 0.0, 2 * n
+    if kernel.endswith("lam"):
+        lam = 0.5
+    elif kernel.endswith("indefinite"):
+        lam, itmax = -2.0, 40
+    elif kernel.endswith("three_eigenvalues"):
+        pd = (1.0 + torch.arange(n, device="cuda") % 3).to(dtype)[None]
+        ot = offsets_tensor((0,), "cuda")
+    name = "minres_qlp" if kernel.startswith("minres_qlp") else "minares"
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    args = (0.0, rtol, artol, lam, itmax)
+    before = wrapper.launches
+    k = wrapper(pd, ot, b, *args)
+    assert wrapper.launches > before
+    r = ref(pd, ot, b, *args)
+    kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+    rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+    assert kints[1:] == rints[1:]                   # status and flags
+    if kernel.endswith("three_eigenvalues"):
+        assert rints[0] <= 4
+    if dtype == torch.float64:
+        assert kints[0] == rints[0]
+        assert _rel(k[0], r[0]) <= 1e-10
+    else:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        assert _rel(k[0], r[0]) <= 1e-4
+
+
+@pytest.mark.cuda
 def test_repaired_faults_on_card():
     """An f64 numpy b on f32 diagonals, a complex128 system and a Jacobi
     M built from numpy all solve on the card through the general route's
@@ -542,9 +636,9 @@ def test_repaired_faults_on_card():
 
 @pytest.mark.cuda
 def test_solvers_on_card_take_their_kernels():
-    """cg with a Chebyshev M on the same operator, cr, car and minres run
-    their kernels on the card; a numpy b beside a card operator goes to
-    the card."""
+    """cg with a Chebyshev M on the same operator and every other ported
+    solver run their kernels on the card; a numpy b beside a card
+    operator goes to the card."""
     _card()
     A = kt.DIAOperator(kt.poisson_dia(16))
     b = np.random.default_rng(13).standard_normal(16 ** 3).astype(
@@ -558,7 +652,9 @@ def test_solvers_on_card_take_their_kernels():
             ("cg_lanczos_dia", lambda: kt.cg_lanczos(A, b)),
             ("cg_lanczos_shift_dia",
              lambda: kt.cg_lanczos_shift(A, b, [0.0, 1.0])),
-            ("symmlq_dia", lambda: kt.symmlq(A, b))]
+            ("symmlq_dia", lambda: kt.symmlq(A, b)),
+            ("minres_qlp_dia", lambda: kt.minres_qlp(A, b)),
+            ("minares_dia", lambda: kt.minares(A, b))]
     for name, run in runs:
         n0 = kt.kernel_launches()[name]
         x, st = run()
