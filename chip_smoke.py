@@ -8,8 +8,10 @@ system (the 3-D Poisson 7-point stencil in DIA form, 128^3 unknowns,
 float32; CG also at 256^3) through the public entry points: ``cg``
 (M = I, and a Chebyshev polynomial M), ``cr``, ``car``, ``minres``,
 ``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``, ``minres_qlp`` and
-``minares``, each by its whole-solve kernel and by the general route
-with its DIA SpMV kernel, chains the padded-layout SpMV, solves the
+``minares``, and the non-symmetric convection-diffusion stencil of the
+same size through ``gmres``, ``fgmres``, ``fom``, ``bicgstab`` and
+``cgs``, each by its whole-solve kernel and by the general route with
+its DIA SpMV kernel, chains the padded-layout SpMV, solves the
 systems whose dtypes once had no SpMV kernel, drives every ported
 method through ``krylov_solve`` and a workspace round trip, and checks
 that each path launched its kernels.  Prints
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 SEED = 0
-TOTAL_LIMIT_S = 300.0
+TOTAL_LIMIT_S = 600.0
 T0 = time.perf_counter()
 
 
@@ -165,6 +167,8 @@ def main():
     from krylov_tpu_torch.ops import cuda_fused as cf
     from krylov_tpu_torch.ops.cuda_fused import (cg_dia_fused,
                                                  cg_dia_fused_ref)
+    from krylov_tpu_torch.solvers.bicgstab import _STATUS as biortho_status
+    from krylov_tpu_torch.solvers.fom import _FOM_STATUS as fom_status
     from krylov_tpu_torch.solvers.minares import _STATUS as minares_status
     from krylov_tpu_torch.solvers.symmlq import _STATUS as symmlq_status
 
@@ -370,15 +374,24 @@ def main():
         (pd, ot, b), kwargs, the vectors every iteration must read and
         write beside the stencil's diagonals, the stencil applications
         per iteration).  Tolerances: status and flags equal; niter within
-        ±max(2, 10%) in f32 and equal in f64; max|x - x_plain| /
+        ±max(2, 10%) in f32 (and for BiCGSTAB and CGS in f64) and equal in
+        f64; max|x - x_plain| /
         max|x_plain| within 1e-2 in f32 (two solves stopped at rtol 1e-6
         on a system of condition number about 6.7e3 may differ by about
         7e-3) and 1e-8 in f64 (rtol 1e-10, the same iterations).  The
         kwarg "jacobi" adds a variable Jacobi dinv, "flip" flips the sign
         of the first half of the main diagonal (an indefinite stencil),
         "three_eigenvalues" keeps only the main diagonal, set to 1, 2, 3,
-        1, 2, ... (the Krylov space is exhausted at the third step), and a
-        "shifts" list becomes a tensor on the card."""
+        1, 2, ... (the Krylov space is exhausted at the third step),
+        "convdiff" takes the convection-diffusion stencil (cell Peclet
+        number 0.3) for the Poisson one, "zero_rhs" sets b = 0, "warm"
+        passes b - A x0 with x0 = 0.5 (what a warm-started solve gives
+        its kernel), and a "shifts" list becomes a tensor on the card.
+        Where the vectors to read and write depend on the iterations, as
+        for GMRES and FOM, that entry is a function of the kernel's int
+        outputs, the diagonals' bytes and one vector's bytes giving the
+        solve's bound in bytes; GMRES's and FOM's npass (the last int)
+        is held to the band too in f32."""
         systems = {}
         # a generator of the phase's own, so that the later phases draw
         # the same right-hand sides as they did before the phase existed
@@ -386,10 +399,14 @@ def main():
         for label, N, dt, name, args, kw, nvec, napply in cases:
             kw = dict(kw)
             # the stencil, or one of its two variants
-            variant = next((v for v in ("flip", "three_eigenvalues")
-                            if kw.pop(v, False)), None)
+            variant = next((v for v in ("flip", "three_eigenvalues",
+                                        "convdiff") if kw.pop(v, False)),
+                           None)
+            rhs_kind = next((v for v in ("zero_rhs", "warm")
+                             if kw.pop(v, False)), None)
             if (N, dt, variant) not in systems:
-                A = kt.poisson_dia(N, dtype=dt)
+                A = (kt.convdiff_dia(N, dtype=dt) if variant == "convdiff"
+                     else kt.poisson_dia(N, dtype=dt))
                 data = A.data
                 if variant == "three_eigenvalues":
                     data = torch.zeros_like(data)
@@ -408,6 +425,10 @@ def main():
                 del A, data
             pd, ot, b = systems[N, dt, variant]
             n = b.shape[0]
+            if rhs_kind == "zero_rhs":
+                b = torch.zeros_like(b)
+            elif rhs_kind == "warm":
+                b = b - dia_spmv_aligned_ref(pd, ot, torch.full_like(b, 0.5))
             if kw.pop("jacobi", False):
                 kw = {"dinv": 1.0 / (6.0 + 0.5 * torch.sin(torch.arange(
                     n, device=dev, dtype=dt)))}
@@ -433,9 +454,14 @@ def main():
                           warmup=1)
             plain_ms = event_ms(lambda: plain(pd, ot, b, *args, **kw),
                                 reps=1, warmup=0)
-            it_bytes = (napply * pd.numel() * pd.element_size()
-                        + nvec * n * b.element_size())
-            bound_bytes = kints[0] * it_bytes
+            if callable(nvec):
+                bound_bytes = nvec(kints, pd.numel() * pd.element_size(),
+                                   n * b.element_size())
+                it_bytes = bound_bytes / max(kints[0], 1)
+            else:
+                it_bytes = (napply * pd.numel() * pd.element_size()
+                            + nvec * n * b.element_size())
+                bound_bytes = kints[0] * it_bytes
             if shifts_t is not None:
                 # a shift's x and p (4 vectors read or written) move only
                 # while it is active; its active iterations are those of
@@ -454,18 +480,27 @@ def main():
                   f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
                   f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
                   f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
-            check(kints[1:] == rints[1:],
+            npass = name in ("gmres_dia", "fom_dia") and f32
+            check(kints[1:len(kints) - npass] == rints[1:len(rints) - npass],
                   f"{label}: same status and flags as the plain version")
-            if f32:
+            # BiCGSTAB's and CGS's stopping iteration moves with the order
+            # of the sums even in f64 (ROADMAP.md Queue 3, "Expected niter
+            # drift"): they are held to the band, with x to 1e-8
+            if f32 or name in ("bicgstab_dia", "cgs_dia"):
                 check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
                       f"{label}: niter {kints[0]} within ±max(2, 10%) of "
                       f"{rints[0]}")
+                if npass:
+                    check(abs(kints[-1] - rints[-1])
+                          <= max(2, 0.1 * rints[-1]),
+                          f"{label}: npass {kints[-1]} within ±max(2, 10%) "
+                          f"of {rints[-1]}")
             else:
                 check(kints[0] == rints[0],
                       f"{label}: niter {kints[0]} equals {rints[0]}")
             check(rel <= (1e-2 if f32 else 1e-8),
                   f"{label}: x agrees ({rel:.2e})")
-            if f32 and name not in report:
+            if name not in report:
                 report[name] = dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by="bytes", library_ms=None)
@@ -564,6 +599,69 @@ def main():
 
         hold_cases(qlp_cases(128, torch.float32, 1e-6)
                    + qlp_cases(64, torch.float64, 1e-10), SEED + 4)
+
+    with Phase("3e non-symmetric kernels vs plain", 300):
+        # GMRES with memory 20 and restarts, with memory 20 and a bf16
+        # Krylov panel, and with the memory of a solve without restart
+        # (512); FOM with memory 20; BiCGSTAB and CGS, on the
+        # convection-diffusion stencil (cell Peclet number 0.3) at 128^3
+        # f32 and 64^3 f64, and each at 16^3 with b = 0 and with a warm
+        # start.  CGS runs in f64 throughout: in f32 it does not converge
+        # on this stencil at 128^3 (the kernel and its plain version both
+        # stop on the alpha breakdown with a NaN x after about 900
+        # iterations from a normal b, at any rtol from 3.45e-4 to 1e-6;
+        # the plain version on the CPU diverges at 32^3 from b = 1 too),
+        # since it squares the residual polynomial; its kernel's f32 and
+        # f64 launches are one template.  Bounds: GMRES and FOM read the
+        # diagonals once per stencil (each iteration, and each restart's
+        # b - A x), v_0..v_k
+        # once and write v_{k+1} in an iteration with k, read each basis
+        # vector once more and x twice at a pass end, and b and x and
+        # write v_0 at a restart (a bf16 panel's vectors at its width);
+        # BiCGSTAB and CGS apply the stencil twice per iteration and read
+        # or write 10 and 11 vectors.
+        def arnoldi_bound(mem, panel_bytes=None):
+            def bound(kints, pd_bytes, vbytes):
+                niter, npass = kints[0], kints[-1]
+                vb = vbytes if panel_bytes is None else panel_bytes(vbytes)
+                restarts = max(npass - 1, 0)
+                basis = sum(j % mem + 2 for j in range(niter)) + niter
+                return ((niter + restarts) * pd_bytes + basis * vb
+                        + npass * 2 * vbytes + restarts * (2 * vbytes + vb))
+            return bound
+
+        def nonsym_cases(N, dt, rtol):
+            n = N ** 3
+            cd = {"convdiff": True}
+            bf16 = arnoldi_bound(20, lambda vbytes: vbytes * 2 // (
+                4 if dt == torch.float32 else 8))
+            return [
+                ("memory 20", N, dt, "gmres_dia", (0.0, rtol, 2 * n, 20),
+                 cd, arnoldi_bound(20), 1),
+                ("memory 20, bf16 panel", N, dt, "gmres_dia",
+                 (0.0, rtol, 2 * n, 20, torch.bfloat16), cd, bf16, 1),
+                ("memory 512", N, dt, "gmres_dia", (0.0, rtol, 2 * n, 512),
+                 cd, arnoldi_bound(512), 1),
+                ("memory 20", N, dt, "fom_dia", (0.0, rtol, 2 * n, 20), cd,
+                 arnoldi_bound(20), 1),
+                ("convdiff", N, dt, "bicgstab_dia", (0.0, rtol, 2 * n), cd,
+                 10, 2),
+                ("convdiff", N, torch.float64, "cgs_dia",
+                 (0.0, 1e-10, 2 * n), cd, 11, 2)]
+
+        small = []
+        for kind in ("zero_rhs", "warm"):
+            for name, args, nvec in (
+                    ("gmres_dia", (0.0, 1e-6, 8192, 20), arnoldi_bound(20)),
+                    ("fom_dia", (0.0, 1e-6, 8192, 20), arnoldi_bound(20)),
+                    ("bicgstab_dia", (0.0, 1e-6, 8192), 10),
+                    ("cgs_dia", (0.0, 1e-10, 8192), 11)):
+                small.append((kind, 16, torch.float64 if name == "cgs_dia"
+                              else torch.float32, name, args,
+                              {"convdiff": True, kind: True}, nvec, 2))
+        hold_cases(nonsym_cases(128, torch.float32, 1e-6)
+                   + nonsym_cases(64, torch.float64, 1e-10) + small,
+                   SEED + 6)
 
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
@@ -831,6 +929,129 @@ def main():
             profile_solve(lambda: solve(**kw), top=8)
     del A, b, pd, ot
 
+    with Phase("5i gmres, fgmres, fom, bicgstab, cgs end to end", 240):
+        # The convection-diffusion stencil at 128^3 f32 with a seeded
+        # normal right-hand side: each default path through the public
+        # entry points reaches its kernel's plain version's status on the
+        # same inputs, with a true relative residual (f64, the plain
+        # SpMV) no worse than 1.5 times the plain version's; then the
+        # same call with history=True, and gmres and bicgstab with the
+        # Jacobi M of bench.py:423-437 (M = I/6), on the general route
+        # through the DIA SpMV kernel, held to the same residual.  The
+        # counts are set to 0 just before each path and read after.
+        A = kt.DIAOperator(kt.convdiff_dia(128))
+        b = rhs(A.shape[0], gen=np.random.default_rng(SEED + 7))
+        n = b.shape[0]
+        pd, ot = A._pd, A._offsets
+        tol = rt.default_tol(None, torch.float32)
+        jacobi = kt.DiagonalOperator(torch.full_like(b, 1.0 / 6.0))
+        # CGS in f64 (phase 3e says why)
+        A64 = kt.DIAOperator(kt.convdiff_dia(128, dtype=torch.float64))
+        b64, tol64 = b.double(), rt.default_tol(None, torch.float64)
+        paths_n = [
+            ("gmres_dia", "gmres, memory 20, restart",
+             lambda **kw: kt.gmres(A, b, memory=20, restart=True, **kw),
+             lambda: cf.gmres_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 20),
+             {}, True),
+            ("gmres_dia", "gmres", lambda **kw: kt.gmres(A, b, **kw),
+             lambda: cf.gmres_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 512),
+             {}, False),
+            ("gmres_dia", "fgmres, memory 20, restart",
+             lambda **kw: kt.fgmres(A, b, memory=20, restart=True, **kw),
+             lambda: cf.gmres_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 20),
+             {}, False),
+            ("fom_dia", "fom, memory 20, restart",
+             lambda **kw: kt.fom(A, b, memory=20, restart=True, **kw),
+             lambda: cf.fom_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 20),
+             fom_status, True),
+            ("bicgstab_dia", "bicgstab", lambda **kw: kt.bicgstab(A, b, **kw),
+             lambda: cf.bicgstab_dia_fused_ref(pd, ot, b, tol, tol, 2 * n),
+             biortho_status, True),
+            ("cgs_dia", "cgs (f64)", lambda **kw: kt.cgs(A64, b64, **kw),
+             lambda: cf.cgs_dia_fused_ref(A64._pd, ot, b64, tol64, tol64,
+                                          2 * n), biortho_status, True)]
+        # (kernel, label, the public call, its kernel's plain version on
+        # the same inputs, status overrides, whether it is the kernel's
+        # main path: the run whose launches the kernels line reports and
+        # the solve phase 5j profiles)
+        for name, label, solve, plain, over, main_path in paths_n:
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            x, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts_fused = kt.kernel_launches()
+            t = time.perf_counter()
+            xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            ms_h = (time.perf_counter() - t) * 1e3
+            counts = kt.kernel_launches()
+            ref = plain()
+            code = rt.final_status_code(ref[3], 0, 1, False)
+            want = rt.decode_status(code, over)
+            bb, pdb = (b64, A64._pd) if x.dtype == torch.float64 else (b, pd)
+            res = true_rel_residual(pdb, ot, bb, x)
+            res_p = true_rel_residual(pdb, ot, bb, ref[0])
+            res_h = true_rel_residual(pdb, ot, bb, xh)
+            print(f"  {label}: niter={stats.niter} status='{stats.status}'"
+                  f" true_res={res:.3e} ms/solve={ms:.2f} us/iter="
+                  f"{1e3 * ms / max(stats.niter, 1):.2f}; plain version: "
+                  f"niter={int(ref[1])} status='{want}' true_res={res_p:.3e}"
+                  f"; history=True: niter={sh.niter} true_res={res_h:.3e} "
+                  f"ms={ms_h:.1f}; launches {counts}", flush=True)
+            check(stats.solved and sh.solved, f"{label} solved (both routes)")
+            check(stats.status == want,
+                  f"{label}: the plain version's status")
+            check(x.shape == bb.shape and bool(torch.isfinite(x).all()),
+                  f"{label}: finite x of shape {tuple(x.shape)}")
+            check(res <= 1.5 * res_p and res_h <= 1.5 * res_p,
+                  f"{label}: true residuals {res:.3e}, {res_h:.3e} (history)"
+                  f" <= 1.5 x the plain version's")
+            check(sh.residuals.size == sh.niter + 1,
+                  f"{label} (history=True) kept its history")
+            check(counts_fused[name] > 0, f"{label} launched {name} "
+                  f"({counts_fused[name]} times)")
+            check(counts["dia_spmv"] > 0, f"{label} (history=True) launched"
+                  f" dia_spmv ({counts['dia_spmv']} times)")
+            if main_path:
+                launches[name] = counts_fused[name]
+            del ref
+        for label, solve in (
+                ("gmres, Jacobi M, memory 20, restart",
+                 lambda: kt.gmres(A, b, M=jacobi, memory=20, restart=True)),
+                ("bicgstab, Jacobi M", lambda: kt.bicgstab(A, b, M=jacobi))):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            x, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts = kt.kernel_launches()
+            ref = (cf.gmres_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 20)
+                   if label.startswith("gmres")
+                   else cf.bicgstab_dia_fused_ref(pd, ot, b, tol, tol, 2 * n))
+            res = true_rel_residual(pd, ot, b, x)
+            res_p = true_rel_residual(pd, ot, b, ref[0])
+            print(f"  {label}: niter={stats.niter} status='{stats.status}' "
+                  f"true_res={res:.3e} ms/solve={ms:.2f}; plain version "
+                  f"(M = I) true_res={res_p:.3e}; launches {counts}",
+                  flush=True)
+            check(stats.solved and bool(torch.isfinite(x).all()),
+                  f"{label} solved")
+            check(res <= 1.5 * res_p, f"{label}: true residual {res:.3e} <= "
+                  "1.5 x the plain version's (M = I)")
+            check(counts["dia_spmv"] > 0, f"{label} launched dia_spmv "
+                  f"({counts['dia_spmv']} times)")
+            del ref
+
+    with Phase("5j profiles of the four 128^3 non-symmetric solves", 90):
+        for name, label, solve, _, _, main_path in paths_n:
+            if main_path:
+                print(f"  {label}:", flush=True)
+                profile_solve(solve, top=8)
+    del A, b, pd, ot, jacobi, A64, b64
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -873,18 +1094,26 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the nine ported methods through krylov_solve, against a
+        # Each of the fourteen ported methods through krylov_solve (the
+        # non-symmetric five on the convection-diffusion stencil), against a
         # direct call of its solver on the same inputs: the same status,
         # niter and x (bit for bit: the kernels sum in a fixed order);
         # then one workspace round trip (krylov_workspace, warm_start,
         # krylov_solve_inplace) whose show_workspace reports the GPU.
         A = kt.DIAOperator(kt.poisson_dia(64))
+        Acd = kt.DIAOperator(kt.convdiff_dia(64))
+        Acd64 = kt.DIAOperator(kt.convdiff_dia(64, dtype=torch.float64))
         b = rhs(64 ** 3, gen=np.random.default_rng(SEED + 5))
         for method in ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift",
-                       "symmlq", "minres", "minres_qlp", "minares"):
+                       "symmlq", "minres", "minres_qlp", "minares", "gmres",
+                       "fgmres", "fom", "bicgstab", "cgs"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
-            x, st = kt.krylov_solve(method, A, b, *extra)
-            xd, sd = getattr(kt, method)(A, b, *extra)
+            op, bm = (Acd if method in ("gmres", "fgmres", "fom",
+                                        "bicgstab") else A), b
+            if method == "cgs":   # in f64, as phase 3e says
+                op, bm = Acd64, b.double()
+            x, st = kt.krylov_solve(method, op, bm, *extra)
+            xd, sd = getattr(kt, method)(op, bm, *extra)
             torch.cuda.synchronize()
             print(f"  {method}: niter={st.niter} status='{st.status}'",
                   flush=True)
@@ -904,7 +1133,7 @@ def main():
               f"iterations from the warm start, true residual {res:.2e})")
         check("architecture       GPU" in shown,
               "show_workspace reports the GPU")
-        del A, b
+        del A, Acd, Acd64, b
 
     launches["dia_spmv_padded"] = launches_padded
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
@@ -931,7 +1160,15 @@ def main():
                "minres_qlp_dia": ("krylov_tpu_torch/csrc/minres_qlp_dia.cu",
                                   "krylov_tpu/ops/pallas_fused.py:3935"),
                "minares_dia": ("krylov_tpu_torch/csrc/minares_dia.cu",
-                               "krylov_tpu/ops/pallas_fused.py:4217")}
+                               "krylov_tpu/ops/pallas_fused.py:4217"),
+               "gmres_dia": ("krylov_tpu_torch/csrc/gmres_dia.cu",
+                             "krylov_tpu/ops/pallas_fused.py:1922"),
+               "fom_dia": ("krylov_tpu_torch/csrc/fom_dia.cu",
+                           "krylov_tpu/ops/pallas_fused.py:4933"),
+               "bicgstab_dia": ("krylov_tpu_torch/csrc/bicgstab_dia.cu",
+                                "krylov_tpu/ops/pallas_fused.py:3016"),
+               "cgs_dia": ("krylov_tpu_torch/csrc/cgs_dia.cu",
+                           "krylov_tpu/ops/pallas_fused.py:3149")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

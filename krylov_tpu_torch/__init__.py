@@ -3,7 +3,9 @@
 A second package beside the JAX one, ported slice by slice.  It carries
 ``cg`` (with M = I, Jacobi or a Chebyshev polynomial), ``cr``, ``car``,
 ``minres``, ``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``,
-``minres_qlp`` and ``minares`` on DIA stencil operators, through
+``minres_qlp``, ``minares`` and, for non-symmetric systems, ``gmres``,
+``fgmres``, ``fom``, ``bicgstab`` and ``cgs``, on DIA stencil, CSR,
+dense and matrix-free operators (with their adjoints), through
 hand-written CUDA kernels for Hopper (``csrc/``): a DIA SpMV (plain and
 in a padded, chainable layout) and a whole-solve kernel for each solver,
 each with a plain PyTorch version used on the CPU; and the generic
@@ -15,6 +17,8 @@ inputs that are not tensors on the card.
 
 from .operators import (
     AbstractLinearOperator,
+    AdjointOperator,
+    CSROperator,
     DIAOperator,
     DiagonalOperator,
     FunctionOperator,
@@ -23,19 +27,26 @@ from .operators import (
     as_operator,
     precond_apply,
 )
-from .ops.cuda_dia import (dia_pad_layout, dia_spmv_aligned,
-                           dia_spmv_padded, dia_unpad_layout)
-from .ops.cuda_fused import (car_dia_fused, cg_cheby_dia_fused,
-                             cg_dia_fused, cg_lanczos_dia_fused,
-                             cg_lanczos_shift_dia_fused, cr_dia_fused,
+from .ops.cuda_dia import (dia_align_adjoint, dia_pad_layout,
+                           dia_spmv_aligned, dia_spmv_padded,
+                           dia_unpad_layout)
+from .ops.cuda_fused import (bicgstab_dia_fused, car_dia_fused,
+                             cg_cheby_dia_fused, cg_dia_fused,
+                             cg_lanczos_dia_fused,
+                             cg_lanczos_shift_dia_fused, cgs_dia_fused,
+                             cr_dia_fused, fom_dia_fused, gmres_dia_fused,
                              minares_dia_fused, minres_dia_fused,
                              minres_qlp_dia_fused, symmlq_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
-from .ops.kops import sym_givens
+from .ops.kops import knorm_elliptic, sym_givens
+from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
 from .precond import ChebyshevPreconditioner, power_bound
+from .solvers.bicgstab import bicgstab, cgs
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cr import car, cr
+from .solvers.fom import fom
+from .solvers.gmres import fgmres, gmres
 from .solvers.minares import minares
 from .solvers.minres import minres
 from .solvers.minres_qlp import minres_qlp
@@ -65,7 +76,11 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "cg_lanczos_shift_dia": cg_lanczos_shift_dia_fused,
            "symmlq_dia": symmlq_dia_fused,
            "minres_qlp_dia": minres_qlp_dia_fused,
-           "minares_dia": minares_dia_fused}
+           "minares_dia": minares_dia_fused,
+           "gmres_dia": gmres_dia_fused,
+           "fom_dia": fom_dia_fused,
+           "bicgstab_dia": bicgstab_dia_fused,
+           "cgs_dia": cgs_dia_fused}
 
 
 def kernel_launches():

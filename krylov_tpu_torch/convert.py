@@ -3,12 +3,17 @@
 The port never imports ``krylov_tpu``; a caller holding a
 ``krylov_tpu`` ``DIAMatrix`` D passes its fields as numpy data:
 ``dia_from_numpy(np.asarray(D.data), D.offsets, D.shape)``, and both
-packages then solve the same system.
+packages then solve the same system.  A ``krylov_tpu`` ``CSRMatrix`` C
+goes across likewise: ``csr_from_numpy(np.asarray(C.data),
+np.asarray(C.indices), np.asarray(C.indptr), np.asarray(C.rows),
+C.shape)``.
 """
 
 import numpy as np
+import torch
 
-from .ops.dia import DIAMatrix
+from .ops.dia import DIAMatrix, resolve_device
+from .ops.sparse import CSRMatrix
 
 
 def dia_from_numpy(data, offsets, shape, device="cuda"):
@@ -16,3 +21,14 @@ def dia_from_numpy(data, offsets, shape, device="cuda"):
     SciPy: data[d, j] holds A[j - k_d, j])."""
     return DIAMatrix(np.array(data), offsets, shape,
                      device=device)
+
+
+def csr_from_numpy(data, indices, indptr, rows, shape, device="cuda"):
+    """The port's CSRMatrix with the same entries, in the same order."""
+    device = resolve_device(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    return CSRMatrix(t(data), t(indices, np.int64), t(indptr, np.int64),
+                     t(rows, np.int64), shape)

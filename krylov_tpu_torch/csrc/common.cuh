@@ -64,6 +64,17 @@ template <>
 __device__ __forceinline__ __half narrow<__half, float>(float v) {
   return __float2half(v);
 }
+// A double narrows through float, as PyTorch converts it (the plain
+// versions' .to(torch.bfloat16) rounds twice).
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, double>(
+    double v) {
+  return __float2bfloat16(static_cast<float>(v));
+}
+template <>
+__device__ __forceinline__ __half narrow<__half, double>(double v) {
+  return __float2half(static_cast<float>(v));
+}
 
 // Machine epsilon and the smallest normal number of the vector type.
 template <typename T> __device__ __forceinline__ T eps_of();

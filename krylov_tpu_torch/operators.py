@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from ._runtime import as_device_tensor, full_fp32
-from .ops.cuda_dia import dia_align, dia_spmv_aligned, offsets_tensor
+from .ops.cuda_dia import (dia_align, dia_align_adjoint, dia_spmv_aligned,
+                           offsets_tensor)
 from .ops.dia import DIAMatrix, dia_spmv, resolve_device
+from .ops.sparse import CSRMatrix, spmm, spmv
 
 
 class AbstractLinearOperator:
@@ -43,8 +45,55 @@ class AbstractLinearOperator:
         """y = A⁻ᴴ x."""
         raise NotImplementedError
 
+    @property
+    def H(self):
+        return AdjointOperator(self)
+
+    @property
+    def T(self):
+        return self.H
+
     def __matmul__(self, x):
+        if getattr(x, "ndim", 1) == 2:
+            return self.matmat(x)
         return self.matvec(x)
+
+    def matmat(self, X):
+        return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])],
+                           dim=1)
+
+    def rmatmat(self, X):
+        return torch.stack([self.rmatvec(X[:, j])
+                            for j in range(X.shape[1])], dim=1)
+
+
+class AdjointOperator(AbstractLinearOperator):
+    """Aᴴ of an operator: its products are the base's adjoint products."""
+
+    def __init__(self, base):
+        self.base = base
+        self.shape = (base.shape[1], base.shape[0])
+        self.dtype = base.dtype
+        self.device = getattr(base, "device", None)
+
+    def matvec(self, x):
+        return self.base.rmatvec(x)
+
+    def rmatvec(self, x):
+        return self.base.matvec(x)
+
+    def matmat(self, X):
+        return self.base.rmatmat(X)
+
+    def rmatmat(self, X):
+        return self.base.matmat(X)
+
+    def solve(self, x):
+        return self.base.rsolve(x)
+
+    @property
+    def H(self):
+        return self.base
 
 
 class IdentityOperator(AbstractLinearOperator):
@@ -58,6 +107,15 @@ class IdentityOperator(AbstractLinearOperator):
     rmatvec = matvec
     solve = matvec
     rsolve = matvec
+
+    def matmat(self, X):
+        return X
+
+    rmatmat = matmat
+
+    @property
+    def H(self):
+        return self
 
 
 def _placed(v, device):
@@ -92,6 +150,12 @@ class DiagonalOperator(AbstractLinearOperator):
     def rsolve(self, x):
         return x / torch.conj(self.d)
 
+    def matmat(self, X):
+        return self.d[:, None] * X
+
+    def rmatmat(self, X):
+        return torch.conj(self.d)[:, None] * X
+
 
 class MatrixOperator(AbstractLinearOperator):
     """Dense matrix operator.  Products run in full fp32, never TF32
@@ -112,6 +176,50 @@ class MatrixOperator(AbstractLinearOperator):
     def rmatvec(self, x):
         with full_fp32():
             return torch.matmul(self.A.conj().T, x)
+
+    def matmat(self, X):
+        with full_fp32():
+            return torch.matmul(self.A, X)
+
+    def rmatmat(self, X):
+        with full_fp32():
+            return torch.matmul(self.A.conj().T, X)
+
+
+class CSROperator(AbstractLinearOperator):
+    """CSR sparse operator; the storage of Aᴴ is built on the host when
+    ``with_adjoint()`` asks for it."""
+
+    def __init__(self, csr, csr_h=None):
+        self.csr = csr
+        self.csr_h = csr_h
+        self.shape = csr.shape
+        self.dtype = csr.dtype
+        self.device = csr.device
+
+    def with_adjoint(self):
+        if self.csr_h is None:
+            return CSROperator(self.csr, self.csr.transpose_conj())
+        return self
+
+    def _adjoint(self):
+        if self.csr_h is None:
+            raise ValueError(
+                "CSROperator needs adjoint storage: build with .with_adjoint()"
+            )
+        return self.csr_h
+
+    def matvec(self, x):
+        return spmv(self.csr, x)
+
+    def rmatvec(self, x):
+        return spmv(self._adjoint(), x)
+
+    def matmat(self, X):
+        return spmm(self.csr, X)
+
+    def rmatmat(self, X):
+        return spmm(self._adjoint(), X)
 
 
 class FunctionOperator(AbstractLinearOperator):
@@ -149,11 +257,12 @@ class DIAOperator(AbstractLinearOperator):
     """Banded (DIA) operator — the fast path for stencil matrices.
 
     ``use_kernel=True`` (the default for a matrix on the card) aligns the
-    diagonals once, at construction, and routes matvecs through the DIA
-    SpMV kernel (ops/cuda_dia.py) and eligible CG solves through the
-    whole-solve kernel (ops/cuda_fused.py).  On the CPU both take their
-    plain versions.  ``use_kernel=False`` uses the plain shift-and-add
-    product on the stored diagonals.
+    diagonals once, at construction, and routes matvecs (and, through
+    the cached ``aligned_adjoint``, rmatvecs) through the DIA SpMV kernel
+    (ops/cuda_dia.py) and eligible solves through the whole-solve
+    kernels (ops/cuda_fused.py).  On the CPU both take their plain
+    versions.  ``use_kernel=False`` uses the plain shift-and-add product
+    on the stored diagonals.
     """
 
     def __init__(self, dia, use_kernel=None):
@@ -165,6 +274,7 @@ class DIAOperator(AbstractLinearOperator):
             use_kernel = dia.data.is_cuda
         self.use_kernel = bool(use_kernel)
         self._pd = None
+        self._pd_adj = self._offsets_adj = None
         if self.use_kernel:
             self._pd = dia_align(dia.data, dia.offsets, dia.shape[0])
             self._offsets = offsets_tensor(dia.offsets, dia.data.device)
@@ -182,22 +292,40 @@ class DIAOperator(AbstractLinearOperator):
                           self.shape[0]),
                 tuple(-k for k in self.dia.offsets))
 
+    def aligned_adjoint(self):
+        """(pd_adj, offsets_adj): the output-aligned diagonals of Aᴴ and
+        their offsets (ops/cuda_dia.dia_align_adjoint), computed once and
+        cached."""
+        if self._pd_adj is None:
+            pd = self._pd if self._pd is not None else dia_align(
+                self.dia.data, self.dia.offsets, self.shape[0])
+            self._pd_adj = dia_align_adjoint(pd, self.dia.offsets,
+                                             self.shape[0])
+        return self._pd_adj
+
     def rmatvec(self, x):
+        if self.use_kernel:
+            pd_adj, offs = self.aligned_adjoint()
+            if self._offsets_adj is None:
+                self._offsets_adj = offsets_tensor(offs, pd_adj.device)
+            return dia_spmv_aligned(pd_adj, self._offsets_adj, x)
         data, offs = self.adjoint_dia()
         return dia_spmv(data, offs, x)
 
 
 def as_operator(A, device=None):
-    """Coerce A (operator | DIAMatrix | dense tensor or array) to the
-    operator protocol.  A tensor stays where it is; a numpy array goes to
-    ``device``, by default the card (raising when there is none, as the
-    constructors do)."""
+    """Coerce A (operator | DIAMatrix | CSRMatrix | dense tensor or array)
+    to the operator protocol.  A tensor stays where it is; a numpy array
+    goes to ``device``, by default the card (raising when there is none,
+    as the constructors do)."""
     if A is None:
         return None
     if isinstance(A, AbstractLinearOperator):
         return A
     if isinstance(A, DIAMatrix):
         return DIAOperator(A)
+    if isinstance(A, CSRMatrix):
+        return CSROperator(A)
     if isinstance(A, (torch.Tensor, np.ndarray)):
         if A.ndim != 2:
             raise ValueError(f"expected a 2-D array, got ndim={A.ndim}")

@@ -194,3 +194,21 @@ def dia_spmv_padded(pd, offsets, xw, n):
 
 
 dia_spmv_padded.launches = 0
+
+
+def dia_align_adjoint(pd, offsets, n):
+    """Output-aligned diagonals of Aᴴ from those of A (the JAX package's
+    ``pallas_fused.dia_align_adjoint``).
+
+    With y[i] = Σ_d pd[d, i]·x[i+k_d], (Aᴴu)[j] = Σ_d conj(pd[d, j−k_d])·
+    u[j−k_d]: the offsets negate and each aligned diagonal shifts by +k_d.
+    Returns (pd_adj, offsets_adj) with the offsets as a tuple.  One-time
+    O(nnz) device op.
+    """
+    pd_adj = torch.zeros_like(pd)
+    for d, k in enumerate(offsets):
+        k = int(k)
+        lo, hi = _span(-k, n)
+        if lo < hi:
+            pd_adj[d, lo:hi] = torch.conj(pd[d, lo - k:hi - k])
+    return pd_adj, tuple(-int(k) for k in offsets)

@@ -27,6 +27,14 @@ same chunked, masked semantics, so that niter is exact across chunks.
 * ``minares_dia_fused``: MINARES for (A + λI)x = b, with the Lanczos
   stream one step ahead and stopped at its breakdown
   (``csrc/minares_dia.cu``).
+* ``gmres_dia_fused``: restarted GMRES(mem), sequential MGS Arnoldi,
+  Givens QR, optionally a bf16 or f16 Krylov panel whose stops the true
+  residual confirms (``csrc/gmres_dia.cu``).
+* ``fom_dia_fused``: restarted FOM(mem), the same Arnoldi launches
+  (``csrc/arnoldi.cuh``) with the LU of the Hessenberg
+  (``csrc/fom_dia.cu``).
+* ``bicgstab_dia_fused`` and ``cgs_dia_fused``: BiCGSTAB and CGS with
+  the shadow vector c = b (``csrc/bicgstab_dia.cu``, ``csrc/cgs_dia.cu``).
 """
 
 import math
@@ -36,8 +44,9 @@ import torch
 
 from .. import _build
 from .._runtime import (BREAKDOWN, COND_EXCEEDED, FWD_ERR, ILL_COND_MACH,
-                        MIN_LSQ_X, RUNNING, SOLVED, SOLVED_LSQ, SOLVED_ZERO,
-                        ZERO_CURVATURE, ZERO_RESIDUAL, drive)
+                        INCONSISTENT, MIN_LSQ_X, RUNNING, SOLVED, SOLVED_LSQ,
+                        SOLVED_ZERO, TIRED, ZERO_CURVATURE, ZERO_RESIDUAL,
+                        drive)
 from .cuda_dia import _check as _check_spmv
 from .cuda_dia import dia_spmv_aligned_ref
 from .kops import sym_givens
@@ -53,6 +62,11 @@ SOLVED_LQ = 35
 SOLVED_CG_PT = 36
 # MINARES's solved code (krylov_tpu/solvers/minares.py)
 SOLVED_ARTOL = 37
+# FOM's breakdown code (krylov_tpu/solvers/fom.py)
+INCONS_FOM = 28
+# BiCGSTAB and CGS codes (krylov_tpu/solvers/bicgstab.py)
+BC_BREAKDOWN = 29
+ALPHA_BREAKDOWN = 30
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -78,6 +92,13 @@ _SQ_RNORM, _SQ_ANORM2, _SQ_GMAX, _SQ_GMIN, _SQ_NSC, _SQ_NST = \
     18, 14, 15, 16, 24, 5
 _QLP_RNORM, _QLP_ARNORM, _QLP_NSC, _QLP_INCON, _QLP_NST = 23, 24, 31, 2, 6
 _MNA_RNORM, _MNA_ARNORM, _MNA_NSC, _MNA_NST = 34, 35, 45, 7
+# GMRES and FOM (csrc/arnoldi.cuh): NSC fixed scalars, then the Hessenberg
+# column h (mem + 1), the rotations or LU multipliers c, s (mem each), zz
+# (mem + 1), y (mem) and R by rows (mem * mem)
+_AR_RNORM, _AR_NSC = 4, 8
+_AR_INCONS, _AR_NPASS, _AR_NST = 5, 6, 11
+_BS_RNORM, _BS_NSC, _BS_NST, _BS_NPART = 4, 8, 3, 5
+_CGS_RNORM, _CGS_NSC, _CGS_NST, _CGS_NPART = 4, 7, 3, 3
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -102,6 +123,24 @@ cg_lanczos_shift_dia_fused_supported = cg_dia_fused_supported
 symmlq_dia_fused_supported = cg_dia_fused_supported
 minres_qlp_dia_fused_supported = cg_dia_fused_supported
 minares_dia_fused_supported = cg_dia_fused_supported
+fom_dia_fused_supported = cg_dia_fused_supported
+bicgstab_dia_fused_supported = cg_dia_fused_supported
+cgs_dia_fused_supported = cg_dia_fused_supported
+# the Krylov panel's types the GMRES kernel stores (None: b's own)
+_BASIS = {torch.float32: "f32", torch.float64: "f64",
+          torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _basis_ok(dtype, basis_dtype):
+    return basis_dtype in (None, dtype, torch.bfloat16, torch.float16)
+
+
+def gmres_dia_fused_supported(offsets, n, dtype, stencil_dtype=None,
+                              basis_dtype=None):
+    """The dtype gate of ``cg_dia_fused_supported``, and a panel type the
+    kernel stores: b's own, bf16 or f16."""
+    return (cg_dia_fused_supported(offsets, n, dtype, stencil_dtype)
+            and _basis_ok(dtype, basis_dtype))
 
 
 def _scalar(v, like):
@@ -975,6 +1014,319 @@ def minares_dia_fused_ref(pd, offsets, b, atol, rtol, artol, lam, itmax):
 
 
 # ---------------------------------------------------------------------------
+# GMRES and FOM: the plain versions
+# ---------------------------------------------------------------------------
+
+def _arnoldi_step_ref(pd, offsets, V, k, T):
+    """w = A vₖ, orthogonalised against v₀..vₖ by sequential MGS in T
+    (pallas_fused.py:1995-2010); V[k+1] = w/‖w‖ in the panel's type.
+    Returns the column h₀..hₖ and ‖w‖ as 0-d tensors on the host, where
+    the Hessenberg's scalar recurrences run."""
+    w = dia_spmv_aligned_ref(pd, offsets, V[k].to(T))
+    hs = []
+    for i in range(k + 1):
+        vi = V[i].to(T)
+        hij = torch.sum(vi * w)
+        hs.append(hij)
+        w = w - hij * vi
+    hbis = torch.sqrt(torch.sum(w * w))
+    V[k + 1] = (w / _safe(hbis, _scalar(1, w))).to(V.dtype)
+    return torch.stack(hs).cpu(), hbis.cpu()
+
+
+def _restart_ref(pd, offsets, b, x, V):
+    """V[0] = r/‖r‖ with r = b − Ax, the true residual; returns ‖r‖ on
+    the host."""
+    r = b - dia_spmv_aligned_ref(pd, offsets, x)
+    beta = torch.sqrt(torch.sum(r * r))
+    V[0] = (r / _safe(beta, _scalar(1, r))).to(V.dtype)
+    return beta.cpu()
+
+
+def _xacc_ref(x, V, y):
+    """x + Σᵢ yᵢvᵢ, one term after another (pallas_fused.py:2073-2077)."""
+    for i in range(y.shape[0]):
+        x = x + y[i].to(x.device) * V[i].to(x.dtype)
+    return x
+
+
+def _back_substitute_ref(R, zz, kk, btol=None):
+    """Solve R[:kk, :kk] y = zz[:kk] from the last row up, each row's sum
+    in the order of the TPU kernel; with ``btol`` a pivot of modulus ≤
+    btol gives yᵢ = 0 and sets the returned flag (GMRES), without it a
+    zero pivot divides by 1 (FOM)."""
+    one = torch.ones((), dtype=R.dtype)
+    y = torch.zeros(kk, dtype=R.dtype)
+    sing = False
+    for i in reversed(range(kk)):
+        acc = zz[i]
+        for j in range(i + 1, kk):
+            acc = acc - R[i, j] * y[j]
+        diag = R[i, i]
+        if btol is None:
+            y[i] = acc / _safe(diag, one)
+        elif torch.abs(diag) <= btol:
+            y[i] = 0
+            sing = True
+        else:
+            y[i] = acc / diag
+    return y, sing
+
+
+def _arnoldi_ref(pd, offsets, b, atol, rtol, itmax, mem, basis_dtype,
+                 column):
+    """The restarted Arnoldi solve shared by GMRES and FOM, as the TPU
+    kernels run it (pallas_fused.py:1956-2136, 4970-5090).  The vectors
+    stay on b's device; the Hessenberg column's scalars run on the host
+    in b's dtype, which reads the state once per iteration, and an
+    iteration runs only while status == RUNNING and it < itmax, so
+    niter is what the kernel's chunks give.  ``column(k, h, hbis)``
+    updates the factorisation and returns ‖rₖ‖; ``column.finish(kk)``
+    back-substitutes and returns (y, singular)."""
+    T = b.dtype
+    BT = T if basis_dtype is None else basis_dtype
+    confirm = basis_dtype is not None
+    n = b.shape[0]
+    btol = torch.tensor(torch.finfo(T).eps ** 0.75, dtype=T)
+    V = torch.zeros((mem + 1, n), dtype=BT, device=b.device)
+    x = torch.zeros_like(b)
+    beta0 = torch.sqrt(torch.sum(b * b))
+    V[0] = (b / _safe(beta0, _scalar(1, b))).to(BT)
+    beta0 = beta0.cpu()
+    eps_lim = torch.tensor(atol, dtype=T) + torch.tensor(rtol, dtype=T) \
+        * beta0
+    status = (ZERO_RESIDUAL if beta0 == 0
+              else SOLVED if beta0 <= eps_lim else RUNNING)
+    it, k, rnorm, incons, npass = 0, 0, beta0, False, 1
+    prev_tr = torch.tensor(math.inf, dtype=T)
+    column.zz[0] = beta0
+    while status == RUNNING and it < itmax:
+        h, hbis = _arnoldi_step_ref(pd, offsets, V, k, T)
+        rnorm_n = column(k, h, hbis)
+        it, kk = it + 1, k + 1
+        resid = bool((rnorm_n <= eps_lim) | ((rnorm_n + 1.0) <= 1.0))
+        brk = bool(hbis <= btol)
+        tired = it >= itmax
+        inner_done = resid or brk or tired or kk >= mem
+        glob_done = resid or brk or tired
+        tmp0, sing, confirmed = rnorm_n, False, False
+        if inner_done:
+            y, sing = column.finish(kk)
+            x = _xacc_ref(x, V, y)
+            if confirm or not glob_done:
+                beta_r = _restart_ref(pd, offsets, b, x, V)
+                column.zz[0] = tmp0 = beta_r
+                confirmed = bool((beta_r <= eps_lim)
+                                 | ((beta_r + 1.0) <= 1.0))
+        if confirm:
+            final = resid and (confirmed or bool(tmp0 > 0.5 * prev_tr))
+            if inner_done and resid and not final:
+                prev_tr = tmp0
+        else:
+            final = resid
+        glob_final = final or brk or tired
+        incons_now = column.incons(inner_done, resid, brk, sing)
+        incons = incons or incons_now
+        status = column.code(tired, final, brk, incons) \
+            if inner_done and glob_final else RUNNING
+        k = 0 if inner_done else kk
+        if inner_done and not glob_final:
+            npass += 1
+            rnorm = tmp0
+        else:
+            rnorm = rnorm_n
+    dev = b.device
+    return (x, _i32(it, b), rnorm.to(dev, T), _i32(status, b),
+            _i32(int(incons), b), _i32(npass, b))
+
+
+class _GmresColumn:
+    """Givens QR of the Hessenberg (pallas_fused.py:2012-2035)."""
+
+    def __init__(self, mem, T, btol):
+        self.c = torch.zeros(mem, dtype=T)
+        self.s = torch.zeros(mem, dtype=T)
+        self.zz = torch.zeros(mem + 1, dtype=T)
+        self.R = torch.zeros((mem, mem), dtype=T)
+        self.btol = btol
+
+    def __call__(self, k, h, hbis):
+        for i in range(k):
+            hi, hi1 = h[i].clone(), h[i + 1].clone()
+            h[i] = self.c[i] * hi + self.s[i] * hi1
+            h[i + 1] = self.s[i] * hi - self.c[i] * hi1
+        ck, sk, rkk = sym_givens(h[k], hbis)
+        self.c[k], self.s[k], h[k] = ck, sk, rkk
+        self.R[:k + 1, k] = h
+        zeta_next = sk * self.zz[k]
+        self.zz[k] = ck * self.zz[k]
+        self.zz[k + 1] = zeta_next
+        return torch.abs(zeta_next)
+
+    def finish(self, kk):
+        return _back_substitute_ref(self.R, self.zz, kk, self.btol)
+
+    @staticmethod
+    def incons(inner_done, resid, brk, sing):
+        return inner_done and sing
+
+    @staticmethod
+    def code(tired, final, brk, incons):
+        code = BREAKDOWN
+        code = TIRED if tired else code
+        code = SOLVED if final else code
+        return INCONSISTENT if incons else code
+
+
+class _FomColumn:
+    """LU of the Hessenberg (pallas_fused.py:5013-5036)."""
+
+    def __init__(self, mem, T):
+        self.l = torch.zeros(mem, dtype=T)
+        self.zz = torch.zeros(mem + 1, dtype=T)
+        self.U = torch.zeros((mem, mem), dtype=T)
+
+    def __call__(self, k, h, hbis):
+        for i in range(1, k + 1):
+            h[i] = h[i] - self.l[i - 1] * h[i - 1]
+        safe_u = _safe(h[k], torch.ones_like(h[k]))
+        if k >= 1:
+            self.zz[k] = -self.l[k - 1] * self.zz[k - 1]
+        self.l[k] = hbis / safe_u
+        self.U[:k + 1, k] = h
+        return hbis * torch.abs(self.zz[k] / safe_u)
+
+    def finish(self, kk):
+        return _back_substitute_ref(self.U, self.zz, kk)
+
+    @staticmethod
+    def incons(inner_done, resid, brk, sing):
+        return inner_done and brk and not resid
+
+    @staticmethod
+    def code(tired, final, brk, incons):
+        code = TIRED
+        code = INCONS_FOM if brk else code
+        return SOLVED if final else code
+
+
+def gmres_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, mem=20,
+                        basis_dtype=None):
+    """Plain PyTorch restarted GMRES(mem) of A x = b (pallas_fused.py:
+    1956-2136): sequential MGS Arnoldi, Givens QR, the back substitution
+    with its singular-pivot flag and restarts from the true residual.
+    With ``basis_dtype`` the Krylov panel is stored in that type, all
+    arithmetic stays in b's, and a stop on the residual estimate holds
+    only when the true residual confirms it or a confirmed pass
+    stagnated.
+
+    Returns (x, niter, rnorm, status, inconsistent, npass) as tensors, as
+    ``gmres_dia_fused`` does."""
+    btol = torch.tensor(torch.finfo(b.dtype).eps ** 0.75, dtype=b.dtype)
+    col = _GmresColumn(mem, b.dtype, btol)
+    return _arnoldi_ref(pd, offsets, b, atol, rtol, itmax, mem, basis_dtype,
+                        col)
+
+
+def fom_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, mem=20):
+    """Plain PyTorch restarted FOM(mem) of A x = b (pallas_fused.py:
+    4970-5090): the Arnoldi process of GMRES with the LU of the
+    Hessenberg; a breakdown without convergence stops with status 28.
+
+    Returns (x, niter, rnorm, status, inconsistent, npass) as tensors, as
+    ``fom_dia_fused`` does."""
+    col = _FomColumn(mem, b.dtype)
+    return _arnoldi_ref(pd, offsets, b, atol, rtol, itmax, mem, None, col)
+
+
+# ---------------------------------------------------------------------------
+# BiCGSTAB and CGS: the plain versions
+# ---------------------------------------------------------------------------
+
+def _biortho_start(b, atol, rtol):
+    """‖b‖, ⟨b, b⟩ (ρ₀ with the shadow c = b), ε and the first status."""
+    rho0 = torch.sum(b * b)
+    rnorm0 = torch.sqrt(torch.sum(b * b))
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * rnorm0
+    status0 = torch.where(
+        rnorm0 == 0, ZERO_RESIDUAL,
+        torch.where(rho0 == 0, BC_BREAKDOWN,
+                    torch.where(rnorm0 <= eps_lim, SOLVED, RUNNING))).to(
+                        torch.int32)
+    return rho0, rnorm0, eps_lim, status0
+
+
+def _biortho_code(rnorm, eps_lim, alpha):
+    solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+    breakdown = (alpha == 0) | torch.isnan(alpha)
+    return torch.where(solved, SOLVED, torch.where(
+        breakdown, ALPHA_BREAKDOWN, RUNNING)).to(torch.int32)
+
+
+def bicgstab_dia_fused_ref(pd, offsets, b, atol, rtol, itmax):
+    """Plain PyTorch BiCGSTAB of A x = b with the shadow c = b
+    (pallas_fused.py:3049-3090), x updated as (x + αp) + ωs.
+
+    Returns (x, niter, rnorm, status) as tensors, as
+    ``bicgstab_dia_fused`` does."""
+    one = _scalar(1, b)
+    rho0, rnorm0, eps_lim, status0 = _biortho_start(b, atol, rtol)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), r=b.clone(), p=b.clone(), iter=_i32(0, b),
+        rho=rho0, rnorm=rnorm0, status=status0)
+
+    def step(s):
+        v = dia_spmv_aligned_ref(pd, offsets, s.p)
+        alpha = s.rho / _safe(torch.sum(b * v), one)
+        sv = s.r - alpha * v
+        x_aux = s.x + alpha * s.p
+        t = dia_spmv_aligned_ref(pd, offsets, sv)
+        omega = torch.sum(t * sv) / _safe(torch.sum(t * t), one)
+        r = sv - omega * t
+        next_rho = torch.sum(b * r)
+        beta = (next_rho / _safe(s.rho, one)) * (alpha / _safe(omega, one))
+        rnorm = torch.sqrt(torch.sum(r * r))
+        return dict(x=x_aux + omega * sv, r=r,
+                    p=r + beta * (s.p - omega * v), iter=s.iter + 1,
+                    rho=next_rho, rnorm=rnorm,
+                    status=_biortho_code(rnorm, eps_lim, alpha))
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.status
+
+
+def cgs_dia_fused_ref(pd, offsets, b, atol, rtol, itmax):
+    """Plain PyTorch CGS of A x = b with the shadow c = b
+    (pallas_fused.py:3180-3230).
+
+    Returns (x, niter, rnorm, status) as tensors, as ``cgs_dia_fused``
+    does."""
+    one = _scalar(1, b)
+    rho0, rnorm0, eps_lim, status0 = _biortho_start(b, atol, rtol)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), r=b.clone(), u=b.clone(), p=b.clone(),
+        iter=_i32(0, b), rho=rho0, rnorm=rnorm0, status=status0)
+
+    def step(s):
+        t = dia_spmv_aligned_ref(pd, offsets, s.p)
+        alpha = s.rho / _safe(torch.sum(b * t), one)
+        q = s.u - alpha * t
+        u_half = s.u + q
+        r = s.r - alpha * dia_spmv_aligned_ref(pd, offsets, u_half)
+        rho_next = torch.sum(b * r)
+        beta = rho_next / _safe(s.rho, one)
+        u = r + beta * q
+        rnorm = torch.sqrt(torch.sum(r * r))
+        return dict(x=s.x + alpha * u_half, r=r, u=u,
+                    p=u + beta * (q + beta * s.p), iter=s.iter + 1,
+                    rho=rho_next, rnorm=rnorm,
+                    status=_biortho_code(rnorm, eps_lim, alpha))
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.status
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -1387,3 +1739,133 @@ def minares_dia_fused(pd, offsets, b, atol, rtol, artol, lam, itmax):
 
 
 minares_dia_fused.launches = 0
+
+
+def _arnoldi_fused(wrapper, kind, pd, offsets, b, atol, rtol, itmax, mem,
+                   basis_dtype=None):
+    """The buffers and launches shared by the GMRES and FOM kernels
+    (``csrc/arnoldi.cuh``): the Krylov panel V (mem + 1, n) in its own
+    type, the Arnoldi vector w, x, two rows of block partials (the MGS
+    launches alternate between them), the scalars and the flags."""
+    pair = _pair(kind.upper(), b, pd)
+    bt = b.dtype if basis_dtype is None else basis_dtype
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_AR_NSC + 5 * mem + 2 + mem * mem, b, dict(
+        enumerate((atol, rtol, torch.finfo(b.dtype).eps ** 0.75))))
+    V = torch.zeros((mem + 1, n), dtype=bt, device=b.device)
+    w, x = torch.zeros_like(b), torch.zeros_like(b)
+    partial = torch.zeros((2, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(_AR_NST, dtype=torch.int32, device=b.device)
+    bufs = (V.data_ptr(), x.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, mem)
+    suffix = "" if kind == "fom" else "_" + _BASIS[bt]
+    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], b.data_ptr(),
+            w.data_ptr()) + bufs
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair[:3]}{suffix}",
+         (b.data_ptr(),) + bufs + (int(itmax),),
+         f"ktt_{kind}_dia_iterate_{pair}{suffix}",
+         head + ((int(basis_dtype is not None),) if kind == "gmres" else ()),
+         st, itmax)
+    return x, st[_IT], sc[_AR_RNORM], st[_STATUS], st[_AR_INCONS], \
+        st[_AR_NPASS]
+
+
+def gmres_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20,
+                    basis_dtype=None):
+    """Full restarted GMRES(mem) solve of A x = b for a DIA matrix.
+
+    Sequential MGS Arnoldi (one launch per basis vector, the dot of each
+    summed redundantly by every block of the next), Givens QR and the
+    back substitution in one thread, restarts from b − Ax on the card.
+    ``basis_dtype`` (bf16 or f16) stores the Krylov panel compressed
+    while the arithmetic stays in b's dtype; a stop is then confirmed
+    on the true residual.
+    Returns (x, niter, rnorm, status_code, inconsistent, npass) as
+    tensors on b's device; status 100 means itmax was reached.
+    """
+    _check(pd, offsets, b, None)
+    mem = int(mem)
+    if mem < 1:
+        raise ValueError("mem must be >= 1")
+    if b.device.type == "cpu":
+        return gmres_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, mem,
+                                   basis_dtype)
+    if not _basis_ok(b.dtype, basis_dtype):
+        raise ValueError(f"no GMRES kernel for a {basis_dtype} panel with "
+                         f"b {b.dtype}")
+    return _arnoldi_fused(gmres_dia_fused, "gmres", pd, offsets, b, atol,
+                          rtol, itmax, mem, basis_dtype)
+
+
+gmres_dia_fused.launches = 0
+
+
+def fom_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20):
+    """Full restarted FOM(mem) solve of A x = b for a DIA matrix: the
+    Arnoldi launches of ``gmres_dia_fused`` with the LU of the
+    Hessenberg.  Returns (x, niter, rnorm, status_code, inconsistent,
+    npass) as tensors on b's device; status 28 is a breakdown without
+    convergence, 100 means itmax was reached."""
+    _check(pd, offsets, b, None)
+    mem = int(mem)
+    if mem < 2:
+        raise ValueError("mem must be >= 2")
+    if b.device.type == "cpu":
+        return fom_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, mem)
+    return _arnoldi_fused(fom_dia_fused, "fom", pd, offsets, b, atol, rtol,
+                          itmax, mem)
+
+
+fom_dia_fused.launches = 0
+
+
+def _biortho_fused(wrapper, kind, pd, offsets, b, atol, rtol, itmax, nvec,
+                   npart, nsc, nst):
+    pair = _pair(kind.upper(), b, pd)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
+    work = torch.zeros((nvec, n), dtype=b.dtype, device=b.device)
+    partial = torch.zeros((npart, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(nst, dtype=torch.int32, device=b.device)
+    bufs = (b.data_ptr(), work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair[:3]}", bufs,
+         f"ktt_{kind}_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + bufs, st, itmax)
+    return work[0].clone(), sc, st
+
+
+def bicgstab_dia_fused(pd, offsets, b, atol, rtol, itmax):
+    """Full BiCGSTAB solve of A x = b for a DIA matrix, shadow c = b.
+
+    Returns (x, niter, rnorm, status_code) as tensors on b's device;
+    status 29 is bᴴc = 0 and 30 a breakdown αₖ == 0 (or NaN).
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return bicgstab_dia_fused_ref(pd, offsets, b, atol, rtol, itmax)
+    x, sc, st = _biortho_fused(bicgstab_dia_fused, "bicgstab", pd, offsets,
+                               b, atol, rtol, itmax, 6, _BS_NPART, _BS_NSC,
+                               _BS_NST)
+    return x, st[_IT], sc[_BS_RNORM], st[_STATUS]
+
+
+bicgstab_dia_fused.launches = 0
+
+
+def cgs_dia_fused(pd, offsets, b, atol, rtol, itmax):
+    """Full CGS solve of A x = b for a DIA matrix, shadow c = b.
+
+    Returns (x, niter, rnorm, status_code) as tensors on b's device, with
+    the status codes of ``bicgstab_dia_fused``.
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return cgs_dia_fused_ref(pd, offsets, b, atol, rtol, itmax)
+    x, sc, st = _biortho_fused(cgs_dia_fused, "cgs", pd, offsets, b, atol,
+                               rtol, itmax, 7, _CGS_NPART, _CGS_NSC,
+                               _CGS_NST)
+    return x, st[_IT], sc[_CGS_RNORM], st[_STATUS]
+
+
+cgs_dia_fused.launches = 0

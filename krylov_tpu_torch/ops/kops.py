@@ -29,6 +29,11 @@ def knorm(x):
     return torch.sqrt(kdotr(x, x))
 
 
+def knorm_elliptic(x, mx):
+    """Elliptic norm √(xᴴ M x) given x and Mx (reference knorm_elliptic)."""
+    return torch.sqrt(kdotr(x, mx))
+
+
 # ---------------------------------------------------------------------------
 # compensated (double-word) reductions: Ogita-Rump-Oishi Dot2.  The
 # product error terms from TwoProd and the running-sum error terms from

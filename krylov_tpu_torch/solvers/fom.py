@@ -1,0 +1,227 @@
+"""FOM for square non-Hermitian Ax = b.
+
+Counterpart of ``fom`` in ``krylov_tpu/solvers/fom.py`` and of
+reference src/fom.jl: the full orthogonalization method, Arnoldi with
+an LU factorisation of the Hessenberg (uᵢ.ₖ = hᵢ.ₖ − lᵢ₋₁uᵢ₋₁.ₖ,
+reference src/fom.jl:274-280), M and N preconditioning, restarts,
+reorthogonalization, warm start, history, callback, verbose and the
+breakdown status "inconsistent linear system".  The general route
+shares the Arnoldi process of ``solvers/gmres.py`` (CGS2 against the
+whole panel, the factorisation's scalars on the host); a DIA operator
+with M = N = I and the default options goes to the whole-solve kernel
+(ops/cuda_fused.py).  ``diom`` and ``dqgmres`` wait for ROADMAP.md
+Queue 1 item 4.
+"""
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import _runtime as rt
+from .._dtypes import real_dtype
+from ..operators import as_operator, precond_apply, solve_inputs
+from ..ops.cuda_fused import INCONS_FOM, fom_dia_fused, fom_dia_fused_supported
+from ..ops.kops import knorm
+from ..stats import SimpleStats
+from .cr import _check_square, _fused_ready, _no_double_word, _trim
+from .gmres import (arnoldi_drive, back_substitute, first_basis, host_dtypes,
+                    orthogonalize)
+
+_FOM_STATUS = {INCONS_FOM: "inconsistent linear system"}
+
+
+class FomState(NamedTuple):
+    x: torch.Tensor
+    V: torch.Tensor          # (mem, n) Krylov basis
+    U: torch.Tensor          # (mem, mem) upper factor, host
+    l: torch.Tensor          # (mem,) subdiagonal multipliers, host
+    z: torch.Tensor          # (mem,) forward-substituted rhs, host
+    inner_k: int
+    iter: int
+    npass: int
+    rNorm: float
+    eps_lim: float
+    status: int
+    inconsistent: bool
+    hist_r: torch.Tensor
+    f_resid: bool
+    f_break: bool
+
+
+def _fom_core(
+    A, M, N, b, x0, state_in, iter_cap, steps, itmax, atol, rtol,
+    *, mem, ldiv, restart, reorthogonalization, history, hist_len,
+    callback, verbose, NisI,
+):
+    """``steps`` FOM iterations from ``state_in`` (None: start)."""
+    n = b.shape[0]
+    FC = b.dtype
+    T = real_dtype(FC)
+    dev = b.device
+    btol = torch.finfo(T).eps ** 0.75
+    np_fc, np_t = host_dtypes(FC)
+
+    def M_apply(u):
+        return precond_apply(M, u, ldiv)
+
+    def N_apply(u):
+        return precond_apply(N, u, ldiv)
+
+    if state_in is None:
+        x = x0.clone() if (restart and x0 is not None) else \
+            torch.zeros(n, dtype=FC, device=dev)
+        V, beta = first_basis(M_apply, b if x0 is None else
+                              b - A.matvec(x0), mem)
+        eps_lim = float(np_t.type(atol) + np_t.type(rtol) * np_t.type(beta))
+        status = (rt.ZERO_RESIDUAL if beta == 0
+                  else rt.SOLVED if beta <= eps_lim else rt.RUNNING)
+        z = torch.zeros(mem, dtype=FC)
+        z[0] = beta
+        hist = rt.hist_init(hist_len, T, dev)
+        rt.hist_write(hist, torch.tensor(0, device=dev),
+                      torch.tensor(beta, dtype=T, device=dev), history)
+        state_in = FomState(
+            x=x, V=V, U=torch.zeros((mem, mem), dtype=FC),
+            l=torch.zeros(mem, dtype=FC), z=z, inner_k=0, iter=0, npass=1,
+            rNorm=beta, eps_lim=eps_lim, status=status, inconsistent=False,
+            hist_r=hist, f_resid=False, f_break=False)
+
+    def step(s):
+        k = s.inner_k
+        q = M_apply(A.matvec(N_apply(s.V[k])))
+        q, hcol = orthogonalize(s.V, q, reorthogonalization)
+        hbis = knorm(q)
+        u = torch.cat([hcol, hbis.reshape(1).to(FC)]).cpu().numpy()
+        hbis = u[mem].real.astype(np_t)
+        l, z, U = s.l.numpy(), s.z.numpy(), s.U.numpy()
+        for i in range(1, k + 1):
+            u[i] = u[i] - l[i - 1] * u[i - 1]
+        safe_u = u[k] if u[k] != 0 else np_fc.type(1)
+        if k >= 1:
+            z[k] = -l[k - 1] * z[k - 1]
+        l[k] = np_fc.type(hbis) / safe_u
+        U[:k + 1, k] = u[:k + 1]
+        rnorm = float(hbis * np.abs(z[k] / safe_u).astype(np_t))
+        it, kk = s.iter + 1, k + 1
+        resid = rnorm <= s.eps_lim or (np_t.type(rnorm) + 1) <= 1
+        brk = bool(hbis <= btol)
+        inner_done = resid or brk or it >= itmax or kk >= mem
+        V = s.V
+        if not inner_done:
+            V[kk % mem] = q / torch.tensor(1 if hbis == 0 else hbis,
+                                           dtype=T).to(FC)
+        rt.hist_write(s.hist_r, torch.tensor(it, device=dev),
+                      torch.tensor(rnorm, dtype=T, device=dev), history)
+        if verbose > 0:
+            rt.debug_row(verbose, it, "{:5d}  {:5.0f}  {:7.1e}", s.npass,
+                         rnorm)
+        return s._replace(V=V, inner_k=kk, iter=it, rNorm=rnorm,
+                          f_resid=resid, f_break=brk), inner_done
+
+    def epilogue(s):
+        tired = s.iter >= itmax
+        glob_done = s.f_resid or s.f_break or tired
+        y, _ = back_substitute(s.U, s.z, s.inner_k)
+        xr = s.V.T @ y.to(dev)
+        if not NisI:
+            xr = N_apply(xr)
+        x = s.x + xr
+        out = dict(x=x, inner_k=0, f_resid=False, f_break=False,
+                   inconsistent=s.inconsistent
+                   or (s.f_break and not s.f_resid))
+        if glob_done:
+            code = rt.TIRED
+            code = INCONS_FOM if s.f_break else code
+            out["status"] = rt.SOLVED if s.f_resid else code
+        else:
+            V, beta = first_basis(M_apply, b - A.matvec(x), mem)
+            z = torch.zeros_like(s.z)
+            z[0] = beta
+            out.update(V=V, z=z, U=torch.zeros_like(s.U),
+                       l=torch.zeros_like(s.l), npass=s.npass + 1,
+                       rNorm=beta)
+        return s._replace(**out)
+
+    return arnoldi_drive(state_in, iter_cap, steps, step, epilogue, callback)
+
+
+def _fom_solve(
+    A, b, x0=None, *, M=None, N=None, ldiv=False, restart=False,
+    reorthogonalization=False, memory=20, atol=None, rtol=None, itmax=0,
+    timemax=float("inf"), verbose=0, history=False, callback=None,
+    memory_cap=512,
+):
+    start = time.perf_counter()
+    A, b, x0, M = solve_inputs(A, b, x0, M)
+    N = as_operator(N, device=b.device)
+    n = b.shape[0]
+    _check_square(A, n)
+    T = real_dtype(b.dtype)
+    atol = rt.default_tol(atol, T)
+    rtol = rt.default_tol(rtol, T)
+    itmax = rt.resolve_itmax(itmax, 2 * n)
+    rt.debug_table(verbose, "FOM", ("k", "pass", "‖rₖ‖"), n)
+    mem = min(int(memory), itmax) if restart else min(itmax, memory_cap)
+    mem = max(mem, 2)
+    hist_len = itmax + 1 if history else 0
+    eff_restart = bool(restart) or mem < itmax
+
+    # Fast path: DIA stencil + default config → whole-solve kernel.
+    if (M is None and N is None and not history and callback is None
+            and verbose == 0 and not reorthogonalization
+            and timemax == float("inf")
+            and _fused_ready(A, n, b.dtype, fom_dia_fused_supported)):
+        b_eff = (b if x0 is None else b - A.matvec(x0)).contiguous()
+        x, niter, _, code_d, incons, _ = fom_dia_fused(
+            A._pd, A._offsets, b_eff, atol, rtol, itmax, mem)
+        niter, code, incons = torch.stack([niter, code_d, incons]).tolist()
+        code = rt.final_status_code(code, niter, itmax, False)
+        if x0 is not None:
+            x = x + x0
+        stats = SimpleStats(
+            niter=niter,
+            solved=rt.is_solved_code(code),
+            inconsistent=bool(incons),
+            residuals=np.zeros(0),
+            timer=time.perf_counter() - start,
+            status=rt.decode_status(code, _FOM_STATUS),
+        )
+        return x, stats, None
+
+    def run(state, cap, steps):
+        return _fom_core(
+            A, M, N, b, x0, state, cap, steps, itmax, atol, rtol, mem=mem,
+            ldiv=bool(ldiv), restart=eff_restart,
+            reorthogonalization=bool(reorthogonalization),
+            history=bool(history), hist_len=hist_len, callback=callback,
+            verbose=int(verbose), NisI=N is None,
+        )
+
+    state, overtimed = rt.drive(run, itmax, timemax, start)
+    niter = state.iter
+    code = rt.final_status_code(state.status, niter, itmax, overtimed)
+    x = state.x
+    if x0 is not None and not eff_restart:
+        x = x + x0
+    stats = SimpleStats(
+        niter=niter,
+        solved=rt.is_solved_code(code),
+        inconsistent=bool(state.inconsistent),
+        residuals=_trim(state.hist_r, niter, history),
+        timer=time.perf_counter() - start,
+        status=rt.decode_status(code, _FOM_STATUS),
+    )
+    return x, stats, state
+
+
+def fom(A, b, x0=None, *, precision=None, **kwargs):
+    """x, stats = fom(A, b; memory=20, restart=False, ...).
+
+    ``precision="double_word"`` raises NotImplementedError until the
+    iterative refinement (solvers/_refine.py, ROADMAP.md Queue 1 item 8)
+    is ported."""
+    _no_double_word("FOM", precision)
+    x, stats, _ = _fom_solve(A, b, x0, **kwargs)
+    return x, stats

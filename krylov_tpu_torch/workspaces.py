@@ -14,11 +14,16 @@ their solvers; building a workspace for any other raises
 ports it.
 """
 
+import functools
+
 import torch
 
+from .solvers import bicgstab as _bicgstab
 from .solvers import cg as _cg
 from .solvers import cg_lanczos as _cg_lanczos
 from .solvers import cr as _cr
+from .solvers import fom as _fom
+from .solvers import gmres as _gmres
 from .solvers import minares as _minares
 from .solvers import minres as _minres
 from .solvers import minres_qlp as _minres_qlp
@@ -80,13 +85,19 @@ _PORTED = {
     "minres": (_minres._minres_solve, _minres.minres),
     "minres_qlp": (_minres_qlp._minres_qlp_solve, _minres_qlp.minres_qlp),
     "minares": (_minares._minares_solve, _minares.minares),
+    "gmres": (functools.partial(_gmres._gmres_like_solve, False),
+              _gmres.gmres),
+    "fgmres": (functools.partial(_gmres._gmres_like_solve, True),
+               _gmres.fgmres),
+    "fom": (_fom._fom_solve, _fom.fom),
+    "bicgstab": (_bicgstab._bicgstab_solve, _bicgstab.bicgstab),
+    "cgs": (_bicgstab._cgs_solve, _bicgstab.cgs),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
 _QUEUE_ITEM = {
-    **dict.fromkeys(("gmres", "fgmres", "fom", "diom", "dqgmres", "bicgstab",
-                     "cgs", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
-                     "trilqr", "usymlqr"), 4),
+    **dict.fromkeys(("diom", "dqgmres", "bilq", "qmr", "bilqr", "usymlq",
+                     "usymqr", "trilqr", "usymlqr"), 4),
     **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
                      "cgls_lanczos_shift", "cgne", "crmr", "craig",
                      "craigmr", "lnlq"), 5),

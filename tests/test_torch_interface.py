@@ -22,12 +22,12 @@ import krylov_tpu_torch as kt
 from krylov_tpu_torch import workspaces as tws
 
 PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
-          "minres", "minres_qlp", "minares")
+          "minres", "minres_qlp", "minares", "gmres", "fgmres", "fom",
+          "bicgstab", "cgs")
 # the ROADMAP.md Queue 1 item that ports each other method
 QUEUE_ITEM = {
-    **dict.fromkeys(("gmres", "fgmres", "fom", "diom", "dqgmres", "bicgstab",
-                     "cgs", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
-                     "trilqr", "usymlqr"), 4),
+    **dict.fromkeys(("diom", "dqgmres", "bilq", "qmr", "bilqr", "usymlq",
+                     "usymqr", "trilqr", "usymlqr"), 4),
     **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
                      "cgls_lanczos_shift", "cgne", "crmr", "craig",
                      "craigmr", "lnlq"), 5),
@@ -35,9 +35,9 @@ QUEUE_ITEM = {
     **dict.fromkeys(("block_minres", "block_gmres"), 7),
 }
 SHIFTS = [0.0, 1.0]
-N_, NSH = 10, 2
+N_, NSH, MEM = 10, 2, 5
 # element budgets for the large tensors (size ≥ n) of each state, copied
-# from tests/test_storage.py:35-46 (reference docs/src/storage.md:50-80)
+# from tests/test_storage.py:35-57 (reference docs/src/storage.md:50-80)
 BUDGETS = {
     "cg": lambda n: 4 * n,
     "cr": lambda n: 5 * n,
@@ -48,7 +48,15 @@ BUDGETS = {
     "minres": lambda n: 6 * n,
     "minres_qlp": lambda n: 6 * n,
     "minares": lambda n: 8 * n,
+    "cgs": lambda n: 6 * n,
+    "bicgstab": lambda n: 6 * n,
+    "fom": lambda n: (MEM + 3) * n + (MEM + 2) ** 2,
+    "gmres": lambda n: (MEM + 3) * n + (MEM + 2) ** 2,
+    "fgmres": lambda n: (2 * MEM + 3) * n + (MEM + 2) ** 2,
 }
+# the memory the ring methods' budgets are for (tests/test_storage.py:91-93)
+EXTRA_KW = dict.fromkeys(("fom", "gmres", "fgmres"),
+                         {"memory": MEM, "restart": True})
 
 
 def _rel(a, b):
@@ -192,7 +200,7 @@ def test_state_within_storage_budget(method):
     A, b = _storage_system()
     solve, _ = tws._resolve(method)
     shifts = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
-    _, stats, state = solve(A, b, *shifts)
+    _, stats, state = solve(A, b, *shifts, **EXTRA_KW.get(method, {}))
     assert state is not None and stats.niter > 0
     big = sum(t.numel() for _, t in tws.state_tensors(state)
               if t.numel() >= N_)

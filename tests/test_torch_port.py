@@ -69,7 +69,8 @@ def test_constructors_default_to_card_and_raise_without_one(make,
 
 
 SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq",
-           "minres_qlp", "minares")
+           "minres_qlp", "minares", "gmres", "fgmres", "fom", "bicgstab",
+           "cgs")
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -180,6 +181,35 @@ def test_wrapper_slots_match_kernel_enums(source, slots):
                                                "LAM", "BTOL"]
 
 
+@pytest.mark.parametrize("source,slots", [
+    ("arnoldi.cuh", {"ScalarSlot": {"ATOL": 0, "RTOL": 1, "BTOL": 2,
+                                    "RNORM": cf._AR_RNORM,
+                                    "NSC": cf._AR_NSC},
+                     "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                 "INCONS": cf._AR_INCONS,
+                                 "NPASS": cf._AR_NPASS, "NST": cf._AR_NST}}),
+    ("bicgstab_dia.cu", {"ScalarSlot": {"ATOL": 0, "RTOL": 1,
+                                        "RNORM": cf._BS_RNORM,
+                                        "NSC": cf._BS_NSC},
+                         "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                     "NST": cf._BS_NST},
+                         "Part": {"NPART": cf._BS_NPART}}),
+    ("cgs_dia.cu", {"ScalarSlot": {"ATOL": 0, "RTOL": 1,
+                                   "RNORM": cf._CGS_RNORM,
+                                   "NSC": cf._CGS_NSC},
+                    "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                "NST": cf._CGS_NST},
+                    "Part": {"NPART": cf._CGS_NPART}}),
+])
+def test_nonsymmetric_wrapper_slots_match_kernel_enums(source, slots):
+    """The slots the GMRES, FOM, BiCGSTAB and CGS wrappers set and read
+    and the array sizes they allocate are the kernels' enum values."""
+    for enum, want in slots.items():
+        members = _enum(source, enum)
+        for name, slot in want.items():
+            assert members.index(name) == slot, (source, name)
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -191,16 +221,22 @@ def test_kernel_launches_and_exports():
     assert set(got) == {"dia_spmv", "dia_spmv_padded", "cg_dia",
                         "cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
                         "cg_lanczos_dia", "cg_lanczos_shift_dia",
-                        "symmlq_dia", "minres_qlp_dia", "minares_dia"}
+                        "symmlq_dia", "minres_qlp_dia", "minares_dia",
+                        "gmres_dia", "fom_dia", "bicgstab_dia", "cgs_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
     for name in ("cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
                  "cg_lanczos_dia", "cg_lanczos_shift_dia", "symmlq_dia",
-                 "minres_qlp_dia", "minares_dia"):
+                 "minres_qlp_dia", "minares_dia", "gmres_dia", "fom_dia",
+                 "bicgstab_dia", "cgs_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
+                 "gmres", "fgmres", "fom", "bicgstab", "cgs", "CSRMatrix",
+                 "CSROperator", "AdjointOperator", "csr_from_coo",
+                 "csr_from_dense", "spmv", "spmm", "knorm_elliptic",
+                 "dia_align_adjoint",
                  "krylov_solve", "krylov_workspace", "krylov_solve_inplace",
                  "KRYLOV_METHODS", "show_stats", "show_workspace",
                  "kstdout", "KrylovConstructor", "KrylovWorkspace",
@@ -654,9 +690,64 @@ def test_solvers_on_card_take_their_kernels():
              lambda: kt.cg_lanczos_shift(A, b, [0.0, 1.0])),
             ("symmlq_dia", lambda: kt.symmlq(A, b)),
             ("minres_qlp_dia", lambda: kt.minres_qlp(A, b)),
-            ("minares_dia", lambda: kt.minares(A, b))]
+            ("minares_dia", lambda: kt.minares(A, b)),
+            ("gmres_dia", lambda: kt.gmres(A, b, memory=10, restart=True)),
+            ("gmres_dia", lambda: kt.fgmres(A, b)),
+            ("fom_dia", lambda: kt.fom(A, b, memory=10, restart=True)),
+            ("bicgstab_dia", lambda: kt.bicgstab(A, b)),
+            ("cgs_dia", lambda: kt.cgs(A, b))]
     for name, run in runs:
         n0 = kt.kernel_launches()[name]
         x, st = run()
         assert x.is_cuda and x.dtype == torch.float32 and st.solved
         assert kt.kernel_launches()[name] > n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["gmres20", "gmres20_bf16", "gmres",
+                                    "gmres_zero_rhs", "fom20", "fom_itmax",
+                                    "bicgstab", "bicgstab_zero_rhs", "cgs"])
+def test_nonsymmetric_kernels_match_plain_on_card(kernel, dtype):
+    """The GMRES, FOM, BiCGSTAB and CGS kernels against their plain
+    versions on the 16^3 convection-diffusion stencil: same status and
+    flags, niter within ±max(2, 10%) (equal in f64), x to 1e-2 relative
+    (1e-8 in f64), as chip_smoke.py holds them at 128^3.  "gmres" takes
+    the default memory of a solve without restart (512); "fom_itmax"
+    stops at itmax = 30 in the middle of its second pass."""
+    _card()
+    A = kt.convdiff_dia(16, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(15).standard_normal(n)).to(
+        "cuda", dtype)
+    if kernel.endswith("zero_rhs"):
+        b = torch.zeros_like(b)
+    rtol = 1e-6 if dtype == torch.float32 else 1e-10
+    name = next(k for k in ("gmres", "fom", "bicgstab", "cgs")
+                if kernel.startswith(k))
+    args = (0.0, rtol, 30 if kernel.endswith("itmax") else 2 * n)
+    if name in ("gmres", "fom"):
+        args += (20 if "20" in kernel or name == "fom" else 512,)
+    if kernel.endswith("bf16"):
+        args += (torch.bfloat16,)
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    before = wrapper.launches
+    k = wrapper(pd, ot, b, *args)
+    assert wrapper.launches > before
+    r = ref(pd, ot, b, *args)
+    kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+    rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+    f32 = dtype == torch.float32
+    # status and flags; npass (GMRES, FOM) within the niter band in f32
+    assert kints[1:3] == rints[1:3]
+    if f32:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        assert _rel(k[0], r[0]) <= 1e-2 if rints[0] else \
+            bool((k[0] == 0).all())
+    else:
+        assert kints == rints
+        assert _rel(k[0], r[0]) <= 1e-8 if rints[0] else \
+            bool((k[0] == 0).all())
