@@ -9,8 +9,10 @@ float32; CG also at 256^3) through the public entry points: ``cg``
 (M = I, and a Chebyshev polynomial M), ``cr``, ``car``, ``minres``,
 ``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``, ``minres_qlp`` and
 ``minares``, and the non-symmetric convection-diffusion stencil of the
-same size through ``gmres``, ``fgmres``, ``fom``, ``bicgstab`` and
-``cgs``, each by its whole-solve kernel and by the general route with
+same size through ``gmres``, ``fgmres``, ``fom``, ``bicgstab``,
+``cgs``, ``diom``, ``dqgmres``, ``bilq``, ``qmr`` and ``bilqr`` (Ax = b
+and A^H y = c, in float64), each by its whole-solve kernel and by the
+general route with
 its DIA SpMV kernel, chains the padded-layout SpMV, solves the
 systems whose dtypes once had no SpMV kernel, drives every ported
 method through ``krylov_solve`` and a workspace round trip, and checks
@@ -663,6 +665,163 @@ def main():
                    + nonsym_cases(64, torch.float64, 1e-10) + small,
                    SEED + 6)
 
+    with Phase("3f truncated and two-sided kernels vs plain", 240):
+        # DIOM and DQGMRES at memory 2, 6 and 20 (memory 2 gives DIOM a P
+        # ring of one slot; neither converges at memory 2 on this stencil,
+        # so those run 200 iterations), BiLQ with and without the BiCG
+        # transfer, QMR and BiLQR, on the convection-diffusion stencil at
+        # 128^3 f32 and 64^3 f64, and BiLQ, QMR and BiLQR also at 128^3
+        # f64, their full-width paths: in f32 at 128^3 the two-sided
+        # methods stop on residual estimates that have lost all accuracy
+        # (BiLQ: true relative residuals of 84 and 32 for the kernel and
+        # its plain version), so there BiLQ and QMR are held to the plain
+        # version's status only and BiLQR's run is only printed (PERF.md
+        # section 7).  Each other kernel against its plain
+        # version on the same inputs: status and flags equal, niter within
+        # +-max(2, 10%) for DIOM and DQGMRES (the two-sided kernels' niter
+        # is printed, not held: their stops move with the rounding of
+        # their residual estimates even in f64, BiLQ by 480 against 400
+        # iterations at 128^3 and BiLQR by 252 against 309 at 64^3 with
+        # x equal to 1e-9), x (and y) within 1e-2 relative in f32 and 1e-8
+        # in f64 (1e-7 for the two-sided kernels, whose true residuals
+        # reach only 1e-9 to 1e-8 at rtol 1e-10: BiLQR's x agrees to
+        # 1.3e-8 at 128^3 after the same 541 iterations), and a true
+        # relative residual ||b - Ax|| / ||b|| (and
+        # ||c - A^H y|| / ||c||), from the plain SpMV in f64, no worse
+        # than 1.5 times the plain version's (with 1e-9 of slack in f64,
+        # where both sit at rounding level).  Bounds count bytes: the
+        # diagonals once per stencil and the vectors the method must read
+        # and write in each iteration -- DIOM and DQGMRES the window's
+        # min(k + 1, mem) basis vectors and min(k, mP) directions, x twice,
+        # the new p and v; BiLQ 10, QMR 11, BiLQR 15 vectors beside the
+        # two stencils.
+        def trunc_bound(mem, diom):
+            mP = mem - 1 if diom else mem
+
+            def bound(niter, pd_bytes, vbytes):
+                return sum(pd_bytes + (min(k + 1, mem) + min(k, mP) + 4)
+                           * vbytes for k in range(niter))
+            return bound
+
+        def slice6_cases(N, dt, rtol, report):
+            n = N ** 3
+            cases = []
+            for variant in ("dqgmres", "diom"):
+                for mem in (20, 6, 2):
+                    itmax = 200 if mem == 2 else 2 * n
+                    cases.append((
+                        f"{variant} memory {mem}"
+                        + (", 200 iterations" if mem == 2 else ""), N, dt,
+                        "trunc_dia", (0.0, rtol, itmax, mem, variant),
+                        trunc_bound(mem, variant == "diom"), 1,
+                        report and variant == "dqgmres" and mem == 20))
+            cases += [
+                ("bilq", N, dt, "bilq_dia", (0.0, rtol, 2 * n, True), 10, 2,
+                 report),
+                ("bilq transfer_to_bicg=False", N, dt, "bilq_dia",
+                 (0.0, rtol, 2 * n, False), 10, 2, False),
+                ("qmr", N, dt, "qmr_dia", (0.0, rtol, 2 * n), 11, 2, report),
+                ("bilqr", N, dt, "bilqr_dia", (0.0, rtol, 2 * n, True), 15, 2,
+                 False)]
+            return cases
+
+        cases = (slice6_cases(128, torch.float32, 1e-6, True)
+                 + slice6_cases(64, torch.float64, 1e-10, False)
+                 + [c for c in slice6_cases(128, torch.float64, 1e-10, True)
+                    if c[3] != "trunc_dia" and c[-1]]
+                 + [("bilqr", 128, torch.float64, "bilqr_dia",
+                     (0.0, 1e-10, 2 * 128 ** 3, True), 15, 2, True)])
+        systems = {}
+        gen = np.random.default_rng(SEED + 8)
+        for label, N, dt, name, args, nvec, napply, to_report in cases:
+            if (N, dt) not in systems:
+                A = kt.convdiff_dia(N, dtype=dt)
+                pd = dia_align(A.data, A.offsets, A.shape[0])
+                pda, offa = kt.dia_align_adjoint(pd, A.offsets, A.shape[0])
+                systems[N, dt] = (pd, offsets_tensor(A.offsets, dev), pda,
+                                  offsets_tensor(offa, dev),
+                                  rhs(N ** 3, dt, gen), rhs(N ** 3, dt, gen))
+                del A
+            pd, ot, pda, ota, b, c = systems[N, dt]
+            n = b.shape[0]
+            kernel = getattr(cf, name[:-4] + "_dia_fused")
+            plain = getattr(cf, name[:-4] + "_dia_fused_ref")
+            head = ((pd, ot, b) if name == "trunc_dia" else
+                    (pd, pda, ot, ota, b) + ((c,) if name == "bilqr_dia"
+                                             else ()))
+            k = kernel(*head, *args)
+            r = plain(*head, *args)
+            torch.cuda.synchronize()
+            kints = [i for v in k if v.dtype == torch.int32
+                     for i in v.reshape(-1).tolist()]
+            rints = [i for v in r if v.dtype == torch.int32
+                     for i in v.reshape(-1).tolist()]
+            nsol = 2 if name == "bilqr_dia" else 1
+            err = max(float((k[i] - r[i]).abs().max()) for i in range(nsol))
+            rel = max(float((k[i] - r[i]).abs().max())
+                      / max(float(r[i].abs().max()), 1e-300)
+                      for i in range(nsol))
+            res_k = [true_rel_residual(pd, ot, b, k[0])]
+            res_p = [true_rel_residual(pd, ot, b, r[0])]
+            if nsol == 2:
+                res_k.append(true_rel_residual(pda, ota, c, k[1]))
+                res_p.append(true_rel_residual(pda, ota, c, r[1]))
+            f32 = dt == torch.float32
+            label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
+            ms = event_ms(lambda: kernel(*head, *args), reps=3, warmup=1)
+            plain_ms = event_ms(lambda: plain(*head, *args), reps=1,
+                                warmup=0)
+            pd_bytes, vbytes = pd.numel() * pd.element_size(), \
+                n * b.element_size()
+            if callable(nvec):
+                bound_bytes = nvec(kints[0], pd_bytes, vbytes)
+            else:
+                bound_bytes = kints[0] * (napply * pd_bytes + nvec * vbytes)
+            bound_ms = bound_bytes / bw * 1e3
+            print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
+                  f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err="
+                  f"{err:.3e} rel={rel:.3e}; true_res kernel "
+                  f"{[f'{v:.3e}' for v in res_k]} plain "
+                  f"{[f'{v:.3e}' for v in res_p]}; ms={ms:.3f} plain_ms="
+                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"({bound_bytes / max(kints[0], 1) / 1e6:.1f} MB per "
+                  f"iteration x {kints[0]}; "
+                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+            if name != "trunc_dia" and f32:
+                # the two-sided kernels in f32 stop on residual estimates
+                # that have lost all accuracy, far apart from their plain
+                # versions (PERF.md section 7); their full-width paths run
+                # in f64.  BiLQ and QMR are held to the plain version's
+                # status here; BiLQR's flags differ too, and its run is
+                # only recorded
+                if name != "bilqr_dia":
+                    check(kints[1:] == rints[1:],
+                          f"{label}: same status as the plain version")
+                del k, r
+                continue
+            check(kints[1:] == rints[1:],
+                  f"{label}: same status and flags as the plain version")
+            if name == "trunc_dia":
+                check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
+                      f"{label}: niter {kints[0]} within ±max(2, 10%) of "
+                      f"{rints[0]}")
+            # the two-sided kernels' true residuals reach only 1e-9 to
+            # 1e-8 at rtol 1e-10 in f64 (their estimates lose digits), so
+            # their x is held to 1e-7 there
+            tol_x = 1e-2 if f32 else (1e-8 if name == "trunc_dia" else 1e-7)
+            check(rel <= tol_x, f"{label}: x agrees ({rel:.2e} <= "
+                  f"{tol_x:g})")
+            slack = 0.0 if f32 else 1e-9
+            check(all(a <= 1.5 * p + slack for a, p in zip(res_k, res_p)),
+                  f"{label}: true residuals no worse than 1.5 x the plain "
+                  f"version's")
+            if to_report and (name == "trunc_dia" or not f32):
+                report[name] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by="bytes", library_ms=None)
+            del k, r
+        del systems
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -1052,6 +1211,121 @@ def main():
                 profile_solve(solve, top=8)
     del A, b, pd, ot, jacobi, A64, b64
 
+    with Phase("5k diom, dqgmres, bilq, qmr, bilqr end to end", 240):
+        # The convection-diffusion stencil at 128^3 with a seeded normal
+        # right-hand side (and, for bilqr, a second seeded c), in f32 for
+        # diom and dqgmres and in f64 for bilq, qmr and bilqr (phase 3f
+        # and PERF.md section 7 say why): each default path through
+        # the public entry points reaches its kernel's plain version's
+        # status on the same inputs, with true relative residuals (f64,
+        # the plain SpMV; for bilqr also ||c - A^H y|| / ||c||) no worse
+        # than 1.5 times the plain version's; then the same call with
+        # history=True, on the general route through the DIA SpMV kernel
+        # (and its adjoint), held to the same residuals.  The counts are
+        # set to 0 just before each path and read after.
+        A = kt.DIAOperator(kt.convdiff_dia(128))
+        gen = np.random.default_rng(SEED + 9)
+        b = rhs(A.shape[0], gen=gen)
+        c = rhs(A.shape[0], gen=gen)
+        n = b.shape[0]
+        pd, ot = A._pd, A._offsets
+        pda, offa = A.aligned_adjoint()
+        ota = offsets_tensor(offa, dev)
+        tol = rt.default_tol(None, torch.float32)
+        A64 = kt.DIAOperator(kt.convdiff_dia(128, dtype=torch.float64))
+        b64, c64 = b.double(), c.double()
+        tol64 = rt.default_tol(None, torch.float64)
+        pda64 = A64.aligned_adjoint()[0]
+        from krylov_tpu_torch.solvers.bilq import (_STATUS as bilq_status,
+                                                   _Flags, _bilqr_status)
+        paths_t = [
+            ("trunc_dia", "diom", lambda **kw: kt.diom(A, b, **kw),
+             lambda: cf.trunc_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 20,
+                                            "diom"), False),
+            ("trunc_dia", "dqgmres", lambda **kw: kt.dqgmres(A, b, **kw),
+             lambda: cf.trunc_dia_fused_ref(pd, ot, b, tol, tol, 2 * n, 20,
+                                            "dqgmres"), True),
+            ("bilq_dia", "bilq (f64)", lambda **kw: kt.bilq(A64, b64, **kw),
+             lambda: cf.bilq_dia_fused_ref(A64._pd, pda64, ot, ota, b64,
+                                           tol64, tol64, 2 * n), True),
+            ("qmr_dia", "qmr (f64)", lambda **kw: kt.qmr(A64, b64, **kw),
+             lambda: cf.qmr_dia_fused_ref(A64._pd, pda64, ot, ota, b64,
+                                          tol64, tol64, 2 * n), True),
+            ("bilqr_dia", "bilqr (f64)",
+             lambda **kw: kt.bilqr(A64, b64, c64, **kw),
+             lambda: cf.bilqr_dia_fused_ref(A64._pd, pda64, ot, ota, b64,
+                                            c64, tol64, tol64, 2 * n), True)]
+        # (kernel, label, the public call, its kernel's plain version on
+        # the same inputs, whether it is the kernel's main path: the run
+        # whose launches the kernels line reports and the solve phase 5l
+        # profiles)
+        for name, label, solve, plain, main_path in paths_t:
+            two = name == "bilqr_dia"
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            *xs, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts_fused = kt.kernel_launches()
+            t = time.perf_counter()
+            *xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            ms_h = (time.perf_counter() - t) * 1e3
+            counts = kt.kernel_launches()
+            ref = plain()
+            bb = b64 if xs[0].dtype == torch.float64 else b
+            if two:
+                code = rt.final_status_code(ref[5], 0, 1, False)
+                want = _bilqr_status(_Flags(*(bool(v) for v in
+                                              ref[6].tolist())), code)
+                sols = [(pd, ot, b64, 0, 0), (pda, ota, c64, 1, 1)]
+            else:
+                code = rt.final_status_code(ref[3], 0, 1, False)
+                want = rt.decode_status(code, bilq_status)
+                sols = [(pd, ot, bb, 0, 0)]
+            res = [true_rel_residual(d, o, v, xs[i]) for d, o, v, i, _ in sols]
+            res_p = [true_rel_residual(d, o, v, ref[j])
+                     for d, o, v, _, j in sols]
+            res_h = [true_rel_residual(d, o, v, xh[i])
+                     for d, o, v, i, _ in sols]
+            print(f"  {label}: niter={stats.niter} status='{stats.status}'"
+                  f" true_res={[f'{v:.3e}' for v in res]} ms/solve={ms:.2f}"
+                  f" us/iter={1e3 * ms / max(stats.niter, 1):.2f}; plain "
+                  f"version: niter={int(ref[2 if two else 1])} status="
+                  f"'{want}' true_res={[f'{v:.3e}' for v in res_p]}; "
+                  f"history=True: niter={sh.niter} true_res="
+                  f"{[f'{v:.3e}' for v in res_h]} ms={ms_h:.1f}; launches "
+                  f"{counts}", flush=True)
+            check(stats.solved and sh.solved, f"{label} solved (both routes)")
+            check(stats.status == want,
+                  f"{label}: the plain version's status")
+            check(all(x.shape == b.shape and bool(torch.isfinite(x).all())
+                      for x in xs),
+                  f"{label}: finite solutions of shape {tuple(b.shape)}")
+            check(all(a <= 1.5 * p and h <= 1.5 * p
+                      for a, p, h in zip(res, res_p, res_h)),
+                  f"{label}: true residuals {[f'{v:.3e}' for v in res]}, "
+                  f"{[f'{v:.3e}' for v in res_h]} (history) <= 1.5 x the "
+                  f"plain version's")
+            hist = (sh.residuals_primal if two else sh.residuals)
+            check(hist.size >= 1 and (two or hist.size == sh.niter + 1),
+                  f"{label} (history=True) kept its history")
+            check(counts_fused[name] > 0, f"{label} launched {name} "
+                  f"({counts_fused[name]} times)")
+            check(counts["dia_spmv"] > 0, f"{label} (history=True) launched"
+                  f" dia_spmv ({counts['dia_spmv']} times)")
+            if main_path:
+                launches[name] = counts_fused[name]
+            del ref
+
+    with Phase("5l profiles of the four 128^3 kernels' solves", 90):
+        for name, label, solve, _, main_path in paths_t:
+            if main_path:
+                print(f"  {label}:", flush=True)
+                profile_solve(lambda: (None, solve()[-1]), top=8)
+    del A, b, c, pd, ot, pda, ota, A64, b64, c64, pda64
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -1094,32 +1368,47 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the fourteen ported methods through krylov_solve (the
-        # non-symmetric five on the convection-diffusion stencil), against a
-        # direct call of its solver on the same inputs: the same status,
-        # niter and x (bit for bit: the kernels sum in a fixed order);
+        # Each of the nineteen ported methods through krylov_solve (the
+        # non-symmetric ten on the convection-diffusion stencil, CGS and
+        # BiLQR in f64), against a direct call of its solver on the same
+        # inputs: the same status, niter and x (and y) (bit for bit: the
+        # kernels sum in a fixed order);
         # then one workspace round trip (krylov_workspace, warm_start,
         # krylov_solve_inplace) whose show_workspace reports the GPU.
         A = kt.DIAOperator(kt.poisson_dia(64))
         Acd = kt.DIAOperator(kt.convdiff_dia(64))
         Acd64 = kt.DIAOperator(kt.convdiff_dia(64, dtype=torch.float64))
         b = rhs(64 ** 3, gen=np.random.default_rng(SEED + 5))
+        c64 = rhs(64 ** 3, torch.float64,
+                  gen=np.random.default_rng(SEED + 10))
         for method in ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift",
                        "symmlq", "minres", "minres_qlp", "minares", "gmres",
-                       "fgmres", "fom", "bicgstab", "cgs"):
+                       "fgmres", "fom", "bicgstab", "cgs", "diom", "dqgmres",
+                       "bilq", "qmr", "bilqr"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
-                                        "bicgstab") else A), b
-            if method == "cgs":   # in f64, as phase 3e says
+                                        "bicgstab", "diom", "dqgmres",
+                                        "bilq", "qmr") else A), b
+            if method in ("cgs", "bilqr"):   # in f64, as phase 3e says
                 op, bm = Acd64, b.double()
-            x, st = kt.krylov_solve(method, op, bm, *extra)
-            xd, sd = getattr(kt, method)(op, bm, *extra)
+            if method == "bilqr":
+                extra = (c64,)
+            *xs, st = kt.krylov_solve(method, op, bm, *extra)
+            *xd, sd = getattr(kt, method)(op, bm, *extra)
             torch.cuda.synchronize()
             print(f"  {method}: niter={st.niter} status='{st.status}'",
                   flush=True)
-            check(x.is_cuda and st.status == sd.status
-                  and st.niter == sd.niter and torch.equal(x, xd),
+            check(all(x.is_cuda for x in xs) and st.status == sd.status
+                  and st.niter == sd.niter
+                  and all(torch.equal(x, y) for x, y in zip(xs, xd)),
                   f"krylov_solve('{method}') equals {method}(A, b)")
+        ws = kt.krylov_workspace("bilqr", Acd64, b.double())
+        kt.krylov_solve_inplace(ws, Acd64, b.double(), c64)
+        check(kt.issolved_primal(ws) and kt.issolved_dual(ws)
+              and kt.Aprod_count(ws) == kt.Atprod_count(ws)
+              == kt.iteration_count(ws) and len(kt.solution(ws)) == 2,
+              "a BiLQR workspace: both solved, one A and one A^H product "
+              "per iteration, two solutions")
         ws = kt.krylov_workspace("minres_qlp", A, b)
         x0 = 0.5 * kt.minres_qlp(A, b)[0]
         kt.warm_start(ws, x0)
@@ -1133,7 +1422,7 @@ def main():
               f"iterations from the warm start, true residual {res:.2e})")
         check("architecture       GPU" in shown,
               "show_workspace reports the GPU")
-        del A, Acd, Acd64, b
+        del A, Acd, Acd64, b, c64
 
     launches["dia_spmv_padded"] = launches_padded
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
@@ -1168,7 +1457,15 @@ def main():
                "bicgstab_dia": ("krylov_tpu_torch/csrc/bicgstab_dia.cu",
                                 "krylov_tpu/ops/pallas_fused.py:3016"),
                "cgs_dia": ("krylov_tpu_torch/csrc/cgs_dia.cu",
-                           "krylov_tpu/ops/pallas_fused.py:3149")}
+                           "krylov_tpu/ops/pallas_fused.py:3149"),
+               "trunc_dia": ("krylov_tpu_torch/csrc/trunc_dia.cu",
+                             "krylov_tpu/ops/pallas_fused.py:5160"),
+               "bilq_dia": ("krylov_tpu_torch/csrc/bilq_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:4545"),
+               "qmr_dia": ("krylov_tpu_torch/csrc/qmr_dia.cu",
+                           "krylov_tpu/ops/pallas_fused.py:4755"),
+               "bilqr_dia": ("krylov_tpu_torch/csrc/bilqr_dia.cu",
+                             "krylov_tpu/ops/pallas_fused.py:7400")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

@@ -4,7 +4,8 @@ A second package beside the JAX one, ported slice by slice.  It carries
 ``cg`` (with M = I, Jacobi or a Chebyshev polynomial), ``cr``, ``car``,
 ``minres``, ``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``,
 ``minres_qlp``, ``minares`` and, for non-symmetric systems, ``gmres``,
-``fgmres``, ``fom``, ``bicgstab`` and ``cgs``, on DIA stencil, CSR,
+``fgmres``, ``fom``, ``diom``, ``dqgmres``, ``bicgstab``, ``cgs``,
+``bilq``, ``qmr`` and ``bilqr`` (Ax = b and Aᴴy = c), on DIA stencil, CSR,
 dense and matrix-free operators (with their adjoints), through
 hand-written CUDA kernels for Hopper (``csrc/``): a DIA SpMV (plain and
 in a padded, chainable layout) and a whole-solve kernel for each solver,
@@ -30,29 +31,32 @@ from .operators import (
 from .ops.cuda_dia import (dia_align_adjoint, dia_pad_layout,
                            dia_spmv_aligned, dia_spmv_padded,
                            dia_unpad_layout)
-from .ops.cuda_fused import (bicgstab_dia_fused, car_dia_fused,
+from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
+                             bilqr_dia_fused, car_dia_fused,
                              cg_cheby_dia_fused, cg_dia_fused,
                              cg_lanczos_dia_fused,
                              cg_lanczos_shift_dia_fused, cgs_dia_fused,
                              cr_dia_fused, fom_dia_fused, gmres_dia_fused,
                              minares_dia_fused, minres_dia_fused,
-                             minres_qlp_dia_fused, symmlq_dia_fused)
+                             minres_qlp_dia_fused, qmr_dia_fused,
+                             symmlq_dia_fused, trunc_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
 from .ops.kops import knorm_elliptic, sym_givens
 from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
 from .precond import ChebyshevPreconditioner, power_bound
 from .solvers.bicgstab import bicgstab, cgs
+from .solvers.bilq import bilq, bilqr, qmr
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cr import car, cr
-from .solvers.fom import fom
+from .solvers.fom import diom, dqgmres, fom
 from .solvers.gmres import fgmres, gmres
 from .solvers.minares import minares
 from .solvers.minres import minres
 from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
-from .stats import (LanczosShiftStats, LanczosStats, SimpleStats,
-                    SymmlqStats)
+from .stats import (AdjointStats, LanczosShiftStats, LanczosStats,
+                    SimpleStats, SymmlqStats)
 
 # Generic interface + workspaces.
 from .interface import (KRYLOV_METHODS, krylov_solve, krylov_solve_inplace,
@@ -61,8 +65,8 @@ from .show import kstdout, show_stats, show_workspace
 from .workspaces import (METHOD_TABLE, Aprod_count, Atprod_count,
                          BlockKrylovWorkspace, KrylovConstructor,
                          KrylovWorkspace, elapsed_time, issolved,
-                         iteration_count, results, solution, statistics,
-                         warm_start)
+                         issolved_dual, issolved_primal, iteration_count,
+                         results, solution, statistics, warm_start)
 
 # each CUDA kernel wrapper by the name its launch count goes under
 KERNELS = {"dia_spmv": dia_spmv_aligned,
@@ -80,7 +84,11 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "gmres_dia": gmres_dia_fused,
            "fom_dia": fom_dia_fused,
            "bicgstab_dia": bicgstab_dia_fused,
-           "cgs_dia": cgs_dia_fused}
+           "cgs_dia": cgs_dia_fused,
+           "trunc_dia": trunc_dia_fused,
+           "bilq_dia": bilq_dia_fused,
+           "qmr_dia": qmr_dia_fused,
+           "bilqr_dia": bilqr_dia_fused}
 
 
 def kernel_launches():

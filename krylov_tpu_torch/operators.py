@@ -303,12 +303,17 @@ class DIAOperator(AbstractLinearOperator):
                                              self.shape[0])
         return self._pd_adj
 
+    def aligned_adjoint_kernel_args(self):
+        """(pd_adj, offsets_adj as a tensor on pd_adj's device): what the
+        kernels that apply Aᴴ take; the tensor is made once and cached."""
+        pd_adj, offs = self.aligned_adjoint()
+        if self._offsets_adj is None:
+            self._offsets_adj = offsets_tensor(offs, pd_adj.device)
+        return pd_adj, self._offsets_adj
+
     def rmatvec(self, x):
         if self.use_kernel:
-            pd_adj, offs = self.aligned_adjoint()
-            if self._offsets_adj is None:
-                self._offsets_adj = offsets_tensor(offs, pd_adj.device)
-            return dia_spmv_aligned(pd_adj, self._offsets_adj, x)
+            return dia_spmv_aligned(*self.aligned_adjoint_kernel_args(), x)
         data, offs = self.adjoint_dia()
         return dia_spmv(data, offs, x)
 

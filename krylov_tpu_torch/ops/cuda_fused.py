@@ -35,18 +35,26 @@ same chunked, masked semantics, so that niter is exact across chunks.
   (``csrc/fom_dia.cu``).
 * ``bicgstab_dia_fused`` and ``cgs_dia_fused``: BiCGSTAB and CGS with
   the shadow vector c = b (``csrc/bicgstab_dia.cu``, ``csrc/cgs_dia.cu``).
+* ``trunc_dia_fused``: DIOM or DQGMRES over circular V and P rings, with
+  the window dots of one launch summed in one block
+  (``csrc/trunc_dia.cu``).
+* ``bilq_dia_fused``, ``qmr_dia_fused`` and ``bilqr_dia_fused``: BiLQ and
+  QMR with the shadow vector c = b, and BiLQR for A x = b and Aᴴ y = c,
+  on the two-sided Lanczos launches of ``csrc/bilanczos.cuh``
+  (``csrc/bilq_dia.cu``, ``csrc/qmr_dia.cu``, ``csrc/bilqr_dia.cu``).
 """
 
 import math
 import types
 
+import numpy as np
 import torch
 
 from .. import _build
 from .._runtime import (BREAKDOWN, COND_EXCEEDED, FWD_ERR, ILL_COND_MACH,
                         INCONSISTENT, MIN_LSQ_X, RUNNING, SOLVED, SOLVED_LSQ,
-                        SOLVED_ZERO, TIRED, ZERO_CURVATURE, ZERO_RESIDUAL,
-                        drive)
+                        SOLVED_PRIMAL_DUAL, SOLVED_ZERO, TIRED,
+                        ZERO_CURVATURE, ZERO_RESIDUAL, drive)
 from .cuda_dia import _check as _check_spmv
 from .cuda_dia import dia_spmv_aligned_ref
 from .kops import sym_givens
@@ -67,6 +75,9 @@ INCONS_FOM = 28
 # BiCGSTAB and CGS codes (krylov_tpu/solvers/bicgstab.py)
 BC_BREAKDOWN = 29
 ALPHA_BREAKDOWN = 30
+# BiLQ, QMR and BiLQR's own code (krylov_tpu/solvers/bilq.py; BiLQ's
+# solved codes are 35 and 36, decoded by its own strings)
+UV_BREAKDOWN = 38
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -99,6 +110,20 @@ _AR_RNORM, _AR_NSC = 4, 8
 _AR_INCONS, _AR_NPASS, _AR_NST = 5, 6, 11
 _BS_RNORM, _BS_NSC, _BS_NST, _BS_NPART = 4, 8, 3, 5
 _CGS_RNORM, _CGS_NSC, _CGS_NST, _CGS_NPART = 4, 7, 3, 3
+# DIOM and DQGMRES (csrc/trunc_dia.cu): NSC fixed scalars, then the window
+# dots hs (mem), the column H (mem + 2), L and S (mem each) and the P-ring
+# coefficients (mem)
+_TR_RNORM, _TR_NSC, _TR_NST = 3, 8, 4
+# BiLQ, QMR and BiLQR (csrc/bilanczos.cuh): the partial rows, and the work
+# row of x (after v and u, three rows each); BiLQR's y follows x and its
+# snorm follows rnorm
+_BI_NPART, _BI_X = 5, 6
+_BQ_RNORM, _BQ_NSC, _BQ_NST = 17, 21, 4
+_QM_RNORM, _QM_NSC, _QM_NST = 15, 18, 3
+_BR_RNORM, _BR_NSC, _BR_NST = 22, 27, 13
+# BiLQR's int slots of lq_tol, lq_mach, cg_tol, cg_mach, qr_tol, qr_mach,
+# solved_primal, solved_dual and breakdown
+_BR_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -126,6 +151,11 @@ minares_dia_fused_supported = cg_dia_fused_supported
 fom_dia_fused_supported = cg_dia_fused_supported
 bicgstab_dia_fused_supported = cg_dia_fused_supported
 cgs_dia_fused_supported = cg_dia_fused_supported
+bilq_dia_fused_supported = cg_dia_fused_supported
+qmr_dia_fused_supported = cg_dia_fused_supported
+bilqr_dia_fused_supported = cg_dia_fused_supported
+# the rings live in device memory, so any mem ≥ 2 has a kernel
+trunc_dia_fused_supported = cg_dia_fused_supported
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
 _BASIS = {torch.float32: "f32", torch.float64: "f64",
           torch.bfloat16: "bf16", torch.float16: "f16"}
@@ -1327,6 +1357,413 @@ def cgs_dia_fused_ref(pd, offsets, b, atol, rtol, itmax):
 
 
 # ---------------------------------------------------------------------------
+# DIOM and DQGMRES: the plain version
+# ---------------------------------------------------------------------------
+
+def _pmod(a, m):
+    """a mod m in [0, m), as jnp.mod for m > 0."""
+    return ((a % m) + m) % m
+
+
+def trunc_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, mem=20,
+                        variant="dqgmres"):
+    """Plain PyTorch DIOM or DQGMRES of A x = b (pallas_fused.py:
+    5160-5350): circular V (mem) and P (mem − 1 for DIOM, mem for
+    DQGMRES) rings, window classical Gram-Schmidt (every dot against the
+    unmodified w, then the subtractions in slot order), the
+    diagonal-indexed Hessenberg column with DIOM's LU pivots or
+    DQGMRES's rotation ring, p = (vₖ − Σ coef P)/denom and x += γ p.  The
+    vectors stay on b's device; the column's scalars run on the host in
+    b's dtype, which reads the state once per iteration, and an
+    iteration runs only while status == RUNNING and it < itmax.
+
+    Returns (x, niter, rnorm, status) as tensors, as ``trunc_dia_fused``
+    does."""
+    diom = variant == "diom"
+    mP = mem - 1 if diom else mem
+    T = b.dtype
+    np_t = torch.empty(0, dtype=T).numpy().dtype.type
+    n = b.shape[0]
+    x = torch.zeros_like(b)
+    V = torch.zeros((mem, n), dtype=T, device=b.device)
+    P = torch.zeros((mP, n), dtype=T, device=b.device)
+    beta0 = torch.sqrt(torch.sum(b * b))
+    V[0] = b / _safe(beta0, _scalar(1, b))
+    beta0 = np_t(beta0.item())
+    eps_lim = np_t(atol) + np_t(rtol) * beta0
+    L = np.zeros(mem, np_t)
+    S = np.zeros(mem, np_t)
+    status = (ZERO_RESIDUAL if beta0 == 0
+              else SOLVED if beta0 <= eps_lim else RUNNING)
+    k, xi, rnorm = 0, beta0, beta0
+    while status == RUNNING and k < itmax:
+        it1, pos = k + 1, k % mem
+        vk = V[pos]
+        w = dia_spmv_aligned_ref(pd, offsets, vk)
+        # window CGS: every dot against the unmodified w, then subtract
+        hs = torch.stack([torch.sum(V[j] * w) for j in range(mem)])
+        valid = [k - _pmod(pos - j, mem) >= 0 for j in range(mem)]
+        hs = torch.where(torch.tensor(valid, device=b.device), hs,
+                         torch.zeros_like(hs))
+        for j in range(mem):
+            w = w - hs[j] * V[j]
+        haux = torch.sqrt(torch.sum(w * w))
+        hv = torch.cat([hs, haux.reshape(1)]).cpu().numpy()
+        haux = hv[mem]
+        H = np.zeros(mem + 2, np_t)
+        for j in range(mem):
+            i_idx = k - _pmod(pos - j, mem)
+            if i_idx >= 0:
+                H[k - i_idx + 1] = H[k - i_idx + 1] + hv[j]
+        if diom:
+            for i in range(max(2, it1 - mem + 2), it1 + 1):
+                lslot, diag = (i - 1) % (mem - 1), it1 - i + 1
+                H[diag] = H[diag] - L[lslot] * H[diag + 1]
+                if i == it1:
+                    xi = -L[lslot] * xi
+            safe_u = np_t(1) if H[1] == 0 else H[1]
+            L[it1 % (mem - 1)] = haux / safe_u
+            gamma_step, rnorm, denom = xi, haux * np.abs(xi / safe_u), safe_u
+        else:
+            for i in range(max(1, it1 - mem), it1):
+                slot, diag = (i - 1) % mem, it1 - i
+                ci, si = L[slot], S[slot]
+                hi1, hi0 = H[diag + 1], H[diag]
+                H[diag] = si * hi1 - ci * hi0
+                H[diag + 1] = ci * hi1 + si * hi0
+            ck, sk, rkk = (v.item() for v in sym_givens(
+                torch.tensor(H[1]), torch.tensor(haux)))
+            H[1] = rkk
+            L[pos], S[pos] = ck, sk
+            gamma_step, xi = np_t(ck) * xi, np_t(sk) * xi
+            rnorm = np.abs(xi)
+            denom = np_t(1) if H[1] == 0 else H[1]
+        lowP = k - mem + 1 if diom else k - mem
+        psum = torch.zeros_like(b)
+        for jp in range(mP):
+            iP = (k - 1) - _pmod((k - 1) - jp, mP)
+            ok = iP >= 0 and iP >= lowP and iP <= k - 1
+            coef = H[k - iP + 1] if ok else np_t(0)
+            psum = psum + _scalar(coef, b) * P[jp]
+        p_new = (vk - psum) / _scalar(denom, b)
+        P[k % mP] = p_new
+        x = x + _scalar(gamma_step, b) * p_new
+        if haux != 0:
+            V[(k + 1) % mem] = w / _scalar(haux, b)
+        solved = rnorm <= eps_lim or rnorm + np_t(1) <= np_t(1)
+        status = SOLVED if solved else RUNNING
+        k = it1
+    return x, _i32(k, b), _scalar(rnorm, b), _i32(status, b)
+
+
+# ---------------------------------------------------------------------------
+# BiLQ, QMR and BiLQR: the plain versions
+# ---------------------------------------------------------------------------
+
+def _bi_start(b, c):
+    """‖b‖, cᴴb (‖b‖² when c is None: the shadow c = b, as the TPU
+    kernels take it), β₁ = √|cᴴb|, γ₁ = cᴴb/β₁, v₁ = b/β₁, u₁ = c/γ₁."""
+    one = _scalar(1, b)
+    bnorm = torch.sqrt(torch.sum(b * b))
+    chb = bnorm * bnorm if c is None else torch.sum(c * b)
+    beta = torch.sqrt(torch.abs(chb))
+    gamma = chb / _safe(beta, one)
+    return (bnorm, chb, beta, gamma, b / _safe(beta, one),
+            (b if c is None else c) / _safe(gamma, one))
+
+
+def _bi_lanczos_ref(pd, offsets, pd_adj, offsets_adj, s, one):
+    """q = A vₖ − γ vₖ₋₁, p = Aᴴuₖ − β uₖ₋₁, α = ⟨uₖ, q⟩, q −= αvₖ,
+    p −= αuₖ, pᴴq (after both updates), β' = √|pᴴq|, γ' = pᴴq/β'
+    (pallas_fused.py:4617-4632)."""
+    q = dia_spmv_aligned_ref(pd, offsets, s.vk) - s.gamma * s.vkm1
+    p = dia_spmv_aligned_ref(pd_adj, offsets_adj, s.uk) - s.beta * s.ukm1
+    alpha = torch.sum(s.uk * q)
+    q = q - alpha * s.vk
+    p = p - alpha * s.uk
+    phq = torch.sum(p * q)
+    beta1 = torch.sqrt(torch.abs(phq))
+    gamma1 = phq / _safe(beta1, one)
+    nz = phq != 0
+    vk1 = torch.where(nz, q / _safe(beta1, one), s.vk)
+    uk1 = torch.where(nz, p / _safe(gamma1, one), s.uk)
+    return alpha, phq, beta1, gamma1, vk1, uk1
+
+
+def _lq_step(s, it, alpha, one, zero):
+    """The LQ factorisation of Tₖ shared by BiLQ and BiLQR (pallas_fused.
+    py:4634-4645): (ck, sk, d_{k-1}, λ_{k-1}, ε_{k-2}, d̄ₖ)."""
+    is1, is2 = it == 1, it == 2
+    ck_g, sk_g, d_km1 = sym_givens(s.dbar_km1, s.gamma)
+    ck = torch.where(is1, -one, ck_g)
+    sk = torch.where(is1, zero, sk_g)
+    eps_km2 = s.s_km1 * s.beta
+    lam2 = ck * s.beta + sk * alpha
+    dbar2 = sk * s.beta - ck * alpha
+    lam3 = -s.c_km1 * ck * s.beta + sk * alpha
+    dbar3 = -s.c_km1 * sk * s.beta - ck * alpha
+    lam_km1 = torch.where(is2, lam2, lam3)
+    dbar_k = torch.where(is1, alpha, torch.where(is2, dbar2, dbar3))
+    return ck, sk, d_km1, lam_km1, eps_km2, dbar_k
+
+
+def bilq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, atol, rtol,
+                       itmax, transfer_to_bicg=True):
+    """Plain PyTorch BiLQ of A x = b with the shadow c = b (pallas_fused.
+    py:4545-4706): the two-sided Lanczos step on A and Aᴴ, the LQ of Tₖ,
+    the residual estimates of the LQ and BiCG points, and the transfer to
+    the BiCG point when its test stops the solve.
+
+    Returns (x, niter, rnorm, status) as tensors, as ``bilq_dia_fused``
+    does."""
+    eps = torch.finfo(b.dtype).eps
+    one, zero = _scalar(1, b), _scalar(0, b)
+    bnorm, chb, beta0, gamma0, v1, u1 = _bi_start(b, None)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * bnorm
+    status0 = torch.where(
+        bnorm == 0, ZERO_RESIDUAL, torch.where(
+            chb == 0, BC_BREAKDOWN, torch.where(
+                bnorm <= eps_lim, SOLVED_LQ, RUNNING))).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), vk=v1, uk=u1, vkm1=torch.zeros_like(b),
+        ukm1=torch.zeros_like(b), dbar=torch.zeros_like(b), iter=_i32(0, b),
+        beta=beta0, gamma=gamma0, c_km1=-one, s_km1=zero, dbar_km1=zero,
+        zeta_km1=zero, zeta_km2=zero, eta_km1=zero, zetabar=zero,
+        norm_vk=bnorm / _safe(torch.abs(beta0), one), rnorm=bnorm,
+        cgflag=_i32(0, b), status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2 = it == 1, it == 2, it >= 2
+        alpha, phq, beta1, gamma1, vk1, uk1 = _bi_lanczos_ref(
+            pd, offsets, pd_adj, offsets_adj, s, one)
+        ck, sk, d_km1, lam_km1, eps_km2, dbar_k = _lq_step(s, it, alpha,
+                                                           one, zero)
+        zeta_km1 = torch.where(ge2, s.eta_km1 / _safe(d_km1, one),
+                               s.zeta_km1)
+        zeta_km2 = torch.where(it >= 3, s.zeta_km1, s.zeta_km2)
+        eta_k = torch.where(is1, s.beta, torch.where(
+            is2, -lam_km1 * zeta_km1,
+            -eps_km2 * zeta_km2 - lam_km1 * zeta_km1))
+        x_add = torch.where(ge2, zeta_km1, zero)
+        x = s.x + (x_add * ck) * s.dbar + (x_add * sk) * s.vk
+        dbar = torch.where(is1, s.vk, sk * s.dbar - ck * s.vk)
+        vhv = torch.sum(s.vk * vk1)
+        norm_vkp1 = torch.sqrt(torch.sum(vk1 * vk1))
+        mu = s.beta * (s.s_km1 * zeta_km2 - s.c_km1 * ck * zeta_km1) \
+            + alpha * sk * zeta_km1
+        om = beta1 * sk * zeta_km1
+        th = mu * om * vhv
+        rnorm_lq = torch.where(is1, s.rnorm, torch.sqrt(
+            mu * mu * s.norm_vk * s.norm_vk
+            + om * om * norm_vkp1 * norm_vkp1 + 2 * th))
+        dbar_ok = torch.abs(dbar_k) > eps
+        zetabar = torch.where(dbar_ok, eta_k / _safe(dbar_k, one),
+                              s.zetabar)
+        rho = beta1 * (sk * zeta_km1 - ck * zetabar)
+        rnorm_cg = torch.abs(rho) * norm_vkp1
+        solved_lq = rnorm_lq <= eps_lim
+        solved_cg = (dbar_ok & (rnorm_cg <= eps_lim)) if transfer_to_bicg \
+            else torch.zeros_like(solved_lq)
+        breakdown = ~solved_lq & ~solved_cg & (phq == 0)
+        code = torch.where(solved_cg & ~solved_lq, SOLVED_CG_PT, torch.where(
+            solved_lq, SOLVED_LQ, torch.where(breakdown, UV_BREAKDOWN,
+                                              RUNNING))).to(torch.int32)
+        return dict(x=x, vk=vk1, uk=uk1, vkm1=s.vk, ukm1=s.uk, dbar=dbar,
+                    iter=it, beta=beta1, gamma=gamma1, c_km1=ck, s_km1=sk,
+                    dbar_km1=dbar_k, zeta_km1=zeta_km1, zeta_km2=zeta_km2,
+                    eta_km1=eta_k, zetabar=zetabar, norm_vk=norm_vkp1,
+                    rnorm=rnorm_lq,
+                    cgflag=(solved_cg & ~solved_lq).to(torch.int32),
+                    status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    x = torch.where(s.cgflag == 1, s.x + s.zetabar * s.dbar, s.x)
+    return x, s.iter, s.rnorm, s.status
+
+
+def qmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, atol, rtol,
+                      itmax):
+    """Plain PyTorch QMR of A x = b with the shadow c = b (pallas_fused.
+    py:4755-4880): the two-sided Lanczos step, the QR of Tₖ₊₁.ₖ by
+    ``sym_givens`` and the w_{k-2}, w_{k-1} direction recurrence.
+
+    Returns (x, niter, rnorm, status) as tensors, as ``qmr_dia_fused``
+    does."""
+    one, zero = _scalar(1, b), _scalar(0, b)
+    bnorm, chb, beta0, gamma0, v1, u1 = _bi_start(b, None)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * bnorm
+    status0 = torch.where(
+        bnorm == 0, ZERO_RESIDUAL, torch.where(
+            chb == 0, BC_BREAKDOWN, torch.where(
+                bnorm <= eps_lim, SOLVED, RUNNING))).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), vk=v1, uk=u1, vkm1=torch.zeros_like(b),
+        ukm1=torch.zeros_like(b), wkm2=torch.zeros_like(b),
+        wkm1=torch.zeros_like(b), iter=_i32(0, b), beta=beta0, gamma=gamma0,
+        c_km2=zero, s_km2=zero, c_km1=zero, s_km1=zero, zetabar=beta0,
+        tau=bnorm * bnorm / _safe(torch.abs(beta0), one) ** 2, rnorm=bnorm,
+        status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is2, ge2, ge3 = it == 2, it >= 2, it >= 3
+        alpha, phq, beta1, gamma1, vk1, uk1 = _bi_lanczos_ref(
+            pd, offsets, pd_adj, offsets_adj, s, one)
+        eps_km2 = torch.where(ge3, s.s_km2 * s.gamma, zero)
+        lbar_km1 = torch.where(ge3, -s.c_km2 * s.gamma,
+                               torch.where(is2, s.gamma, zero))
+        lam_km1 = torch.where(ge2, s.c_km1 * lbar_km1 + s.s_km1 * alpha,
+                              zero)
+        dbar_k = torch.where(ge2, s.s_km1 * lbar_km1 - s.c_km1 * alpha,
+                             alpha)
+        ck, sk, d_k = sym_givens(dbar_k, beta1)
+        zeta_k = ck * s.zetabar
+        zetabar = sk * s.zetabar
+        w_k = (s.vk - lam_km1 * s.wkm1 - eps_km2 * s.wkm2) / _safe(d_k, one)
+        tau = s.tau + torch.sum(vk1 * vk1)
+        rnorm = torch.abs(zetabar) * torch.sqrt(tau)
+        solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+        breakdown = ~solved & (phq == 0)
+        code = torch.where(solved, SOLVED, torch.where(
+            breakdown, UV_BREAKDOWN, RUNNING)).to(torch.int32)
+        return dict(x=s.x + zeta_k * w_k, vk=vk1, uk=uk1, vkm1=s.vk,
+                    ukm1=s.uk, wkm2=torch.where(ge2, s.wkm1, s.wkm2),
+                    wkm1=w_k, iter=it, beta=beta1, gamma=gamma1,
+                    c_km2=s.c_km1, s_km2=s.s_km1, c_km1=ck, s_km1=sk,
+                    zetabar=zetabar, tau=tau, rnorm=rnorm, status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.status
+
+
+def bilqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                        itmax, transfer_to_bicg=True):
+    """Plain PyTorch BiLQR of A x = b and Aᴴ y = c (pallas_fused.py:
+    7400-7640): one two-sided Lanczos process feeding the primal BiLQ
+    recurrences and the dual QMR-like ones, each frozen once its own
+    system is solved, and the transfer of x to the BiCG point.
+
+    Returns (x, y, niter, rnorm, snorm, status, flags) as tensors, as
+    ``bilqr_dia_fused`` does; flags = [lq_tol, lq_mach, cg_tol, cg_mach,
+    qr_tol, qr_mach, solved_primal, solved_dual, breakdown]."""
+    eps = torch.finfo(b.dtype).eps
+    one, zero = _scalar(1, b), _scalar(0, b)
+    i0 = _i32(0, b)
+    bnorm, chb, beta0, gamma0, v1, u1 = _bi_start(b, c)
+    cnorm = torch.sqrt(torch.sum(c * c))
+    eps_l = _scalar(atol, b) + _scalar(rtol, b) * bnorm
+    eps_q = _scalar(atol, b) + _scalar(rtol, b) * cnorm
+    sp0, sd0 = (bnorm == 0).to(torch.int32), (cnorm == 0).to(torch.int32)
+    status0 = torch.where(
+        chb == 0, BC_BREAKDOWN, torch.where(
+            (sp0 == 1) & (sd0 == 1), ZERO_RESIDUAL, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), y=torch.zeros_like(b), vk=v1, uk=u1,
+        vkm1=torch.zeros_like(b), ukm1=torch.zeros_like(b),
+        dbar=torch.zeros_like(b), wkm3=torch.zeros_like(b),
+        wkm2=torch.zeros_like(b), iter=i0, beta=beta0, gamma=gamma0,
+        c_km1=-one, s_km1=zero, dbar_km1=zero, zeta_km1=zero, zeta_km2=zero,
+        eta_km1=zero, zetabar=zero, psibar_km1=zero, eps_km3=zero,
+        lam_km2=zero, norm_vk=bnorm / _safe(torch.abs(beta0), one),
+        tau=zero, rnorm=bnorm, snorm=cnorm, sp=sp0, sd=sd0, lq_t=i0,
+        lq_m=i0, cg_t=i0, cg_m=i0, qr_t=i0, qr_m=i0, cgflag=i0, brk=i0,
+        status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2 = it == 1, it == 2, it >= 2
+        alpha, phq, beta1, gamma1, vk1, uk1 = _bi_lanczos_ref(
+            pd, offsets, pd_adj, offsets_adj, s, one)
+        ck, sk, d_km1, lam_km1, eps_km2, dbar_k = _lq_step(s, it, alpha,
+                                                           one, zero)
+        # primal block (frozen once solved)
+        pm = s.sp == 0
+        zeta_km1 = torch.where(pm & ge2, s.eta_km1 / _safe(d_km1, one),
+                               s.zeta_km1)
+        zeta_km2 = torch.where(pm & (it >= 3), s.zeta_km1, s.zeta_km2)
+        eta_k = torch.where(pm, torch.where(is1, s.beta, torch.where(
+            is2, -lam_km1 * zeta_km1,
+            -eps_km2 * zeta_km2 - lam_km1 * zeta_km1)), s.eta_km1)
+        x_add = torch.where(pm & ge2, zeta_km1, zero)
+        x = s.x + (x_add * ck) * s.dbar + (x_add * sk) * s.vk
+        dbar = torch.where(pm, torch.where(is1, s.vk,
+                                           sk * s.dbar - ck * s.vk), s.dbar)
+        # dual block (the old u_{k-1})
+        dm = s.sd == 0
+        psi_km1 = torch.where(is1, zero, ck * s.psibar_km1)
+        psibar_k = torch.where(is1, s.gamma, sk * s.psibar_km1)
+        d = _safe(d_km1, one)
+        w2 = s.ukm1 / d
+        w3 = (s.ukm1 - s.lam_km2 * s.wkm2) / d
+        w4 = (s.ukm1 - s.lam_km2 * s.wkm2 - s.eps_km3 * s.wkm3) / d
+        w_km1 = torch.where(is2, w2, torch.where(it == 3, w3, w4))
+        y = s.y + torch.where(dm & ge2, psi_km1, zero) * w_km1
+        tau = torch.where(dm, s.tau + torch.sum(s.uk * s.uk), s.tau)
+        snorm = torch.where(dm, torch.abs(psibar_k) * torch.sqrt(tau),
+                            s.snorm)
+        vhv = torch.sum(s.vk * vk1)
+        norm_vkp1 = torch.sqrt(torch.sum(vk1 * vk1))
+        mu = s.beta * (s.s_km1 * zeta_km2 - s.c_km1 * ck * zeta_km1) \
+            + alpha * sk * zeta_km1
+        om = beta1 * sk * zeta_km1
+        th = mu * om * vhv
+        rnorm_lq = torch.where(is1, s.rnorm, torch.sqrt(
+            mu * mu * s.norm_vk * s.norm_vk
+            + om * om * norm_vkp1 * norm_vkp1 + 2 * th))
+        rnorm_lq = torch.where(pm, rnorm_lq, s.rnorm)
+        dbar_ok = torch.abs(dbar_k) > eps
+        zetabar = torch.where(pm & dbar_ok, eta_k / _safe(dbar_k, one),
+                              s.zetabar)
+        rho = beta1 * (sk * zeta_km1 - ck * zetabar)
+        rnorm_cg = torch.abs(rho) * norm_vkp1
+        if transfer_to_bicg:
+            cg_t_b = dbar_ok & (rnorm_cg <= eps_l)
+            cg_m_b = dbar_ok & ((rnorm_cg + 1.0) <= 1.0)
+        else:
+            cg_t_b = cg_m_b = torch.zeros_like(dbar_ok)
+
+        def keep(cond, new, old):
+            return torch.where(cond, new.to(torch.int32), old)
+
+        lq_t = keep(pm, rnorm_lq <= eps_l, s.lq_t)
+        lq_m = keep(pm, (rnorm_lq + 1.0) <= 1.0, s.lq_m)
+        cg_t = keep(pm, cg_t_b, s.cg_t)
+        cg_m = keep(pm, cg_m_b, s.cg_m)
+        solved_lq = (lq_t == 1) | (lq_m == 1)
+        solved_cg = (cg_t == 1) | (cg_m == 1)
+        sp = keep(pm & (solved_lq | solved_cg), torch.ones_like(pm), s.sp)
+        qr_t = keep(dm, snorm <= eps_q, s.qr_t)
+        qr_m = keep(dm, (snorm + 1.0) <= 1.0, s.qr_m)
+        sd = keep(dm & ((qr_t == 1) | (qr_m == 1)), torch.ones_like(dm),
+                  s.sd)
+        brk = ~solved_lq & ~solved_cg & (phq == 0)
+        code = torch.where(brk, UV_BREAKDOWN, torch.where(
+            (sp == 1) & (sd == 1), SOLVED_PRIMAL_DUAL, RUNNING)).to(
+                torch.int32)
+        cgflag = keep((s.cgflag == 1) | (solved_cg & pm & ~solved_lq),
+                      torch.ones_like(pm), s.cgflag)
+        return dict(
+            x=x, y=y, vk=vk1, uk=uk1, vkm1=s.vk, ukm1=s.uk, dbar=dbar,
+            wkm3=torch.where(ge2, s.wkm2, s.wkm3),
+            wkm2=torch.where(ge2, w_km1, s.wkm2), iter=it, beta=beta1,
+            gamma=gamma1, c_km1=ck, s_km1=sk, dbar_km1=dbar_k,
+            zeta_km1=zeta_km1, zeta_km2=zeta_km2, eta_km1=eta_k,
+            zetabar=zetabar, psibar_km1=psibar_k,
+            eps_km3=torch.where(it >= 3, eps_km2, s.eps_km3),
+            lam_km2=torch.where(ge2, lam_km1, s.lam_km2), norm_vk=norm_vkp1,
+            tau=tau, rnorm=rnorm_lq, snorm=snorm, sp=sp, sd=sd, lq_t=lq_t,
+            lq_m=lq_m, cg_t=cg_t, cg_m=cg_m, qr_t=qr_t, qr_m=qr_m,
+            cgflag=cgflag, brk=brk.to(torch.int32), status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    x = torch.where(s.cgflag == 1, s.x + s.zetabar * s.dbar, s.x)
+    flags = torch.stack([s.lq_t, s.lq_m, s.cg_t, s.cg_m, s.qr_t, s.qr_m,
+                         s.sp, s.sd, s.brk])
+    return x, s.y, s.iter, s.rnorm, s.snorm, s.status, flags
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -1869,3 +2306,144 @@ def cgs_dia_fused(pd, offsets, b, atol, rtol, itmax):
 
 
 cgs_dia_fused.launches = 0
+
+
+def trunc_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20,
+                    variant="dqgmres"):
+    """Full DIOM or DQGMRES solve of A x = b for a DIA matrix, M = N = I.
+
+    Circular V (mem) and P (mem − 1 for DIOM, mem for DQGMRES) rings in
+    device memory, zeroed at the start; per iteration the stencil with
+    every window dot's partials, the dots summed in one block, the window
+    subtraction with the ‖w‖ partials, the Hessenberg column in one
+    thread, and the P-ring, x and V-ring update.
+    Returns (x, niter, rnorm, status_code) as tensors on b's device;
+    status 100 means itmax was reached.
+    """
+    _check(pd, offsets, b, None)
+    mem = int(mem)
+    if mem < 2:
+        raise ValueError("mem must be >= 2")
+    if variant not in ("diom", "dqgmres"):
+        raise ValueError(f"variant must be 'diom' or 'dqgmres', not "
+                         f"{variant!r}")
+    if b.device.type == "cpu":
+        return trunc_dia_fused_ref(pd, offsets, b, atol, rtol, itmax, mem,
+                                   variant)
+    pair = _pair("DIOM/DQGMRES", b, pd)
+    diom = variant == "diom"
+    mP = mem - 1 if diom else mem
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_TR_NSC + 5 * mem + 2, b, {0: atol, 1: rtol})
+    # the init launch zeroes the rings and x before any read
+    V = torch.empty((mem, n), dtype=b.dtype, device=b.device)
+    P = torch.empty((mP, n), dtype=b.dtype, device=b.device)
+    w, x = torch.empty_like(b), torch.empty_like(b)
+    partial = torch.empty((mem + 1, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(_TR_NST, dtype=torch.int32, device=b.device)
+    bufs = (V.data_ptr(), P.data_ptr(), x.data_ptr(), partial.data_ptr(),
+            sc.data_ptr(), st.data_ptr(), n, grid, mem, mP)
+    _run(trunc_dia_fused, b, f"ktt_trunc_dia_init_{pair[:3]}",
+         (b.data_ptr(),) + bufs, f"ktt_trunc_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], w.data_ptr())
+         + bufs + (int(diom),), st, itmax)
+    return x, st[_IT], sc[_TR_RNORM], st[_STATUS]
+
+
+trunc_dia_fused.launches = 0
+
+
+def _bi_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
+              rtol, itmax, nvec, nsc, nst, flag):
+    """The buffers and launches shared by the BiLQ, QMR and BiLQR kernels
+    (``csrc/bilanczos.cuh``): the work rows (v and u in three buffers
+    each, then the method's own vectors), the block partials, the
+    scalars and the flags.  Returns (work, sc, st)."""
+    pair = _pair(kind.upper(), b, pd)
+    _check_spmv(pd_adj, offsets_adj, b)
+    if pd_adj.dtype != pd.dtype:
+        raise ValueError("pd_adj must have pd's dtype")
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
+    # the init launch writes every row an iteration reads before it does
+    work = torch.empty((nvec, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((_BI_NPART, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(nst, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair[:3]}",
+         (b.data_ptr(), c.data_ptr()) + bufs,
+         f"ktt_{kind}_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], pd_adj.data_ptr(),
+          offsets_adj.data_ptr(), pd_adj.shape[0]) + bufs + (int(flag),),
+         st, itmax)
+    if kind != "qmr":
+        _finish(wrapper, f"ktt_{kind}_dia_finish_{pair[:3]}", b,
+                (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid))
+    return work, sc, st
+
+
+def bilq_dia_fused(pd, pd_adj, offsets, offsets_adj, b, atol, rtol, itmax,
+                   transfer_to_bicg=True):
+    """Full BiLQ solve of A x = b for a DIA matrix, shadow c = b.
+
+    ``pd_adj`` and ``offsets_adj`` are Aᴴ's aligned diagonals and offsets
+    (``DIAOperator.aligned_adjoint``).  With ``transfer_to_bicg`` the
+    solve moves x to the BiCG point when that point's test stops it (one
+    finishing launch).  Returns (x, niter, rnorm, status_code) as tensors
+    on b's device; the codes add 29 (bᴴc = 0), 35 (the LQ point solved),
+    36 (the BiCG point solved) and 38 (⟨uₖ₊₁, vₖ₊₁⟩ = 0).
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return bilq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, atol,
+                                  rtol, itmax, transfer_to_bicg)
+    work, sc, st = _bi_fused(bilq_dia_fused, "bilq", pd, pd_adj, offsets,
+                             offsets_adj, b, b, atol, rtol, itmax, 8,
+                             _BQ_NSC, _BQ_NST, bool(transfer_to_bicg))
+    return work[_BI_X].clone(), st[_IT], sc[_BQ_RNORM], st[_STATUS]
+
+
+bilq_dia_fused.launches = 0
+
+
+def qmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, atol, rtol, itmax):
+    """Full QMR solve of A x = b for a DIA matrix, shadow c = b.
+    Returns (x, niter, rnorm, status_code) as tensors on b's device, with
+    the codes of ``bilq_dia_fused`` but 1 for solved."""
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return qmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, atol,
+                                 rtol, itmax)
+    work, sc, st = _bi_fused(qmr_dia_fused, "qmr", pd, pd_adj, offsets,
+                             offsets_adj, b, b, atol, rtol, itmax, 9,
+                             _QM_NSC, _QM_NST, 0)
+    return work[_BI_X].clone(), st[_IT], sc[_QM_RNORM], st[_STATUS]
+
+
+qmr_dia_fused.launches = 0
+
+
+def bilqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                    itmax, transfer_to_bicg=True):
+    """Full BiLQR solve of A x = b and Aᴴ y = c for a DIA matrix.
+
+    Returns (x, y, niter, rnorm, snorm, status_code, flags) as tensors on
+    b's device, flags = [lq_tol, lq_mach, cg_tol, cg_mach, qr_tol,
+    qr_mach, solved_primal, solved_dual, breakdown]; the codes are 15
+    (both solved), 2, 29 and 38.
+    """
+    _check(pd, offsets, b, None)
+    _check(pd, offsets, c, None)
+    if b.device.type == "cpu":
+        return bilqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                   atol, rtol, itmax, transfer_to_bicg)
+    work, sc, st = _bi_fused(bilqr_dia_fused, "bilqr", pd, pd_adj, offsets,
+                             offsets_adj, b, c, atol, rtol, itmax, 11,
+                             _BR_NSC, _BR_NST, bool(transfer_to_bicg))
+    return (work[_BI_X].clone(), work[_BI_X + 1].clone(), st[_IT],
+            sc[_BR_RNORM], sc[_BR_RNORM + 1], st[_STATUS],
+            st[list(_BR_FLAGS)])
+
+
+bilqr_dia_fused.launches = 0

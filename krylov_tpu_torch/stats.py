@@ -3,8 +3,9 @@
 A copy of the part of ``krylov_tpu/stats.py`` that the ported solvers
 use (numpy only; the port imports nothing of the JAX package): the
 shared status vocabulary, ``KrylovStatsBase``, ``SimpleStats``,
-``LanczosStats``, ``LanczosShiftStats`` and ``SymmlqStats``, with the
-same fields and ``repr`` (reference: src/krylov_stats.jl).
+``LanczosStats``, ``LanczosShiftStats``, ``SymmlqStats`` and
+``AdjointStats``, with the same fields and ``repr`` (reference:
+src/krylov_stats.jl).
 """
 
 from dataclasses import dataclass, field
@@ -83,3 +84,16 @@ class SymmlqStats(KrylovStatsBase):
     errorscg: np.ndarray = field(default_factory=lambda: np.zeros(0))
     Anorm: float = 0.0
     Acond: float = 0.0
+
+
+@dataclass
+class AdjointStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:263-272."""
+    solved_primal: bool = False
+    solved_dual: bool = False
+    residuals_primal: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    residuals_dual: np.ndarray = field(default_factory=lambda: np.zeros(0))
+
+    @property
+    def solved(self):
+        return self.solved_primal and self.solved_dual

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from .solvers import bicgstab as _bicgstab
+from .solvers import bilq as _bilq
 from .solvers import cg as _cg
 from .solvers import cg_lanczos as _cg_lanczos
 from .solvers import cr as _cr
@@ -92,12 +93,17 @@ _PORTED = {
     "fom": (_fom._fom_solve, _fom.fom),
     "bicgstab": (_bicgstab._bicgstab_solve, _bicgstab.bicgstab),
     "cgs": (_bicgstab._cgs_solve, _bicgstab.cgs),
+    "diom": (functools.partial(_fom._trunc_solve, "diom"), _fom.diom),
+    "dqgmres": (functools.partial(_fom._trunc_solve, "dqgmres"),
+                _fom.dqgmres),
+    "bilq": (_bilq._bilq_solve, _bilq.bilq),
+    "qmr": (_bilq._qmr_solve, _bilq.qmr),
+    "bilqr": (_bilq._bilqr_solve, _bilq.bilqr),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
 _QUEUE_ITEM = {
-    **dict.fromkeys(("diom", "dqgmres", "bilq", "qmr", "bilqr", "usymlq",
-                     "usymqr", "trilqr", "usymlqr"), 4),
+    **dict.fromkeys(("usymlq", "usymqr", "trilqr", "usymlqr"), 4),
     **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
                      "cgls_lanczos_shift", "cgne", "crmr", "craig",
                      "craigmr", "lnlq"), 5),
@@ -190,16 +196,23 @@ class KrylovWorkspace:
         kw.update(kwargs)
         pos = list(args)
         if self._x0 is not None and self.warm_allowed:
-            pos.append(self._x0)
+            if self.nsol == 2 and self._y0 is not None:
+                pos = pos + [self._x0, self._y0]
+            else:
+                pos = pos + [self._x0]
             self._x0 = self._y0 = None
         if kw.get("precision") not in (None, "working"):
             # precision= other than "working" lives in the public wrappers
             # (double_word raises there until it is ported); such solves
             # keep no state
-            self.x, self.stats = self._public(A, b, *pos, **kw)
-            self.state = None
+            out = self._public(A, b, *pos, **kw) + (None,)
         else:
-            self.x, self.stats, self.state = self._solver(A, b, *pos, **kw)
+            out = self._solver(A, b, *pos, **kw)
+        if len(out) == 4:
+            self.x, self.y, self.stats, self.state = out
+        else:
+            self.x, self.stats, self.state = out
+            self.y = None
         return self
 
     def __getattr__(self, name):

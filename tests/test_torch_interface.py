@@ -19,15 +19,15 @@ torch = pytest.importorskip("torch")
 import fixtures as fx
 import krylov_tpu as kj
 import krylov_tpu_torch as kt
+from krylov_tpu import workspaces as jws
 from krylov_tpu_torch import workspaces as tws
 
 PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
           "minres", "minres_qlp", "minares", "gmres", "fgmres", "fom",
-          "bicgstab", "cgs")
+          "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr")
 # the ROADMAP.md Queue 1 item that ports each other method
 QUEUE_ITEM = {
-    **dict.fromkeys(("diom", "dqgmres", "bilq", "qmr", "bilqr", "usymlq",
-                     "usymqr", "trilqr", "usymlqr"), 4),
+    **dict.fromkeys(("usymlq", "usymqr", "trilqr", "usymlqr"), 4),
     **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
                      "cgls_lanczos_shift", "cgne", "crmr", "craig",
                      "craigmr", "lnlq"), 5),
@@ -53,10 +53,16 @@ BUDGETS = {
     "fom": lambda n: (MEM + 3) * n + (MEM + 2) ** 2,
     "gmres": lambda n: (MEM + 3) * n + (MEM + 2) ** 2,
     "fgmres": lambda n: (2 * MEM + 3) * n + (MEM + 2) ** 2,
+    "diom": lambda n: (2 * MEM + 1) * n + 4 * MEM,
+    "dqgmres": lambda n: (2 * MEM + 2) * n + 4 * MEM,
+    "bilq": lambda n: 8 * n,
+    "qmr": lambda n: 9 * n,
+    "bilqr": lambda n: 10 * n,
 }
-# the memory the ring methods' budgets are for (tests/test_storage.py:91-93)
-EXTRA_KW = dict.fromkeys(("fom", "gmres", "fgmres"),
-                         {"memory": MEM, "restart": True})
+# the memory the ring methods' budgets are for (tests/test_storage.py:91-97)
+EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres"),
+                            {"memory": MEM, "restart": True}),
+            **dict.fromkeys(("diom", "dqgmres"), {"memory": MEM})}
 
 
 def _rel(a, b):
@@ -69,8 +75,11 @@ def _system(n=20):
     return np.asarray(A), np.asarray(b)
 
 
-def _extra(method):
-    return (SHIFTS,) if method == "cg_lanczos_shift" else ()
+def _extra(method, b=None):
+    """The arguments after b: the shifts, or BiLQR's c (here b again)."""
+    if method == "cg_lanczos_shift":
+        return (SHIFTS,)
+    return (b,) if method == "bilqr" else ()
 
 
 def test_method_table_is_the_reference_table():
@@ -82,13 +91,16 @@ def test_method_table_is_the_reference_table():
 @pytest.mark.parametrize("method", PORTED)
 def test_krylov_solve_matches_jax(method):
     A, b = _system()
-    xj, sj = kj.krylov_solve(method, A, b, *_extra(method))
-    xt, st = kt.krylov_solve(method, torch.as_tensor(A), b, *_extra(method))
+    *xj, sj = kj.krylov_solve(method, A, b, *_extra(method, b))
+    *xt, st = kt.krylov_solve(method, torch.as_tensor(A), b,
+                              *_extra(method, b))
     assert st.status == sj.status and st.niter == sj.niter
     assert st.solved == sj.solved
-    assert _rel(xt.numpy(), xj) <= 1e-8
-    xd, sd = getattr(kt, method)(torch.as_tensor(A), b, *_extra(method))
-    assert sd.niter == st.niter and torch.equal(xd, xt)
+    for vt, vj in zip(xt, xj):
+        assert _rel(vt.numpy(), vj) <= 1e-8
+    *xd, sd = getattr(kt, method)(torch.as_tensor(A), b, *_extra(method, b))
+    assert sd.niter == st.niter
+    assert all(torch.equal(vd, vt) for vd, vt in zip(xd, xt))
 
 
 @pytest.mark.parametrize("method", sorted(QUEUE_ITEM))
@@ -149,6 +161,37 @@ def test_workspace_accessors_match_jax(method):
     assert _rel(kt.solution(wt).numpy(), kj.solution(wj)) <= 1e-8
 
 
+def test_bilqr_workspace_accessors_match_jax():
+    """A BiLQR workspace: two solutions, the primal and dual flags, one A
+    and one Aᴴ product per iteration, and a warm start from (x0, y0)."""
+    A, b, c = fx.square_adjoint(n=20)
+    wj = kj.krylov_workspace("bilqr", A, b)
+    wt = kt.krylov_workspace("bilqr", torch.as_tensor(A), b)
+    kj.krylov_solve_inplace(wj, A, b, c)
+    kt.krylov_solve_inplace(wt, torch.as_tensor(A), b, c)
+    st, sj = kt.statistics(wt), kj.statistics(wj)
+    assert isinstance(st, kt.AdjointStats)
+    assert (st.status, st.niter) == (sj.status, sj.niter)
+    assert kt.issolved(wt) == kj.issolved(wj) == st.solved
+    assert kt.issolved_primal(wt) == jws.issolved_primal(wj)
+    assert kt.issolved_dual(wt) == jws.issolved_dual(wj)
+    assert kt.Aprod_count(wt) == kt.Atprod_count(wt) == st.niter \
+        == kj.Atprod_count(wj)
+    x, y = kt.solution(wt)
+    assert kt.solution(wt, 1) is x and kt.solution(wt, 2) is y
+    assert kt.results(wt) == (x, y, st)
+    for vt, vj in zip((x, y), kj.solution(wj)):
+        assert _rel(vt.numpy(), vj) <= 1e-10
+    kj.warm_start(wj, 0.5 * np.asarray(x), 0.5 * np.asarray(y))
+    kt.warm_start(wt, 0.5 * x, 0.5 * y)
+    kj.krylov_solve_inplace(wj, A, b, c)
+    kt.krylov_solve_inplace(wt, torch.as_tensor(A), b, c)
+    assert kt.iteration_count(wt) == kj.iteration_count(wj)
+    for vt, vj in zip(kt.solution(wt), kj.solution(wj)):
+        assert _rel(vt.numpy(), vj) <= 1e-10
+    assert wt._x0 is None and wt._y0 is None
+
+
 def test_warm_start_refused_and_double_word_through_the_workspace():
     A, b = _system()
     with pytest.raises(ValueError, match="does not support warm starts"):
@@ -162,12 +205,13 @@ def test_warm_start_refused_and_double_word_through_the_workspace():
 
 
 @pytest.mark.parametrize("method", ["cg_lanczos", "cg_lanczos_shift",
-                                    "symmlq", "minres_qlp"])
+                                    "symmlq", "minres_qlp", "bilqr"])
 def test_show_stats_matches_jax(method):
     """The port's stats classes render as the JAX package's do, field for
     field, given the same values."""
     A, b = _system()
-    _, sj = kj.krylov_solve(method, A, b, *_extra(method), history=True)
+    *_, sj = kj.krylov_solve(method, A, b, *_extra(method, b),
+                             history=True)
     port_cls = getattr(kt, type(sj).__name__)
     st = port_cls(**{f.name: getattr(sj, f.name)
                      for f in dataclasses.fields(sj)})
@@ -200,7 +244,9 @@ def test_state_within_storage_budget(method):
     A, b = _storage_system()
     solve, _ = tws._resolve(method)
     shifts = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
-    _, stats, state = solve(A, b, *shifts, **EXTRA_KW.get(method, {}))
+    if method == "bilqr":
+        shifts = (b,)
+    *_, stats, state = solve(A, b, *shifts, **EXTRA_KW.get(method, {}))
     assert state is not None and stats.niter > 0
     big = sum(t.numel() for _, t in tws.state_tensors(state)
               if t.numel() >= N_)

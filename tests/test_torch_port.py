@@ -70,7 +70,7 @@ def test_constructors_default_to_card_and_raise_without_one(make,
 
 SOLVERS = ("cg", "cr", "car", "minres", "cg_lanczos", "symmlq",
            "minres_qlp", "minares", "gmres", "fgmres", "fom", "bicgstab",
-           "cgs")
+           "cgs", "diom", "dqgmres", "bilq", "qmr")
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -210,6 +210,48 @@ def test_nonsymmetric_wrapper_slots_match_kernel_enums(source, slots):
             assert members.index(name) == slot, (source, name)
 
 
+@pytest.mark.parametrize("source,slots", [
+    ("trunc_dia.cu", {"ScalarSlot": {"ATOL": 0, "RTOL": 1,
+                                     "RNORM": cf._TR_RNORM,
+                                     "NSC": cf._TR_NSC},
+                      "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                  "NST": cf._TR_NST}}),
+    ("bilq_dia.cu", {"ScalarSlot": {"RNORM": cf._BQ_RNORM,
+                                    "NSC": cf._BQ_NSC},
+                     "IntSlot": {"NST": cf._BQ_NST},
+                     "OwnRow": {"X": cf._BI_X}}),
+    ("qmr_dia.cu", {"ScalarSlot": {"RNORM": cf._QM_RNORM,
+                                   "NSC": cf._QM_NSC},
+                    "IntSlot": {"NST": cf._QM_NST},
+                    "OwnRow": {"X": cf._BI_X}}),
+    ("bilqr_dia.cu", {"ScalarSlot": {"RNORM": cf._BR_RNORM,
+                                     "SNORM": cf._BR_RNORM + 1,
+                                     "NSC": cf._BR_NSC},
+                      "IntSlot": {"NST": cf._BR_NST,
+                                  **dict(zip(("LQ_T", "LQ_M", "CG_T", "CG_M",
+                                              "QR_T", "QR_M", "SP", "SD",
+                                              "BRK"), cf._BR_FLAGS))},
+                      "OwnRow": {"X": cf._BI_X, "Y": cf._BI_X + 1}}),
+])
+def test_slice6_wrapper_slots_match_kernel_enums(source, slots):
+    """The slots the truncated and two-sided wrappers set and read and the
+    array sizes they allocate are the kernels' enum values.  The two-sided
+    kernels' enums continue those of csrc/bilanczos.cuh (ATOL .. GAMMA1,
+    IT .. GO, the six rows of v and u), and the shared header's partial
+    rows are the wrapper's count."""
+    base = {"ScalarSlot": len(_enum("bilanczos.cuh", "SharedSlot")),
+            "IntSlot": len(_enum("bilanczos.cuh", "SharedInt")),
+            "OwnRow": 6}
+    for enum, want in slots.items():
+        members = _enum(source, enum)
+        first = 0 if source == "trunc_dia.cu" else base[enum]
+        for name, slot in want.items():
+            assert members.index(name) + first == slot, (source, name)
+    assert _enum("bilanczos.cuh", "Part")[-1] == "NPART"
+    assert len(_enum("bilanczos.cuh", "Part")) - 1 == cf._BI_NPART
+    assert _enum("bilanczos.cuh", "SharedSlot")[:2] == ["ATOL", "RTOL"]
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -222,18 +264,22 @@ def test_kernel_launches_and_exports():
                         "cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
                         "cg_lanczos_dia", "cg_lanczos_shift_dia",
                         "symmlq_dia", "minres_qlp_dia", "minares_dia",
-                        "gmres_dia", "fom_dia", "bicgstab_dia", "cgs_dia"}
+                        "gmres_dia", "fom_dia", "bicgstab_dia", "cgs_dia",
+                        "trunc_dia", "bilq_dia", "qmr_dia", "bilqr_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
     for name in ("cg_cheby_dia", "cr_dia", "car_dia", "minres_dia",
                  "cg_lanczos_dia", "cg_lanczos_shift_dia", "symmlq_dia",
                  "minres_qlp_dia", "minares_dia", "gmres_dia", "fom_dia",
-                 "bicgstab_dia", "cgs_dia"):
+                 "bicgstab_dia", "cgs_dia", "trunc_dia", "bilq_dia",
+                 "qmr_dia", "bilqr_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
-                 "gmres", "fgmres", "fom", "bicgstab", "cgs", "CSRMatrix",
+                 "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
+                 "dqgmres", "bilq", "qmr", "bilqr", "AdjointStats",
+                 "issolved_primal", "issolved_dual", "CSRMatrix",
                  "CSROperator", "AdjointOperator", "csr_from_coo",
                  "csr_from_dense", "spmv", "spmm", "knorm_elliptic",
                  "dia_align_adjoint",
@@ -751,3 +797,92 @@ def test_nonsymmetric_kernels_match_plain_on_card(kernel, dtype):
         assert kints == rints
         assert _rel(k[0], r[0]) <= 1e-8 if rints[0] else \
             bool((k[0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["diom2", "diom6", "diom20", "dqgmres2",
+                                    "dqgmres20", "diom_zero_rhs", "bilq",
+                                    "bilq_lq", "bilq_zero_rhs", "qmr",
+                                    "bilqr", "bilqr_bc"])
+def test_slice6_kernels_match_plain_on_card(kernel, dtype):
+    """The DIOM/DQGMRES, BiLQ, QMR and BiLQR kernels against their plain
+    versions on the 16^3 convection-diffusion stencil: same status (and
+    BiLQR's flags), niter within ±max(2, 10%) (equal in f64), x (and y)
+    to 1e-2 relative (1e-8 in f64), as chip_smoke.py holds them at
+    128^3.  "bilqr_bc" takes a c orthogonal to b (the breakdown
+    b'c = 0).  BiLQR in f32 is held to its status and flags only: its two
+    recurrences amplify rounding until the kernel and its plain version
+    stop hundreds of iterations apart (424 against 245 at 16^3 on the
+    card), so its full-width path runs in f64 (PERF.md section 7)."""
+    _card()
+    A = kt.convdiff_dia(16, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    ot = offsets_tensor(A.offsets, "cuda")
+    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+    ota = offsets_tensor(offa, "cuda")
+    rng = np.random.default_rng(16)
+    b = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    c = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    if kernel.endswith("zero_rhs"):
+        b = torch.zeros_like(b)
+    if kernel == "bilqr_bc":
+        c = torch.zeros_like(b)
+        c[0], c[1] = b[1], -b[0]
+    rtol = 1e-6 if dtype == torch.float32 else 1e-10
+    tol = (0.0, rtol, 2 * n)
+    name = next(k for k in ("diom", "dqgmres", "bilqr", "bilq", "qmr")
+                if kernel.startswith(k))
+    if name in ("diom", "dqgmres"):
+        wrapper, ref = cf.trunc_dia_fused, cf.trunc_dia_fused_ref
+        mem = int("".join(ch for ch in kernel if ch.isdigit()) or 20)
+        args = (pd, ot, b) + tol + (mem, name)
+    else:
+        wrapper = getattr(cf, name + "_dia_fused")
+        ref = getattr(cf, name + "_dia_fused_ref")
+        args = (pd, pda, ot, ota, b) + ((c,) if name == "bilqr" else ()) \
+            + tol + (() if name == "qmr" else (kernel != "bilq_lq",))
+    before = wrapper.launches
+    k = wrapper(*args)
+    assert wrapper.launches > before
+    r = ref(*args)
+    ints = [(v, w) for v, w in zip(k, r) if v.dtype == torch.int32]
+    kints = [i for v, _ in ints for i in v.reshape(-1).tolist()]
+    rints = [i for _, w in ints for i in w.reshape(-1).tolist()]
+    assert kints[1:] == rints[1:]
+    vecs = [(v, w) for v, w in zip(k, r) if v.dim() == 1 and v.numel() == n]
+    if dtype == torch.float32 and name == "bilqr":
+        return
+    if dtype == torch.float32:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        tol_x = 1e-2
+    else:
+        assert kints[0] == rints[0]
+        tol_x = 1e-8
+    for v, w in vecs:
+        assert bool((v == 0).all()) if not w.any() else _rel(v, w) <= tol_x
+
+
+@pytest.mark.cuda
+def test_slice6_solvers_on_card_take_their_kernels():
+    """diom, dqgmres, bilq, qmr and bilqr on a card operator run their
+    kernels; with history they take the general route through the SpMV
+    kernel (and, for the two-sided methods, its adjoint)."""
+    _card()
+    A = kt.DIAOperator(kt.convdiff_dia(16))
+    rng = np.random.default_rng(17)
+    b = rng.standard_normal(16 ** 3).astype(np.float32)
+    c = rng.standard_normal(16 ** 3).astype(np.float32)
+    runs = [("trunc_dia", lambda **kw: kt.diom(A, b, **kw)),
+            ("trunc_dia", lambda **kw: kt.dqgmres(A, b, memory=6, **kw)),
+            ("bilq_dia", lambda **kw: kt.bilq(A, b, **kw)),
+            ("qmr_dia", lambda **kw: kt.qmr(A, b, **kw)),
+            ("bilqr_dia", lambda **kw: kt.bilqr(A, b, c, **kw))]
+    for name, run in runs:
+        for kw, kernel in (({}, name), ({"history": True}, "dia_spmv")):
+            n0 = kt.kernel_launches()[kernel]
+            *xs, st = run(**kw)
+            assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
+            assert st.solved
+            assert kt.kernel_launches()[kernel] > n0
