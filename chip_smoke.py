@@ -11,10 +11,11 @@ float32; CG also at 256^3) through the public entry points: ``cg``
 ``minares``, and the non-symmetric convection-diffusion stencil of the
 same size through ``gmres``, ``fgmres``, ``fom``, ``bicgstab``,
 ``cgs``, ``diom``, ``dqgmres``, ``bilq``, ``qmr`` and ``bilqr`` (Ax = b
-and A^H y = c, in float64), each by its whole-solve kernel and by the
-general route with
-its DIA SpMV kernel, chains the padded-layout SpMV, solves the
-systems whose dtypes once had no SpMV kernel, drives every ported
+and A^H y = c, in float64), and the same stencil with 0.5 on its main
+diagonal through ``usymlq``, ``usymqr``, ``trilqr`` and ``usymlqr`` (the
+saddle point [I A; A^H 0]), each by its whole-solve kernel and by the
+general route with its DIA SpMV kernel, chains the padded-layout SpMV,
+solves the systems whose dtypes once had no SpMV kernel, drives every ported
 method through ``krylov_solve`` and a workspace round trip, and checks
 that each path launched its kernels.  Prints
 one line per phase, a ``{"kernels": [...]}`` line, and as its last line
@@ -183,6 +184,28 @@ def main():
 
     def rhs(n, dtype=torch.float32, gen=rng):
         return torch.as_tensor(gen.standard_normal(n)).to(dev, dtype)
+
+    def ssy_residuals(name, pd, ot, pda, ota, b, c, out):
+        """The true relative residuals (f64, the plain SpMV) of an SSY
+        solve's outputs: ||b - Ax|| / ||b|| (0 where b = 0), with
+        ||c - A^H y|| / ||c|| for TriLQR; for USYMLQR the saddle blocks
+        ||b - x - Ay|| / ||b|| and ||c - A^H x|| / ||c||."""
+        def rel(r, v):
+            nv = float(v.double().norm())
+            return float(r.norm()) / nv if nv > 0 else float(r.norm())
+
+        x = out[0].double()
+        if name == "usymlqr_dia":
+            y = out[1].double()
+            return [rel(b.double() - x - dia_spmv_aligned_ref(
+                        pd.double(), ot, y), b),
+                    rel(c.double() - dia_spmv_aligned_ref(pda.double(), ota,
+                                                          x), c)]
+        res = [rel(b.double() - dia_spmv_aligned_ref(pd.double(), ot, x), b)]
+        if name == "trilqr_dia":
+            res.append(rel(c.double() - dia_spmv_aligned_ref(
+                pda.double(), ota, out[1].double()), c))
+        return res
 
     def true_rel_residual(pd, ot, b, x, sigma=0.0):
         """‖b − (A + σI)x‖ / ‖b‖ in f64 (complex128 for complex b) with
@@ -822,6 +845,127 @@ def main():
             del k, r
         del systems
 
+
+    def shifted_dia(N, dtype=torch.float32):
+        """convdiff_dia(N) with 0.5 added to its main diagonal: the SSY
+        solvers' stencil (PERF.md section 4)."""
+        A = kt.convdiff_dia(N, dtype=dtype)
+        A.data[A.offsets.index(0)] += 0.5
+        return A
+
+    with Phase("3g SSY kernels vs plain", 240):
+        # USYMLQ (with and without the USYMCG transfer), USYMQR, TriLQR and
+        # USYMLQR (ls and ln, ls alone, ln alone) on the convection-
+        # diffusion stencil with 0.5 on its main diagonal, at 128^3 f32
+        # (rtol 1e-6, the full-width path) and 64^3 f64 (rtol 1e-10), and
+        # with b = 0.  Each kernel against its plain version on the same
+        # inputs: status and flags equal, niter within +-max(2, 10%), and
+        # x (and y) within 1e-7 relative in f64; in f32 the true relative
+        # residuals (f64, the plain SpMV: ||b - Ax|| for USYMLQ and USYMQR,
+        # with ||c - A^H y|| for TriLQR; the saddle blocks b - x - Ay and
+        # c - A^H x for USYMLQR) no worse than 1.5 times the plain
+        # version's.  Bounds count bytes: the diagonals of A and A^H once
+        # each and the vectors each method must read and write -- USYMLQ
+        # 10, USYMQR 11, TriLQR 15, USYMLQR 19 (the headers of csrc/*.cu).
+        def ssy_cases(N, dt, rtol, report):
+            n = N ** 3
+            return [
+                ("usymlq", N, dt, "usymlq_dia", (0.0, rtol, 2 * n), {}, 10,
+                 report),
+                ("usymlq transfer_to_usymcg=False", N, dt, "usymlq_dia",
+                 (0.0, rtol, 2 * n), {"transfer_to_usymcg": False}, 10,
+                 False),
+                ("usymqr", N, dt, "usymqr_dia", (0.0, rtol, 2 * n), {}, 11,
+                 report),
+                ("trilqr", N, dt, "trilqr_dia", (0.0, rtol, 2 * n), {}, 15,
+                 report),
+                ("usymlqr", N, dt, "usymlqr_dia", (0.0, rtol, 2 * n), {}, 19,
+                 report),
+                ("usymlqr ls", N, dt, "usymlqr_dia", (0.0, rtol, 2 * n),
+                 {"ln": False}, 19, False),
+                ("usymlqr ln", N, dt, "usymlqr_dia", (0.0, rtol, 2 * n),
+                 {"ls": False}, 19, False),
+                ("usymlq b = 0", N, dt, "usymlq_dia", (0.0, rtol, 2 * n),
+                 {"zero_rhs": True}, 10, False),
+                ("usymlqr b = 0", N, dt, "usymlqr_dia", (0.0, rtol, 2 * n),
+                 {"zero_rhs": True}, 19, False)]
+
+        cases = (ssy_cases(128, torch.float32, 1e-6, True)
+                 + ssy_cases(64, torch.float64, 1e-10, False))
+        systems = {}
+        gen = np.random.default_rng(SEED + 11)
+        for label, N, dt, name, args, kw, nvec, to_report in cases:
+            kw = dict(kw)
+            zero_rhs = kw.pop("zero_rhs", False)
+            if (N, dt) not in systems:
+                A = shifted_dia(N, dt)
+                pd = dia_align(A.data, A.offsets, A.shape[0])
+                pda, offa = kt.dia_align_adjoint(pd, A.offsets, A.shape[0])
+                systems[N, dt] = (pd, offsets_tensor(A.offsets, dev), pda,
+                                  offsets_tensor(offa, dev),
+                                  rhs(N ** 3, dt, gen), rhs(N ** 3, dt, gen))
+                del A
+            pd, ot, pda, ota, b, c = systems[N, dt]
+            if zero_rhs:
+                b = torch.zeros_like(b)
+            n = b.shape[0]
+            kernel = getattr(cf, name[:-4] + "_dia_fused")
+            plain = getattr(cf, name[:-4] + "_dia_fused_ref")
+            head = (pd, pda, ot, ota, b, c)
+            k = kernel(*head, *args, **kw)
+            r = plain(*head, *args, **kw)
+            torch.cuda.synchronize()
+            nsol = 2 if name in ("trilqr_dia", "usymlqr_dia") else 1
+            kints = [i for v in k[nsol:] if v.dtype == torch.int32
+                     for i in v.reshape(-1).tolist()]
+            rints = [i for v in r[nsol:] if v.dtype == torch.int32
+                     for i in v.reshape(-1).tolist()]
+            err = max(float((k[i] - r[i]).abs().max()) for i in range(nsol))
+            rel = max(float((k[i] - r[i]).abs().max())
+                      / max(float(r[i].abs().max()), 1e-300)
+                      for i in range(nsol))
+            # the right-hand side each sweep solves: USYMLQR's ls sweep
+            # alone solves [I A; A^H 0][x; y] = [b; 0], its ln sweep alone
+            # [0; c]
+            b_eff = torch.zeros_like(b) if kw.get("ls") is False else b
+            c_eff = torch.zeros_like(c) if kw.get("ln") is False else c
+            res_k, res_p = (ssy_residuals(name, pd, ot, pda, ota, b_eff,
+                                          c_eff, v) for v in (k, r))
+            f32 = dt == torch.float32
+            label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
+            ms = event_ms(lambda: kernel(*head, *args, **kw), reps=3,
+                          warmup=1)
+            plain_ms = event_ms(lambda: plain(*head, *args, **kw), reps=1,
+                                warmup=0)
+            it_bytes = (2 * pd.numel() * pd.element_size()
+                        + nvec * n * b.element_size())
+            bound_ms = kints[0] * it_bytes / bw * 1e3
+            print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
+                  f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err="
+                  f"{err:.3e} rel={rel:.3e}; true_res kernel "
+                  f"{[f'{v:.3e}' for v in res_k]} plain "
+                  f"{[f'{v:.3e}' for v in res_p]}; ms={ms:.3f} plain_ms="
+                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
+                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+            check(kints[1:] == rints[1:],
+                  f"{label}: same status and flags as the plain version")
+            check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
+                  f"{label}: niter {kints[0]} within ±max(2, 10%) of "
+                  f"{rints[0]}")
+            if f32:
+                check(all(a <= 1.5 * p for a, p in zip(res_k, res_p)),
+                      f"{label}: true residuals no worse than 1.5 x the "
+                      f"plain version's")
+            else:
+                check(rel <= 1e-7, f"{label}: x agrees ({rel:.2e} <= 1e-7)")
+            if to_report:
+                report[name] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by="bytes", library_ms=None)
+            del k, r
+        del systems
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -1326,6 +1470,98 @@ def main():
                 profile_solve(lambda: (None, solve()[-1]), top=8)
     del A, b, c, pd, ot, pda, ota, A64, b64, c64, pda64
 
+    with Phase("5m usymlq, usymqr, trilqr, usymlqr end to end", 240):
+        # The convection-diffusion stencil with 0.5 on its main diagonal at
+        # 128^3, f32, b and c seeded normal: each public entry point with
+        # its default options (the whole-solve kernel), then with
+        # history=True (the general route through the DIA SpMV kernel and
+        # its adjoint).  ms per solve, niter and us per iteration; the
+        # true relative residuals (f64, the plain SpMV, ssy_residuals)
+        # no worse than 1.5 times those of the kernel's plain version on
+        # the same inputs, on both routes; the status the plain version
+        # gives; and the launch counts, set to 0 just before each path and
+        # read after.  TriLQR also prints the dual's true residual beside
+        # its status (PERF.md section 7: "dual system inconsistent").
+        A = kt.DIAOperator(shifted_dia(128))
+        gen = np.random.default_rng(SEED + 12)
+        b = rhs(A.shape[0], gen=gen)
+        c = rhs(A.shape[0], gen=gen)
+        n = b.shape[0]
+        pd, ot = A._pd, A._offsets
+        pda, offa = A.aligned_adjoint()
+        ota = offsets_tensor(offa, dev)
+        tol = rt.default_tol(None, torch.float32)
+        from krylov_tpu_torch.solvers.usymlq import (_STATUS as usym_status,
+                                                     _Flags as tri_flags,
+                                                     _trilqr_status)
+        paths_s = [(m, lambda m=m, **kw: getattr(kt, m)(A, b, c, **kw))
+                   for m in ("usymlq", "usymqr", "trilqr", "usymlqr")]
+        for method, solve in paths_s:
+            name = method + "_dia"
+            nsol = 2 if method in ("trilqr", "usymlqr") else 1
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            *xs, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts_fused = kt.kernel_launches()
+            t = time.perf_counter()
+            *xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            ms_h = (time.perf_counter() - t) * 1e3
+            counts = kt.kernel_launches()
+            ref = getattr(cf, name + "_fused_ref")(pd, pda, ot, ota, b, c,
+                                                   tol, tol, 2 * n)
+            code = rt.final_status_code(ref[{"usymlq": 3, "usymqr": 4}.get(
+                method, 5)], 0, 1, False)
+            if method == "trilqr":
+                want = _trilqr_status(tri_flags(*(bool(v) for v in
+                                                  ref[6].tolist())), code)
+            else:
+                want = rt.decode_status(code, usym_status)
+            res = ssy_residuals(name, pd, ot, pda, ota, b, c, xs)
+            res_p = ssy_residuals(name, pd, ot, pda, ota, b, c, ref)
+            res_h = ssy_residuals(name, pd, ot, pda, ota, b, c, xh)
+            print(f"  {method}: niter={stats.niter} status='{stats.status}'"
+                  f" true_res={[f'{v:.3e}' for v in res]} ms/solve={ms:.2f}"
+                  f" us/iter={1e3 * ms / max(stats.niter, 1):.2f}; plain "
+                  f"version: niter={int(ref[nsol])} status='{want}' "
+                  f"true_res={[f'{v:.3e}' for v in res_p]}; history=True: "
+                  f"niter={sh.niter} status='{sh.status}' true_res="
+                  f"{[f'{v:.3e}' for v in res_h]} ms={ms_h:.1f}; launches "
+                  f"{counts_fused[name]} ({name}), {counts['dia_spmv']} "
+                  "(dia_spmv, history)", flush=True)
+            solved = (stats.solved or stats.inconsistent) and \
+                (sh.solved or sh.inconsistent)
+            check(solved, f"{method} stopped solved (both routes)")
+            check(stats.status == want,
+                  f"{method}: the plain version's status")
+            check(all(x.shape == b.shape and bool(torch.isfinite(x).all())
+                      for x in xs),
+                  f"{method}: finite solutions of shape {tuple(b.shape)}")
+            check(all(a <= 1.5 * p and h <= 1.5 * p
+                      for a, p, h in zip(res, res_p, res_h)),
+                  f"{method}: true residuals {[f'{v:.3e}' for v in res]}, "
+                  f"{[f'{v:.3e}' for v in res_h]} (history) <= 1.5 x the "
+                  f"plain version's")
+            hist = sh.residuals_primal if method == "trilqr" \
+                else sh.residuals
+            check(hist.size >= 1, f"{method} (history=True) kept its "
+                  "history")
+            check(counts_fused[name] > 0, f"{method} launched {name} "
+                  f"({counts_fused[name]} times)")
+            check(counts["dia_spmv"] > 0, f"{method} (history=True) "
+                  f"launched dia_spmv ({counts['dia_spmv']} times)")
+            launches[name] = counts_fused[name]
+            del ref
+
+    with Phase("5n profiles of the four 128^3 SSY solves", 90):
+        for method, solve in paths_s:
+            print(f"  {method}:", flush=True)
+            profile_solve(lambda: (None, solve()[-1]), top=8)
+    del A, b, c, pd, ot, pda, ota
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -1368,23 +1604,28 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the nineteen ported methods through krylov_solve (the
+        # Each of the twenty-three ported methods through krylov_solve (the
         # non-symmetric ten on the convection-diffusion stencil, CGS and
-        # BiLQR in f64), against a direct call of its solver on the same
-        # inputs: the same status, niter and x (and y) (bit for bit: the
-        # kernels sum in a fixed order);
-        # then one workspace round trip (krylov_workspace, warm_start,
-        # krylov_solve_inplace) whose show_workspace reports the GPU.
+        # BiLQR in f64, the four SSY methods on the stencil with 0.5 on
+        # its main diagonal), against a direct call of its solver on the
+        # same inputs: the same status, niter and x (and y) (bit for bit:
+        # the kernels sum in a fixed order); then a BiLQR and a TriLQR
+        # workspace, and one workspace round trip (krylov_workspace,
+        # warm_start, krylov_solve_inplace) whose show_workspace reports
+        # the GPU.
         A = kt.DIAOperator(kt.poisson_dia(64))
         Acd = kt.DIAOperator(kt.convdiff_dia(64))
         Acd64 = kt.DIAOperator(kt.convdiff_dia(64, dtype=torch.float64))
         b = rhs(64 ** 3, gen=np.random.default_rng(SEED + 5))
         c64 = rhs(64 ** 3, torch.float64,
                   gen=np.random.default_rng(SEED + 10))
+        Ash = kt.DIAOperator(shifted_dia(64))
+        c32 = rhs(64 ** 3, gen=np.random.default_rng(SEED + 13))
         for method in ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift",
                        "symmlq", "minres", "minres_qlp", "minares", "gmres",
                        "fgmres", "fom", "bicgstab", "cgs", "diom", "dqgmres",
-                       "bilq", "qmr", "bilqr"):
+                       "bilq", "qmr", "bilqr", "usymlq", "usymqr", "trilqr",
+                       "usymlqr"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
                                         "bicgstab", "diom", "dqgmres",
@@ -1393,6 +1634,8 @@ def main():
                 op, bm = Acd64, b.double()
             if method == "bilqr":
                 extra = (c64,)
+            if method in ("usymlq", "usymqr", "trilqr", "usymlqr"):
+                op, extra = Ash, (c32,)
             *xs, st = kt.krylov_solve(method, op, bm, *extra)
             *xd, sd = getattr(kt, method)(op, bm, *extra)
             torch.cuda.synchronize()
@@ -1422,7 +1665,14 @@ def main():
               f"iterations from the warm start, true residual {res:.2e})")
         check("architecture       GPU" in shown,
               "show_workspace reports the GPU")
-        del A, Acd, Acd64, b, c64
+        ws = kt.krylov_workspace("trilqr", Ash, b)
+        kt.krylov_solve_inplace(ws, Ash, b, c32)
+        check(kt.issolved_primal(ws) and kt.issolved_dual(ws)
+              and kt.Aprod_count(ws) == kt.Atprod_count(ws)
+              == kt.iteration_count(ws) and len(kt.solution(ws)) == 2,
+              "a TriLQR workspace: both solved, one A and one A^H product "
+              "per iteration, two solutions")
+        del A, Acd, Acd64, Ash, b, c32, c64
 
     launches["dia_spmv_padded"] = launches_padded
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
@@ -1465,7 +1715,15 @@ def main():
                "qmr_dia": ("krylov_tpu_torch/csrc/qmr_dia.cu",
                            "krylov_tpu/ops/pallas_fused.py:4755"),
                "bilqr_dia": ("krylov_tpu_torch/csrc/bilqr_dia.cu",
-                             "krylov_tpu/ops/pallas_fused.py:7400")}
+                             "krylov_tpu/ops/pallas_fused.py:7400"),
+               "usymlq_dia": ("krylov_tpu_torch/csrc/usymlq_dia.cu",
+                              "krylov_tpu/ops/pallas_fused.py:6565"),
+               "usymqr_dia": ("krylov_tpu_torch/csrc/usymqr_dia.cu",
+                              "krylov_tpu/ops/pallas_fused.py:6756"),
+               "trilqr_dia": ("krylov_tpu_torch/csrc/trilqr_dia.cu",
+                              "krylov_tpu/ops/pallas_fused.py:7695"),
+               "usymlqr_dia": ("krylov_tpu_torch/csrc/usymlqr_dia.cu",
+                               "krylov_tpu/ops/pallas_fused.py:7968")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

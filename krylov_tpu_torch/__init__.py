@@ -5,8 +5,10 @@ A second package beside the JAX one, ported slice by slice.  It carries
 ``minres``, ``cg_lanczos``, ``cg_lanczos_shift``, ``symmlq``,
 ``minres_qlp``, ``minares`` and, for non-symmetric systems, ``gmres``,
 ``fgmres``, ``fom``, ``diom``, ``dqgmres``, ``bicgstab``, ``cgs``,
-``bilq``, ``qmr`` and ``bilqr`` (Ax = b and Aᴴy = c), on DIA stencil, CSR,
-dense and matrix-free operators (with their adjoints), through
+``bilq``, ``qmr`` and ``bilqr`` (Ax = b and Aᴴy = c), and, on the
+Saunders–Simon–Yip process, ``usymlq``, ``usymqr``, ``trilqr`` and
+``usymlqr`` (the saddle point [I A; Aᴴ 0]), on DIA stencil, CSR, dense
+and matrix-free operators (with their adjoints), through
 hand-written CUDA kernels for Hopper (``csrc/``): a DIA SpMV (plain and
 in a padded, chainable layout) and a whole-solve kernel for each solver,
 each with a plain PyTorch version used on the CPU; and the generic
@@ -39,7 +41,9 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
                              cr_dia_fused, fom_dia_fused, gmres_dia_fused,
                              minares_dia_fused, minres_dia_fused,
                              minres_qlp_dia_fused, qmr_dia_fused,
-                             symmlq_dia_fused, trunc_dia_fused)
+                             symmlq_dia_fused, trilqr_dia_fused,
+                             trunc_dia_fused, usymlq_dia_fused,
+                             usymlqr_dia_fused, usymqr_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
 from .ops.kops import knorm_elliptic, sym_givens
 from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
@@ -55,6 +59,7 @@ from .solvers.minares import minares
 from .solvers.minres import minres
 from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
+from .solvers.usymlq import trilqr, usymlq, usymlqr, usymqr
 from .stats import (AdjointStats, LanczosShiftStats, LanczosStats,
                     SimpleStats, SymmlqStats)
 
@@ -88,7 +93,11 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "trunc_dia": trunc_dia_fused,
            "bilq_dia": bilq_dia_fused,
            "qmr_dia": qmr_dia_fused,
-           "bilqr_dia": bilqr_dia_fused}
+           "bilqr_dia": bilqr_dia_fused,
+           "usymlq_dia": usymlq_dia_fused,
+           "usymqr_dia": usymqr_dia_fused,
+           "trilqr_dia": trilqr_dia_fused,
+           "usymlqr_dia": usymlqr_dia_fused}
 
 
 def kernel_launches():

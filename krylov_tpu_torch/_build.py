@@ -33,6 +33,8 @@ _PAIRS = ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")
 # the further pairs of the DIA SpMV kernels (ops/cuda_dia.py)
 _SPMV_PAIRS = _PAIRS + ("f64_f32", "bf16_bf16", "f16_f16", "c64_f32",
                         "c64_c64", "c128_f64", "c128_c128")
+# the kernels on the Saunders-Simon-Yip launches of csrc/ssy.cuh
+_SSY = ("usymlq", "usymqr", "trilqr", "usymlqr")
 # C entry points and their argument types; every pointer and the stream
 # is a c_void_p, so ctypes never cuts a 64-bit address to 32 bits.
 _SIGNATURES = {
@@ -138,6 +140,15 @@ _SIGNATURES = {
        for k in ("bilq", "qmr", "bilqr") for t in _PAIRS},
     **{f"ktt_{k}_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
        for k in ("bilq", "bilqr") for t in ("f32", "f64")},
+    # the SSY kernels (csrc/ssy.cuh): (b, c, work, partial, sc, st, n, grid,
+    # flag, stream), iterate as the two-sided kernels, and (work, sc, st,
+    # n, grid, stream)
+    **{f"ktt_{k}_dia_init_{t}": (_P,) * 6 + (_L, _I, _I, _P)
+       for k in _SSY for t in ("f32", "f64")},
+    **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _P) for k in _SSY for t in _PAIRS},
+    **{f"ktt_{k}_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
+       for k in ("usymlq", "trilqr", "usymlqr") for t in ("f32", "f64")},
 }
 
 

@@ -42,6 +42,11 @@ same chunked, masked semantics, so that niter is exact across chunks.
   QMR with the shadow vector c = b, and BiLQR for A x = b and Aᴴ y = c,
   on the two-sided Lanczos launches of ``csrc/bilanczos.cuh``
   (``csrc/bilq_dia.cu``, ``csrc/qmr_dia.cu``, ``csrc/bilqr_dia.cu``).
+* ``usymlq_dia_fused``, ``usymqr_dia_fused``, ``trilqr_dia_fused`` and
+  ``usymlqr_dia_fused``: USYMLQ, USYMQR, TriLQR and USYMLQR on the
+  Saunders–Simon–Yip launches of ``csrc/ssy.cuh`` (``csrc/usymlq_dia.cu``,
+  ``csrc/usymqr_dia.cu``, ``csrc/trilqr_dia.cu``,
+  ``csrc/usymlqr_dia.cu``).
 """
 
 import math
@@ -124,6 +129,18 @@ _BR_RNORM, _BR_NSC, _BR_NST = 22, 27, 13
 # BiLQR's int slots of lq_tol, lq_mach, cg_tol, cg_mach, qr_tol, qr_mach,
 # solved_primal, solved_dual and breakdown
 _BR_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
+# USYMLQ, USYMQR, TriLQR and USYMLQR (csrc/ssy.cuh): the partial rows, and
+# the first work row of the method's own (after v and u, three rows
+# each): x, then TriLQR's and USYMLQR's y; each scalar and int array ends
+# in the staging copy of its state, which the commit launch copies in
+_SSY_NPART, _SSY_X = 3, 6
+_UL_RNORM, _UL_NSC, _UL_NST = 13, 25, 7
+_UQ_RNORM, _UQ_ARNORM, _UQ_INCON, _UQ_NSC, _UQ_NST = 12, 13, 3, 25, 7
+_TL_RNORM, _TL_NSC, _TL_NST = 18, 37, 25
+# TriLQR's int slots of lq_tol, lq_mach, cg_tol, cg_mach, qr_tol, qr_mach,
+# solved_primal, solved_dual and inconsistent_dual
+_TL_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
+_ULR_RNORM, _ULR_INCON, _ULR_NSC, _ULR_NST = 18, 5, 37, 11
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -154,6 +171,10 @@ cgs_dia_fused_supported = cg_dia_fused_supported
 bilq_dia_fused_supported = cg_dia_fused_supported
 qmr_dia_fused_supported = cg_dia_fused_supported
 bilqr_dia_fused_supported = cg_dia_fused_supported
+usymlq_dia_fused_supported = cg_dia_fused_supported
+usymqr_dia_fused_supported = cg_dia_fused_supported
+trilqr_dia_fused_supported = cg_dia_fused_supported
+usymlqr_dia_fused_supported = cg_dia_fused_supported
 # the rings live in device memory, so any mem ≥ 2 has a kernel
 trunc_dia_fused_supported = cg_dia_fused_supported
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
@@ -1764,6 +1785,383 @@ def bilqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
 
 
 # ---------------------------------------------------------------------------
+# USYMLQ, USYMQR, TriLQR and USYMLQR: the plain versions
+# ---------------------------------------------------------------------------
+
+def _ssy_start(b, c):
+    """‖b‖, ‖c‖, v₁ = b/‖b‖ and u₁ = c/‖c‖ (pallas_fused.py:6615-6621)."""
+    one = _scalar(1, b)
+    bnorm = torch.sqrt(torch.sum(b * b))
+    cnorm = torch.sqrt(torch.sum(c * c))
+    return bnorm, cnorm, b / _safe(bnorm, one), c / _safe(cnorm, one)
+
+
+def _ssy_ref(pd, offsets, pd_adj, offsets_adj, s, one, zero):
+    """q = A uₖ − γ vₖ₋₁ and p = Aᴴ vₖ − β uₖ₋₁ (the β and γ terms from
+    the second iteration on), α = ⟨vₖ, q⟩, q −= α vₖ, p −= α uₖ,
+    βₖ₊₁ = ‖q‖, γₖ₊₁ = ‖p‖ (pallas_fused.py:6646-6658)."""
+    g2 = torch.where(s.iter >= 1, one, zero)
+    q = dia_spmv_aligned_ref(pd, offsets, s.uk) - (g2 * s.gamma) * s.vkm1
+    p = dia_spmv_aligned_ref(pd_adj, offsets_adj, s.vk) \
+        - (g2 * s.beta) * s.ukm1
+    alpha = torch.sum(s.vk * q)
+    q = q - alpha * s.vk
+    p = p - alpha * s.uk
+    return q, p, alpha, torch.sqrt(torch.sum(q * q)), \
+        torch.sqrt(torch.sum(p * p))
+
+
+def _ssy_next(q, p, beta1, gamma1, vk, uk, one):
+    """vₖ₊₁ = q/βₖ₊₁ and uₖ₊₁ = p/γₖ₊₁, or vₖ and uₖ where the norm is 0
+    (pallas_fused.py:6688-6691)."""
+    return (torch.where(beta1 != 0, q / _safe(beta1, one), vk),
+            torch.where(gamma1 != 0, p / _safe(gamma1, one), uk))
+
+
+def usymlq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                         itmax, transfer_to_usymcg=True):
+    """Plain PyTorch USYMLQ of A x = b (pallas_fused.py:6565-6706): the SSY
+    process (A on u, Aᴴ on v), the LQ of Tₖ, the residual estimates of the
+    LQ and USYMCG points, and the transfer to the USYMCG point when its
+    test stops the solve.
+
+    Returns (x, niter, rnorm, status) as tensors, as ``usymlq_dia_fused``
+    does."""
+    eps = torch.finfo(b.dtype).eps
+    one, zero = _scalar(1, b), _scalar(0, b)
+    bnorm, gamma0, v1, u1 = _ssy_start(b, c)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * bnorm
+    status0 = torch.where(bnorm == 0, ZERO_RESIDUAL, torch.where(
+        bnorm <= eps_lim, SOLVED_LQ, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), vk=v1, uk=u1, vkm1=torch.zeros_like(b),
+        ukm1=torch.zeros_like(b), dbar=torch.zeros_like(b), iter=_i32(0, b),
+        beta=bnorm, gamma=gamma0, c_km1=-one, s_km1=zero, dbar_km1=zero,
+        zeta_km1=zero, zeta_km2=zero, eta_km1=zero, zetabar=zero,
+        rnorm=bnorm, cgflag=_i32(0, b), status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2 = it == 1, it == 2, it >= 2
+        q, p, alpha, beta1, gamma1 = _ssy_ref(pd, offsets, pd_adj,
+                                              offsets_adj, s, one, zero)
+        # the LQ of T_k is BiLQ's (pallas_fused.py:6660-6670)
+        ck, sk, d_km1, lam_km1, eps_km2, dbar_k = _lq_step(s, it, alpha,
+                                                           one, zero)
+        zeta_km1 = torch.where(ge2, s.eta_km1 / _safe(d_km1, one),
+                               s.zeta_km1)
+        zeta_km2 = torch.where(it >= 3, s.zeta_km1, s.zeta_km2)
+        eta_k = torch.where(is1, s.beta, torch.where(
+            is2, -lam_km1 * zeta_km1,
+            -eps_km2 * zeta_km2 - lam_km1 * zeta_km1))
+        x_add = torch.where(ge2, zeta_km1, zero)
+        x = s.x + (x_add * ck) * s.dbar + (x_add * sk) * s.uk
+        dbar = torch.where(is1, s.uk, sk * s.dbar - ck * s.uk)
+        vk1, uk1 = _ssy_next(q, p, beta1, gamma1, s.vk, s.uk, one)
+        mu = s.beta * (s.s_km1 * zeta_km2 - s.c_km1 * ck * zeta_km1) \
+            + alpha * sk * zeta_km1
+        om = beta1 * sk * zeta_km1
+        rnorm_lq = torch.where(is1, s.rnorm, torch.sqrt(mu * mu + om * om))
+        dbar_ok = torch.abs(dbar_k) > eps
+        zetabar = torch.where(dbar_ok, eta_k / _safe(dbar_k, one),
+                              s.zetabar)
+        rnorm_cg = torch.abs(beta1 * (sk * zeta_km1 - ck * zetabar))
+        solved_lq = rnorm_lq <= eps_lim
+        solved_cg = (dbar_ok & (rnorm_cg <= eps_lim)) if transfer_to_usymcg \
+            else torch.zeros_like(solved_lq)
+        code = torch.where(solved_lq, SOLVED_LQ, torch.where(
+            solved_cg, SOLVED_CG_PT, RUNNING)).to(torch.int32)
+        return dict(x=x, vk=vk1, uk=uk1, vkm1=s.vk, ukm1=s.uk, dbar=dbar,
+                    iter=it, beta=beta1, gamma=gamma1, c_km1=ck, s_km1=sk,
+                    dbar_km1=dbar_k, zeta_km1=zeta_km1, zeta_km2=zeta_km2,
+                    eta_km1=eta_k, zetabar=zetabar, rnorm=rnorm_lq,
+                    cgflag=(solved_cg & ~solved_lq).to(torch.int32),
+                    status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    x = torch.where(s.cgflag == 1, s.x + s.zetabar * s.dbar, s.x)
+    return x, s.iter, s.rnorm, s.status
+
+
+def usymqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                         itmax):
+    """Plain PyTorch USYMQR of min ‖b − Ax‖ (pallas_fused.py:6756-6882):
+    the SSY process, the QR of Tₖ₊₁.ₖ by ``sym_givens``, the w_{k-2},
+    w_{k-1} direction recurrence and the ‖Aᴴr‖ inconsistency test.
+
+    Returns (x, niter, rnorm, arnorm, status, inconsistent) as tensors, as
+    ``usymqr_dia_fused`` does."""
+    one, zero = _scalar(1, b), _scalar(0, b)
+    bnorm, gamma0, v1, u1 = _ssy_start(b, c)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * bnorm
+    status0 = torch.where(bnorm == 0, ZERO_RESIDUAL, torch.where(
+        bnorm <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), vk=v1, uk=u1, vkm1=torch.zeros_like(b),
+        ukm1=torch.zeros_like(b), wkm2=torch.zeros_like(b),
+        wkm1=torch.zeros_like(b), iter=_i32(0, b), beta=bnorm, gamma=gamma0,
+        c_km2=zero, s_km2=zero, c_km1=zero, s_km1=zero, zetabar=bnorm,
+        kappa=zero, rnorm=bnorm, arnorm=zero, incon=_i32(0, b),
+        status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2, ge3 = it == 1, it == 2, it >= 2, it >= 3
+        q, p, alpha, beta1, gamma1 = _ssy_ref(pd, offsets, pd_adj,
+                                              offsets_adj, s, one, zero)
+        eps_km2 = torch.where(ge3, s.s_km2 * s.gamma, zero)
+        lbar_km1 = torch.where(ge3, -s.c_km2 * s.gamma,
+                               torch.where(is2, s.gamma, zero))
+        lam_km1 = torch.where(ge2, s.c_km1 * lbar_km1 + s.s_km1 * alpha,
+                              zero)
+        dbar_k = torch.where(ge2, s.s_km1 * lbar_km1 - s.c_km1 * alpha,
+                             alpha)
+        ck, sk, d_k = sym_givens(dbar_k, beta1)
+        zeta_k = ck * s.zetabar
+        zetabar = sk * s.zetabar
+        w_k = (s.uk - lam_km1 * s.wkm1 - eps_km2 * s.wkm2) / _safe(d_k, one)
+        vk1, uk1 = _ssy_next(q, p, beta1, gamma1, s.vk, s.uk, one)
+        rnorm = torch.abs(zetabar)
+        arnorm = torch.abs(s.zetabar) * torch.sqrt(
+            dbar_k * dbar_k + (s.c_km1 * gamma1) ** 2)
+        kappa = torch.where(is1, _scalar(atol, b) + _scalar(rtol, b)
+                            * arnorm, s.kappa)
+        solved = rnorm <= eps_lim
+        incon = ~solved & (arnorm <= kappa)
+        code = torch.where(solved, SOLVED, torch.where(
+            incon, INCONSISTENT, RUNNING)).to(torch.int32)
+        return dict(x=s.x + zeta_k * w_k, vk=vk1, uk=uk1, vkm1=s.vk,
+                    ukm1=s.uk, wkm2=torch.where(ge2, s.wkm1, s.wkm2),
+                    wkm1=w_k, iter=it, beta=beta1, gamma=gamma1,
+                    c_km2=s.c_km1, s_km2=s.s_km1, c_km1=ck, s_km1=sk,
+                    zetabar=zetabar, kappa=kappa, rnorm=rnorm,
+                    arnorm=arnorm, incon=incon.to(torch.int32), status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.arnorm, s.status, s.incon
+
+
+def trilqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                         itmax, transfer_to_usymcg=True):
+    """Plain PyTorch TriLQR of A x = b and Aᴴ y = c (pallas_fused.py:
+    7695-7910): one SSY process feeding the primal USYMLQ recurrences and
+    the dual QR ones (directions from the old v_{k-1}), each frozen once
+    its own system is solved or, for the dual, found inconsistent, and
+    the transfer of x to the USYMCG point.
+
+    Returns (x, y, niter, rnorm, snorm, status, flags) as tensors, as
+    ``trilqr_dia_fused`` does; flags = [lq_tol, lq_mach, cg_tol, cg_mach,
+    qr_tol, qr_mach, solved_primal, solved_dual, inconsistent_dual]."""
+    eps = torch.finfo(b.dtype).eps
+    one, zero = _scalar(1, b), _scalar(0, b)
+    i0 = _i32(0, b)
+    bnorm, cnorm, v1, u1 = _ssy_start(b, c)
+    eps_l = _scalar(atol, b) + _scalar(rtol, b) * bnorm
+    eps_q = _scalar(atol, b) + _scalar(rtol, b) * cnorm
+    sp0, sd0 = (bnorm == 0).to(torch.int32), (cnorm == 0).to(torch.int32)
+    status0 = torch.where((sp0 == 1) & (sd0 == 1), ZERO_RESIDUAL,
+                          RUNNING).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), y=torch.zeros_like(b), vk=v1, uk=u1,
+        vkm1=torch.zeros_like(b), ukm1=torch.zeros_like(b),
+        dbar=torch.zeros_like(b), wkm3=torch.zeros_like(b),
+        wkm2=torch.zeros_like(b), iter=i0, beta=bnorm, gamma=cnorm,
+        c_km1=-one, s_km1=zero, dbar_km1=zero, zeta_km1=zero, zeta_km2=zero,
+        eta_km1=zero, zetabar=zero, psibar_km1=zero, eps_km3=zero,
+        lam_km2=zero, kappa=zero, rnorm=bnorm, snorm=cnorm, sp=sp0, sd=sd0,
+        lq_t=i0, lq_m=i0, cg_t=i0, cg_m=i0, qr_t=i0, qr_m=i0, cgflag=i0,
+        incd=i0, status=status0)
+
+    def keep(cond, new, old):
+        return torch.where(cond, new.to(torch.int32), old)
+
+    def step(s):
+        it = s.iter + 1
+        is1, is2, ge2 = it == 1, it == 2, it >= 2
+        q, p, alpha, beta1, gamma1 = _ssy_ref(pd, offsets, pd_adj,
+                                              offsets_adj, s, one, zero)
+        # the LQ of T_k is BiLQ's (pallas_fused.py:6660-6670)
+        ck, sk, d_km1, lam_km1, eps_km2, dbar_k = _lq_step(s, it, alpha,
+                                                           one, zero)
+        # primal (USYMLQ), frozen once solved
+        pm = s.sp == 0
+        zeta_km1 = torch.where(pm & ge2, s.eta_km1 / _safe(d_km1, one),
+                               s.zeta_km1)
+        zeta_km2 = torch.where(pm & (it >= 3), s.zeta_km1, s.zeta_km2)
+        eta_k = torch.where(pm, torch.where(is1, s.beta, torch.where(
+            is2, -lam_km1 * zeta_km1,
+            -eps_km2 * zeta_km2 - lam_km1 * zeta_km1)), s.eta_km1)
+        x_add = torch.where(pm & ge2, zeta_km1, zero)
+        x = s.x + (x_add * ck) * s.dbar + (x_add * sk) * s.uk
+        dbar = torch.where(pm, torch.where(is1, s.uk,
+                                           sk * s.dbar - ck * s.uk), s.dbar)
+        mu = s.beta * (s.s_km1 * zeta_km2 - s.c_km1 * ck * zeta_km1) \
+            + alpha * sk * zeta_km1
+        om = beta1 * sk * zeta_km1
+        rnorm_lq = torch.where(is1, s.rnorm, torch.sqrt(mu * mu + om * om))
+        rnorm_lq = torch.where(pm, rnorm_lq, s.rnorm)
+        dbar_ok = torch.abs(dbar_k) > eps
+        zetabar = torch.where(pm & dbar_ok, eta_k / _safe(dbar_k, one),
+                              s.zetabar)
+        rnorm_cg = torch.abs(beta1 * (sk * zeta_km1 - ck * zetabar))
+        if transfer_to_usymcg:
+            cg_t_b = dbar_ok & (rnorm_cg <= eps_l)
+            cg_m_b = dbar_ok & ((rnorm_cg + 1.0) <= 1.0)
+        else:
+            cg_t_b = cg_m_b = torch.zeros_like(dbar_ok)
+        lq_t = keep(pm, rnorm_lq <= eps_l, s.lq_t)
+        lq_m = keep(pm, (rnorm_lq + 1.0) <= 1.0, s.lq_m)
+        cg_t = keep(pm, cg_t_b, s.cg_t)
+        cg_m = keep(pm, cg_m_b, s.cg_m)
+        solved_lq = (lq_t == 1) | (lq_m == 1)
+        solved_cg = (cg_t == 1) | (cg_m == 1)
+        sp = keep(pm & (solved_lq | solved_cg), torch.ones_like(pm), s.sp)
+        # dual (QR on Aᴴ y = c), directions from the old v_{k-1}
+        dm = s.sd == 0
+        psi_km1 = torch.where(is1, zero, ck * s.psibar_km1)
+        psibar_k = torch.where(is1, s.gamma, sk * s.psibar_km1)
+        d = _safe(d_km1, one)
+        w2 = s.vkm1 / d
+        w3 = (s.vkm1 - s.lam_km2 * s.wkm2) / d
+        w4 = (s.vkm1 - s.lam_km2 * s.wkm2 - s.eps_km3 * s.wkm3) / d
+        w_km1 = torch.where(is2, w2, torch.where(it == 3, w3, w4))
+        y = s.y + torch.where(dm & ge2, psi_km1, zero) * w_km1
+        snorm = torch.where(dm, torch.abs(psibar_k), s.snorm)
+        asnorm = torch.abs(psibar_k) * torch.sqrt(
+            dbar_k * dbar_k + (ck * beta1) ** 2)
+        kappa = torch.where(is1, _scalar(atol, b) + _scalar(rtol, b)
+                            * asnorm, s.kappa)
+        qr_t = keep(dm, snorm <= eps_q, s.qr_t)
+        qr_m = keep(dm, (snorm + 1.0) <= 1.0, s.qr_m)
+        incd = keep(dm, asnorm <= kappa, s.incd)
+        sd = keep(dm & ((qr_t == 1) | (qr_m == 1) | (incd == 1)),
+                  torch.ones_like(dm), s.sd)
+        vk1, uk1 = _ssy_next(q, p, beta1, gamma1, s.vk, s.uk, one)
+        code = torch.where((sp == 1) & (sd == 1), SOLVED_PRIMAL_DUAL,
+                           RUNNING).to(torch.int32)
+        cgflag = keep((s.cgflag == 1) | (solved_cg & pm & ~solved_lq),
+                      torch.ones_like(pm), s.cgflag)
+        return dict(
+            x=x, y=y, vk=vk1, uk=uk1, vkm1=s.vk, ukm1=s.uk, dbar=dbar,
+            wkm3=torch.where(ge2, s.wkm2, s.wkm3),
+            wkm2=torch.where(ge2, w_km1, s.wkm2), iter=it, beta=beta1,
+            gamma=gamma1, c_km1=ck, s_km1=sk, dbar_km1=dbar_k,
+            zeta_km1=zeta_km1, zeta_km2=zeta_km2, eta_km1=eta_k,
+            zetabar=zetabar, psibar_km1=psibar_k,
+            eps_km3=torch.where(it >= 3, eps_km2, s.eps_km3),
+            lam_km2=torch.where(ge2, lam_km1, s.lam_km2), kappa=kappa,
+            rnorm=rnorm_lq, snorm=snorm, sp=sp, sd=sd, lq_t=lq_t, lq_m=lq_m,
+            cg_t=cg_t, cg_m=cg_m, qr_t=qr_t, qr_m=qr_m, cgflag=cgflag,
+            incd=incd, status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    x = torch.where(s.cgflag == 1, s.x + s.zetabar * s.dbar, s.x)
+    flags = torch.stack([s.lq_t, s.lq_m, s.cg_t, s.cg_m, s.qr_t, s.qr_m,
+                         s.sp, s.sd, s.incd])
+    return x, s.y, s.iter, s.rnorm, s.snorm, s.status, flags
+
+
+def usymlqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol,
+                          rtol, itmax, ls=True, ln=True):
+    """Plain PyTorch USYMLQR of [I A; Aᴴ 0][x; y] = [b; c] (pallas_fused.
+    py:7968-8161): one SSY process feeding the least-squares QR
+    recurrences (y, r and the ‖Aᴴr‖ inconsistency test) and the
+    least-norm LQ ones (xᴸ, z), each frozen by its own mask, then the
+    composition x = xᴸ + r, y = yₖ + zᴸ.
+
+    Returns (x, y, niter, rnorm_ls, rnorm_ln, status, inconsistent) as
+    tensors, as ``usymlqr_dia_fused`` does."""
+    one, zero = _scalar(1, b), _scalar(0, b)
+    i0 = _i32(0, b)
+    beta0, gamma0, v1, u1 = _ssy_start(b, c)
+    eps_ls = _scalar(atol, b) + _scalar(rtol, b) * beta0
+    eps_ln = _scalar(atol, b) + _scalar(rtol, b) * gamma0
+    true = torch.ones((), dtype=torch.bool, device=b.device)
+    sls0 = (beta0 <= eps_ls) if ls else true
+    sln0 = (gamma0 <= eps_ln) if ln else true
+    status0 = torch.where(sls0 & sln0, SOLVED, RUNNING).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), y=torch.zeros_like(b),
+        r=b if ls else torch.zeros_like(b), z=torch.zeros_like(b), vk=v1,
+        uk=u1, vkm1=torch.zeros_like(b), ukm1=torch.zeros_like(b),
+        wkm1=torch.zeros_like(b), wkm2=torch.zeros_like(b),
+        dbar=torch.zeros_like(b), iter=i0, beta=beta0, gamma=gamma0,
+        c_km2=-one, s_km2=zero, c_km1=-one, s_km1=zero, phibar=beta0,
+        zeta_km1=zero, zeta_km2=zero, eta_km1=zero, delta_km1=zero,
+        kappa=zero, rnorm_ls=beta0, rnorm_ln=gamma0,
+        ahrnorm=_scalar(float("inf"), b), sls=sls0.to(torch.int32),
+        sln=sln0.to(torch.int32), incon=i0, status=status0)
+
+    def step(s):
+        it = s.iter + 1
+        is1, ge2 = it == 1, it >= 2
+        q, p, alpha, beta1, gamma1 = _ssy_ref(pd, offsets, pd_adj,
+                                              offsets_adj, s, one, zero)
+        eps_km2 = s.s_km2 * s.gamma
+        lambdabar = -s.c_km2 * s.gamma
+        lam_km1 = s.c_km1 * lambdabar + s.s_km1 * alpha
+        deltabar = s.s_km1 * lambdabar - s.c_km1 * alpha
+        ck, sk, delta = sym_givens(deltabar, beta1)
+        w_new = (s.uk - lam_km1 * s.wkm1 - eps_km2 * s.wkm2) \
+            / _safe(delta, one)
+        # least-squares sweep
+        als = (s.sls == 0) & ls
+        phi = ck * s.phibar
+        phibar_next = sk * s.phibar
+        y = s.y + (torch.where(als, one, zero) * phi) * w_new
+        rfac = torch.where(beta1 != 0, -ck * phibar_next / _safe(beta1, one),
+                           zero)
+        r = torch.where(als, (sk * sk) * s.r + rfac * q, s.r)
+        rnorm_ls = torch.where(als, torch.abs(phibar_next), s.rnorm_ls)
+        ahrnorm = torch.where(als, torch.abs(s.phibar) * torch.sqrt(
+            deltabar * deltabar + (s.c_km1 * gamma1) ** 2), s.ahrnorm)
+        kappa = torch.where(is1 & ls, _scalar(atol, b) + _scalar(rtol, b)
+                            * ahrnorm, s.kappa)
+        sls = torch.where(als & (rnorm_ls <= eps_ls), 1, s.sls).to(
+            torch.int32)
+        incon = torch.where(als, (~(rnorm_ls <= eps_ls)
+                                  & (ahrnorm <= kappa)).to(torch.int32),
+                            s.incon)
+        # least-norm sweep
+        aln = (s.sln == 0) & ln
+        zeta_km1 = torch.where(aln & ge2, s.eta_km1
+                               / _safe(s.delta_km1, one), s.zeta_km1)
+        zeta_km2 = torch.where(aln & (it >= 3), s.zeta_km1, s.zeta_km2)
+        eta = torch.where(aln, torch.where(
+            is1, s.gamma, -eps_km2 * zeta_km2 - lam_km1 * zeta_km1),
+            s.eta_km1)
+        x_add = torch.where(aln & ge2, zeta_km1, zero)
+        x = s.x + (x_add * s.c_km1) * s.dbar + (x_add * s.s_km1) * s.vk
+        z = s.z - x_add * s.wkm1
+        dbar = torch.where(aln, torch.where(
+            is1, s.vk, s.s_km1 * s.dbar - s.c_km1 * s.vk), s.dbar)
+        mu = s.gamma * (s.s_km2 * zeta_km2 - s.c_km2 * s.c_km1 * zeta_km1) \
+            + alpha * s.s_km1 * zeta_km1
+        om = gamma1 * s.s_km1 * zeta_km1
+        rnorm_ln = torch.where(aln & ge2, torch.sqrt(mu * mu + om * om),
+                               s.rnorm_ln)
+        sln = torch.where(aln & (rnorm_ln <= eps_ln), 1, s.sln).to(
+            torch.int32)
+        vk1, uk1 = _ssy_next(q, p, beta1, gamma1, torch.zeros_like(q),
+                             torch.zeros_like(p), one)
+        code = torch.where((sls == 1) & (sln == 1), SOLVED, torch.where(
+            incon == 1, INCONSISTENT, RUNNING)).to(torch.int32)
+        return dict(
+            x=x, y=y, r=r, z=z, vk=vk1, uk=uk1, vkm1=s.vk, ukm1=s.uk,
+            wkm1=w_new, wkm2=s.wkm1, dbar=dbar, iter=it, beta=beta1,
+            gamma=gamma1, c_km2=s.c_km1, s_km2=s.s_km1, c_km1=ck, s_km1=sk,
+            phibar=torch.where(als, phibar_next, s.phibar),
+            zeta_km1=zeta_km1, zeta_km2=zeta_km2,
+            eta_km1=torch.where(aln, eta, s.eta_km1), delta_km1=delta,
+            kappa=kappa, rnorm_ls=rnorm_ls, rnorm_ln=rnorm_ln,
+            ahrnorm=ahrnorm, sls=sls, sln=sln, incon=incon, status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    return (s.x + s.r, s.y + s.z, s.iter, s.rnorm_ls, s.rnorm_ln, s.status,
+            s.incon)
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -2447,3 +2845,137 @@ def bilqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
 
 
 bilqr_dia_fused.launches = 0
+
+
+def _ssy_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
+               rtol, itmax, nrows, nsc, nst, flag, finish):
+    """The buffers and launches shared by the USYMLQ, USYMQR, TriLQR and
+    USYMLQR kernels (``csrc/ssy.cuh``): the work rows (v and u in three
+    buffers each, then the method's own vectors), the block partials, the
+    scalars and the ints with their staging copies.  Returns (work, sc,
+    st)."""
+    pair = _pair(kind.upper(), b, pd)
+    _check_spmv(pd_adj, offsets_adj, b)
+    if pd_adj.dtype != pd.dtype:
+        raise ValueError("pd_adj must have pd's dtype")
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
+    # the init launch writes every row and every state slot
+    work = torch.empty((nrows, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((_SSY_NPART, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(nst, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair[:3]}",
+         (b.data_ptr(), c.data_ptr()) + bufs + (int(flag),),
+         f"ktt_{kind}_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], pd_adj.data_ptr(),
+          offsets_adj.data_ptr(), pd_adj.shape[0]) + bufs + (int(flag),),
+         st, itmax)
+    if finish:
+        _finish(wrapper, f"ktt_{kind}_dia_finish_{pair[:3]}", b,
+                (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid))
+    return work, sc, st
+
+
+def _check_pair(pd, offsets, b, c):
+    _check(pd, offsets, b, None)
+    _check(pd, offsets, c, None)
+
+
+def usymlq_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                     itmax, transfer_to_usymcg=True):
+    """Full USYMLQ solve of A x = b for a DIA matrix, with c the vector
+    that starts the second SSY basis.
+
+    ``pd_adj`` and ``offsets_adj`` are Aᴴ's aligned diagonals and offsets
+    (``DIAOperator.aligned_adjoint``).  With ``transfer_to_usymcg`` the
+    solve moves x to the USYMCG point when that point's test stops it
+    (one finishing launch).  Returns (x, niter, rnorm, status_code) as
+    tensors on b's device; the codes are 2 (zero residual), 35 (the LQ
+    point solved) and 36 (the USYMCG point solved).
+    """
+    _check_pair(pd, offsets, b, c)
+    if b.device.type == "cpu":
+        return usymlq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                    atol, rtol, itmax, transfer_to_usymcg)
+    work, sc, st = _ssy_fused(usymlq_dia_fused, "usymlq", pd, pd_adj,
+                              offsets, offsets_adj, b, c, atol, rtol, itmax,
+                              8, _UL_NSC, _UL_NST, bool(transfer_to_usymcg),
+                              True)
+    return work[_SSY_X].clone(), st[_IT], sc[_UL_RNORM], st[_STATUS]
+
+
+usymlq_dia_fused.launches = 0
+
+
+def usymqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                     itmax):
+    """Full USYMQR solve of min ‖b − Ax‖ for a DIA matrix.  Returns (x,
+    niter, rnorm, arnorm, status_code, inconsistent) as tensors on b's
+    device; the codes are 1 (solved), 2 (zero residual) and 8 (the
+    system is probably inconsistent)."""
+    _check_pair(pd, offsets, b, c)
+    if b.device.type == "cpu":
+        return usymqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                    atol, rtol, itmax)
+    work, sc, st = _ssy_fused(usymqr_dia_fused, "usymqr", pd, pd_adj,
+                              offsets, offsets_adj, b, c, atol, rtol, itmax,
+                              9, _UQ_NSC, _UQ_NST, 0, False)
+    return (work[_SSY_X].clone(), st[_IT], sc[_UQ_RNORM], sc[_UQ_ARNORM],
+            st[_STATUS], st[_UQ_INCON])
+
+
+usymqr_dia_fused.launches = 0
+
+
+def trilqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                     itmax, transfer_to_usymcg=True):
+    """Full TriLQR solve of A x = b and Aᴴ y = c for a DIA matrix.
+
+    Returns (x, y, niter, rnorm, snorm, status_code, flags) as tensors on
+    b's device, flags = [lq_tol, lq_mach, cg_tol, cg_mach, qr_tol,
+    qr_mach, solved_primal, solved_dual, inconsistent_dual]; the codes
+    are 15 (both solved) and 2.
+    """
+    _check_pair(pd, offsets, b, c)
+    if b.device.type == "cpu":
+        return trilqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                    atol, rtol, itmax, transfer_to_usymcg)
+    work, sc, st = _ssy_fused(trilqr_dia_fused, "trilqr", pd, pd_adj,
+                              offsets, offsets_adj, b, c, atol, rtol, itmax,
+                              11, _TL_NSC, _TL_NST, bool(transfer_to_usymcg),
+                              True)
+    return (work[_SSY_X].clone(), work[_SSY_X + 1].clone(), st[_IT],
+            sc[_TL_RNORM], sc[_TL_RNORM + 1], st[_STATUS],
+            st[list(_TL_FLAGS)])
+
+
+trilqr_dia_fused.launches = 0
+
+
+def usymlqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
+                      itmax, ls=True, ln=True):
+    """Full USYMLQR solve of [I A; Aᴴ 0][x; y] = [b; c] for a DIA matrix.
+
+    ``ls`` and ``ln`` select the least-squares and least-norm sweeps (at
+    least one).  Returns (x, y, niter, rnorm_ls, rnorm_ln, status_code,
+    inconsistent) as tensors on b's device; the codes are 1 (solved) and
+    8 (the least-squares sweep found the system inconsistent).
+    """
+    _check_pair(pd, offsets, b, c)
+    if not (ls or ln):
+        raise ValueError("ls and ln can't be both false")
+    if b.device.type == "cpu":
+        return usymlqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                     atol, rtol, itmax, ls, ln)
+    work, sc, st = _ssy_fused(usymlqr_dia_fused, "usymlqr", pd, pd_adj,
+                              offsets, offsets_adj, b, c, atol, rtol, itmax,
+                              13, _ULR_NSC, _ULR_NST,
+                              int(bool(ls)) | 2 * int(bool(ln)), True)
+    return (work[_SSY_X].clone(), work[_SSY_X + 1].clone(), st[_IT],
+            sc[_ULR_RNORM], sc[_ULR_RNORM + 1], st[_STATUS],
+            st[_ULR_INCON])
+
+
+usymlqr_dia_fused.launches = 0

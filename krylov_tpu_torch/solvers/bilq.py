@@ -122,6 +122,15 @@ def _lq_residual(s, it, alpha, ck, sk, zeta_km1, zeta_km2, beta_kp1,
         + torch.abs(om) ** 2 * norm_vkp1 ** 2 + 2 * _real(th)))
 
 
+def _nan_trim(hist, niter, history):
+    """The history without the NaN entries of the iterations in which its
+    system was already solved (krylov_tpu/solvers/bilq.py:920-922)."""
+    if not history:
+        return np.zeros(0)
+    h = rt.hist_trim(hist, niter)
+    return h[~np.isnan(h)]
+
+
 def _exit(callback, s_new, dev):
     """A callback's exit while the solve runs."""
     user_exit = torch.as_tensor(callback(s_new), device=dev)
@@ -834,16 +843,12 @@ def _bilqr_solve(
     if y0 is not None:
         y = y + y0
 
-    def trim(h):
-        h = rt.hist_trim(h, niter)
-        return h[~np.isnan(h)]
-
     stats = AdjointStats(
         niter=niter,
         solved_primal=bool(state.solved_primal),
         solved_dual=bool(state.solved_dual),
-        residuals_primal=trim(state.hist_r) if history else np.zeros(0),
-        residuals_dual=trim(state.hist_s) if history else np.zeros(0),
+        residuals_primal=_nan_trim(state.hist_r, niter, history),
+        residuals_dual=_nan_trim(state.hist_s, niter, history),
         timer=time.perf_counter() - start,
         status=_bilqr_status(state, code),
     )

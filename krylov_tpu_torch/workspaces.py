@@ -29,6 +29,7 @@ from .solvers import minares as _minares
 from .solvers import minres as _minres
 from .solvers import minres_qlp as _minres_qlp
 from .solvers import symmlq as _symmlq
+from .solvers import usymlq as _usymlq
 
 # method -> (nsol, nA, nAt, warm_start_allowed, needs_c, two_operators)
 METHOD_TABLE = {
@@ -99,11 +100,14 @@ _PORTED = {
     "bilq": (_bilq._bilq_solve, _bilq.bilq),
     "qmr": (_bilq._qmr_solve, _bilq.qmr),
     "bilqr": (_bilq._bilqr_solve, _bilq.bilqr),
+    "usymlq": (_usymlq._usymlq_solve, _usymlq.usymlq),
+    "usymqr": (_usymlq._usymqr_solve, _usymlq.usymqr),
+    "trilqr": (_usymlq._trilqr_solve, _usymlq.trilqr),
+    "usymlqr": (_usymlq._usymlqr_solve, _usymlq.usymlqr),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
 _QUEUE_ITEM = {
-    **dict.fromkeys(("usymlq", "usymqr", "trilqr", "usymlqr"), 4),
     **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
                      "cgls_lanczos_shift", "cgne", "crmr", "craig",
                      "craigmr", "lnlq"), 5),

@@ -24,10 +24,10 @@ from krylov_tpu_torch import workspaces as tws
 
 PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
           "minres", "minres_qlp", "minares", "gmres", "fgmres", "fom",
-          "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr")
+          "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr",
+          "usymlq", "usymqr", "trilqr", "usymlqr")
 # the ROADMAP.md Queue 1 item that ports each other method
 QUEUE_ITEM = {
-    **dict.fromkeys(("usymlq", "usymqr", "trilqr", "usymlqr"), 4),
     **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
                      "cgls_lanczos_shift", "cgne", "crmr", "craig",
                      "craigmr", "lnlq"), 5),
@@ -58,6 +58,11 @@ BUDGETS = {
     "bilq": lambda n: 8 * n,
     "qmr": lambda n: 9 * n,
     "bilqr": lambda n: 10 * n,
+    # tests/test_storage.py:52-76 with m = n
+    "usymlq": lambda n: 8 * n,
+    "usymqr": lambda n: 9 * n,
+    "trilqr": lambda n: 10 * n,
+    "usymlqr": lambda n: 11 * n,
 }
 # the memory the ring methods' budgets are for (tests/test_storage.py:91-97)
 EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres"),
@@ -75,11 +80,15 @@ def _system(n=20):
     return np.asarray(A), np.asarray(b)
 
 
+# the methods that take c after b
+NEEDS_C = ("bilqr", "usymlq", "usymqr", "trilqr", "usymlqr")
+
+
 def _extra(method, b=None):
-    """The arguments after b: the shifts, or BiLQR's c (here b again)."""
+    """The arguments after b: the shifts, or c (here b again)."""
     if method == "cg_lanczos_shift":
         return (SHIFTS,)
-    return (b,) if method == "bilqr" else ()
+    return (b,) if method in NEEDS_C else ()
 
 
 def test_method_table_is_the_reference_table():
@@ -205,7 +214,8 @@ def test_warm_start_refused_and_double_word_through_the_workspace():
 
 
 @pytest.mark.parametrize("method", ["cg_lanczos", "cg_lanczos_shift",
-                                    "symmlq", "minres_qlp", "bilqr"])
+                                    "symmlq", "minres_qlp", "bilqr",
+                                    "usymqr", "trilqr", "usymlqr"])
 def test_show_stats_matches_jax(method):
     """The port's stats classes render as the JAX package's do, field for
     field, given the same values."""
@@ -244,7 +254,7 @@ def test_state_within_storage_budget(method):
     A, b = _storage_system()
     solve, _ = tws._resolve(method)
     shifts = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
-    if method == "bilqr":
+    if method in NEEDS_C:
         shifts = (b,)
     *_, stats, state = solve(A, b, *shifts, **EXTRA_KW.get(method, {}))
     assert state is not None and stats.niter > 0

@@ -252,6 +252,71 @@ def test_slice6_wrapper_slots_match_kernel_enums(source, slots):
     assert _enum("bilanczos.cuh", "SharedSlot")[:2] == ["ATOL", "RTOL"]
 
 
+def _enum_values(source, name):
+    """name -> value of ``enum name { ... }`` in a csrc file, where each
+    member is the last plus one or an expression of earlier members and
+    of the SSY header's shared enums."""
+    env = {}
+    for enum in ("SharedSlot", "SharedInt", "Row", "Part"):
+        env.update(_enum_values_in("ssy.cuh", enum, {}))
+    return _enum_values_in(source, name, env)
+
+
+def _enum_values_in(source, name, env):
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / source).read_text()
+    body = re.search(r"enum " + name + r" \{([^}]*)\}", text).group(1)
+    out, value = {}, -1
+    for member in body.split(","):
+        key, _, expr = member.partition("=")
+        value = eval(expr, {}, {**env, **out}) if expr.strip() else value + 1
+        out[key.strip()] = value
+    return out
+
+
+@pytest.mark.parametrize("source,slots", [
+    ("usymlq_dia.cu", {"ScalarSlot": {"RNORM": cf._UL_RNORM,
+                                      "NSC": cf._UL_NSC},
+                       "IntSlot": {"NST": cf._UL_NST},
+                       "OwnRow": {"X": cf._SSY_X, "NROWS": 8}}),
+    ("usymqr_dia.cu", {"ScalarSlot": {"RNORM": cf._UQ_RNORM,
+                                      "ARNORM": cf._UQ_ARNORM,
+                                      "NSC": cf._UQ_NSC},
+                       "IntSlot": {"INCON": cf._UQ_INCON, "NST": cf._UQ_NST},
+                       "OwnRow": {"X": cf._SSY_X, "NROWS": 9}}),
+    ("trilqr_dia.cu", {"ScalarSlot": {"RNORM": cf._TL_RNORM,
+                                      "SNORM": cf._TL_RNORM + 1,
+                                      "NSC": cf._TL_NSC},
+                       "IntSlot": {"NST": cf._TL_NST,
+                                   **dict(zip(("LQ_T", "LQ_M", "CG_T", "CG_M",
+                                               "QR_T", "QR_M", "SP", "SD",
+                                               "INCD"), cf._TL_FLAGS))},
+                       "OwnRow": {"X": cf._SSY_X, "Y": cf._SSY_X + 1,
+                                  "NROWS": 11}}),
+    ("usymlqr_dia.cu", {"ScalarSlot": {"RNORM_LS": cf._ULR_RNORM,
+                                       "RNORM_LN": cf._ULR_RNORM + 1,
+                                       "NSC": cf._ULR_NSC},
+                        "IntSlot": {"INCON": cf._ULR_INCON,
+                                    "NST": cf._ULR_NST},
+                        "OwnRow": {"X": cf._SSY_X, "Y": cf._SSY_X + 1,
+                                   "NROWS": 13}}),
+])
+def test_ssy_wrapper_slots_match_kernel_enums(source, slots):
+    """The slots the SSY wrappers read, the array sizes they allocate (a
+    state and its staging copy) and the work rows are the kernels' enum
+    values; the host sets ATOL and RTOL in slots 0 and 1, status is int
+    slot 1, and the shared header's partial rows are the wrapper's
+    count."""
+    for enum, want in slots.items():
+        got = _enum_values(source, enum)
+        for name, slot in want.items():
+            assert got[name] == slot, (source, name)
+    shared = _enum_values_in("ssy.cuh", "SharedSlot", {})
+    assert (shared["ATOL"], shared["RTOL"]) == (0, 1)
+    ints = _enum_values_in("ssy.cuh", "SharedInt", {})
+    assert (ints["IT"], ints["STATUS"]) == (cf._IT, cf._STATUS)
+    assert _enum_values_in("ssy.cuh", "Part", {})["NPART"] == cf._SSY_NPART
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -265,7 +330,9 @@ def test_kernel_launches_and_exports():
                         "cg_lanczos_dia", "cg_lanczos_shift_dia",
                         "symmlq_dia", "minres_qlp_dia", "minares_dia",
                         "gmres_dia", "fom_dia", "bicgstab_dia", "cgs_dia",
-                        "trunc_dia", "bilq_dia", "qmr_dia", "bilqr_dia"}
+                        "trunc_dia", "bilq_dia", "qmr_dia", "bilqr_dia",
+                        "usymlq_dia", "usymqr_dia", "trilqr_dia",
+                        "usymlqr_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -273,12 +340,14 @@ def test_kernel_launches_and_exports():
                  "cg_lanczos_dia", "cg_lanczos_shift_dia", "symmlq_dia",
                  "minres_qlp_dia", "minares_dia", "gmres_dia", "fom_dia",
                  "bicgstab_dia", "cgs_dia", "trunc_dia", "bilq_dia",
-                 "qmr_dia", "bilqr_dia"):
+                 "qmr_dia", "bilqr_dia", "usymlq_dia", "usymqr_dia",
+                 "trilqr_dia", "usymlqr_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
                  "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
-                 "dqgmres", "bilq", "qmr", "bilqr", "AdjointStats",
+                 "dqgmres", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
+                 "trilqr", "usymlqr", "AdjointStats",
                  "issolved_primal", "issolved_dual", "CSRMatrix",
                  "CSROperator", "AdjointOperator", "csr_from_coo",
                  "csr_from_dense", "spmv", "spmm", "knorm_elliptic",
@@ -885,4 +954,86 @@ def test_slice6_solvers_on_card_take_their_kernels():
             *xs, st = run(**kw)
             assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
             assert st.solved
+            assert kt.kernel_launches()[kernel] > n0
+
+
+def _shifted_card(N, dtype):
+    """convdiff_dia(N) + 0.5 I on the card, its aligned diagonals and
+    those of its adjoint, and b, c drawn from one seed."""
+    A = kt.convdiff_dia(N, dtype=dtype)
+    A.data[A.offsets.index(0)] += 0.5
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+    rng = np.random.default_rng(18)
+    b = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    c = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    return (pd, pda, offsets_tensor(A.offsets, "cuda"),
+            offsets_tensor(offa, "cuda"), b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["usymlq", "usymlq_lq", "usymqr",
+                                    "trilqr", "trilqr_lq", "usymlqr",
+                                    "usymlqr_ls", "usymlqr_ln",
+                                    "usymlq_zero_rhs", "usymlqr_zero_rhs"])
+def test_ssy_kernels_match_plain_on_card(kernel, dtype):
+    """The USYMLQ, USYMQR, TriLQR and USYMLQR kernels against their plain
+    versions on the 16^3 convection-diffusion stencil with 0.5 on its main
+    diagonal: same status and flags, niter within ±max(2, 10%), x (and y)
+    to 1e-2 of max(|x|, |b|) in f32 and to 1e-6 in f64 (the scale of b,
+    as USYMLQR's x holds the least-squares residual, near 0, when ls runs
+    alone; the SSY process runs without reorthogonalisation, and its f64
+    stops move with the order of the sums: tests/test_torch_usym.py says
+    how far), as chip_smoke.py holds them at full width."""
+    _card()
+    pd, pda, ot, ota, b, c = _shifted_card(16, dtype)
+    if kernel.endswith("zero_rhs"):
+        b = torch.zeros_like(b)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-8
+    name = kernel.split("_")[0]
+    kw = {"usymlq_lq": {"transfer_to_usymcg": False},
+          "trilqr_lq": {"transfer_to_usymcg": False},
+          "usymlqr_ls": {"ln": False},
+          "usymlqr_ln": {"ls": False}}.get(kernel, {})
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    args = (pd, pda, ot, ota, b, c, 0.0, rtol, 2 * b.shape[0])
+    before = wrapper.launches
+    k = wrapper(*args, **kw)
+    assert wrapper.launches > before
+    r = ref(*args, **kw)
+    nvec = 2 if name in ("trilqr", "usymlqr") else 1
+    kints = [i for v in k[nvec:] if v.dtype == torch.int32
+             for i in v.reshape(-1).tolist()]
+    rints = [i for v in r[nvec:] if v.dtype == torch.int32
+             for i in v.reshape(-1).tolist()]
+    assert kints[1:] == rints[1:]
+    assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+    tol = 1e-2 if dtype == torch.float32 else 1e-6
+    for v, w in zip(k[:nvec], r[:nvec]):
+        scale = max(float(w.abs().max()), float(b.abs().max()))
+        assert float((v - w).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_ssy_solvers_on_card_take_their_kernels():
+    """usymlq, usymqr, trilqr and usymlqr on a card operator run their
+    kernels; with history they take the general route through the SpMV
+    kernel and its adjoint."""
+    _card()
+    A = kt.convdiff_dia(16)
+    A.data[A.offsets.index(0)] += 0.5
+    A = kt.DIAOperator(A)
+    rng = np.random.default_rng(19)
+    b = rng.standard_normal(16 ** 3).astype(np.float32)
+    c = rng.standard_normal(16 ** 3).astype(np.float32)
+    for method in ("usymlq", "usymqr", "trilqr", "usymlqr"):
+        for kw, kernel in (({}, method + "_dia"),
+                           ({"history": True}, "dia_spmv")):
+            n0 = kt.kernel_launches()[kernel]
+            *xs, st = getattr(kt, method)(A, b, c, **kw)
+            assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
+            assert st.solved or st.inconsistent
             assert kt.kernel_launches()[kernel] > n0
