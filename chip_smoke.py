@@ -13,11 +13,13 @@ same size through ``gmres``, ``fgmres``, ``fom``, ``bicgstab``,
 ``cgs``, ``diom``, ``dqgmres``, ``bilq``, ``qmr`` and ``bilqr`` (Ax = b
 and A^H y = c, in float64), and the same stencil with 0.5 on its main
 diagonal through ``usymlq``, ``usymqr``, ``trilqr`` and ``usymlqr`` (the
-saddle point [I A; A^H 0]), each by its whole-solve kernel and by the
-general route with its DIA SpMV kernel, chains the padded-layout SpMV,
-solves the systems whose dtypes once had no SpMV kernel, drives every ported
-method through ``krylov_solve`` and a workspace round trip, and checks
-that each path launched its kernels.  Prints
+saddle point [I A; A^H 0]) and, in float32 and float64, the least-squares
+solvers ``lsqr``, ``lsmr`` and ``lslq``, each by its whole-solve kernel
+and by the general route with its DIA SpMV kernel, chains the
+padded-layout SpMV, solves the systems whose dtypes once had no SpMV
+kernel, drives every ported method through ``krylov_solve`` and a
+workspace round trip, and checks that each path launched its kernels.
+Prints
 one line per phase, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 a CUDA device it exits non-zero before printing a result.
@@ -215,6 +217,29 @@ def main():
         r = b.to(wide) - (dia_spmv_aligned_ref(pd.double(), ot, xd)
                           + sigma * xd)
         return float(r.norm() / b.to(wide).norm())
+
+    def ls_residuals(pd, ot, pda, ota, b, x):
+        """||b - Ax|| / ||b|| and ||A^H (b - Ax)|| in f64 with the plain
+        SpMV (the first 0 where b = 0)."""
+        r = b.double() - dia_spmv_aligned_ref(pd.double(), ot, x.double())
+        nb = float(b.double().norm())
+        return (float(r.norm()) / nb if nb > 0 else float(r.norm()),
+                float(dia_spmv_aligned_ref(pda.double(), ota, r).norm()))
+
+    def gk_args(method, dt, n, lam=0.0, window=5, sigma=0.0,
+                transfer=False, rtol=None):
+        """(args after (pd, pda, ot, ota, b), kwargs) of a Golub-Kahan
+        kernel and its plain version, at the entry points' defaults: sqrt
+        eps(T) for axtol, btol and etol (and LSLQ's atol, rtol, utol),
+        atol = rtol = 0 for LSQR and LSMR, conlim 1e8, itmax m + n."""
+        tol = rt.default_tol(None, dt)
+        if method == "lslq":
+            return ((lam, sigma, tol, tol if rtol is None else rtol, tol,
+                     tol, tol, 1e8, 2 * n),
+                    {"use_sigma": sigma > 0, "transfer_to_lsqr": transfer,
+                     "window": window})
+        return ((lam, tol, tol, 0.0, 0.0 if rtol is None else rtol, tol,
+                 1e8, 2 * n), {"window": window})
 
     with Phase("1 build", 180):
         t = time.perf_counter()
@@ -966,6 +991,117 @@ def main():
             del k, r
         del systems
 
+    with Phase("3h Golub-Kahan kernels vs plain", 240):
+        # LSQR, LSMR and LSLQ on the convection-diffusion stencil with 0.5
+        # on its main diagonal at the entry points' default tolerances:
+        # at 64^3 f64, status and flags equal, niter within
+        # +-max(2, 10%) and x within 1e-7 relative; at 128^3 f32 (the
+        # full-width path), status equal, niter within the band and the
+        # true relative residual ||b - Ax|| / ||b|| (f64, the plain SpMV)
+        # no worse than 1.5 times the plain version's.  Variants at 128^3
+        # f32: b = 0, lambda = 0.1, a window of 12, LSLQ with sigma = 0.1
+        # and with the transfer to the LSQR point; and the other stops:
+        # LSLQ at rtol 1e-6 in f32 (the forward-error lower bound, code
+        # 44) and LSQR at rtol 1e-6 in f64 (code 20, the ||A^H r|| test).
+        # Bounds count bytes: the diagonals of A and A^H once each and the
+        # vectors each method must read and write, u, v, x and its
+        # directions -- LSQR 8, LSMR 10, LSLQ 8 (the headers of csrc/*.cu).
+        nvecs = {"lsqr": 8, "lsmr": 10, "lslq": 8}
+        cases = [(m, 64, torch.float64, {}, None, False)
+                 for m in ("lsqr", "lsmr", "lslq")]
+        cases += [(m, 128, torch.float32, {}, None, True)
+                  for m in ("lsqr", "lsmr", "lslq")]
+        cases += [("lsqr", 128, torch.float32, {"zero_rhs": True}, None,
+                   False),
+                  ("lslq", 128, torch.float32, {"zero_rhs": True}, None,
+                   False),
+                  ("lsqr", 128, torch.float32, {"lam": 0.1}, None, False),
+                  ("lsmr", 128, torch.float32, {"lam": 0.1}, None, False),
+                  ("lslq", 128, torch.float32, {"lam": 0.1}, None, False),
+                  ("lsmr", 128, torch.float32, {"window": 12}, None, False),
+                  ("lslq", 128, torch.float32, {"sigma": 0.1}, None, False),
+                  ("lslq", 128, torch.float32, {"transfer": True}, None,
+                   False),
+                  ("lslq", 128, torch.float32, {"rtol": 1e-6}, 44, False),
+                  ("lsqr", 128, torch.float64, {"rtol": 1e-6}, 20, False)]
+        systems = {}
+        gen = np.random.default_rng(SEED + 14)
+        for method, N, dt, kw, want_code, to_report in cases:
+            kw = dict(kw)
+            zero_rhs = kw.pop("zero_rhs", False)
+            if (N, dt) not in systems:
+                A = shifted_dia(N, dt)
+                pd = dia_align(A.data, A.offsets, A.shape[0])
+                pda, offa = kt.dia_align_adjoint(pd, A.offsets, A.shape[0])
+                systems[N, dt] = (pd, offsets_tensor(A.offsets, dev), pda,
+                                  offsets_tensor(offa, dev),
+                                  rhs(N ** 3, dt, gen))
+                del A
+            pd, ot, pda, ota, b = systems[N, dt]
+            if zero_rhs:
+                b = torch.zeros_like(b)
+            n = b.shape[0]
+            args, kwargs = gk_args(method, dt, n, **kw)
+            kernel = getattr(cf, method + "_dia_fused")
+            plain = getattr(cf, method + "_dia_fused_ref")
+            head = (pd, pda, ot, ota, b)
+            k = kernel(*head, *args, **kwargs)
+            r = plain(*head, *args, **kwargs)
+            torch.cuda.synchronize()
+            kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+            rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+            err = float((k[0] - r[0]).abs().max())
+            rel = err / max(float(r[0].abs().max()), 1e-300)
+            res_k = ls_residuals(pd, ot, pda, ota, b, k[0])
+            res_p = ls_residuals(pd, ot, pda, ota, b, r[0])
+            f32 = dt == torch.float32
+            label = (f"{method}_dia {kw or 'default'}"
+                     f"{' b = 0' if zero_rhs else ''} {N}^3 "
+                     f"{'f32' if f32 else 'f64'}")
+            ms = event_ms(lambda: kernel(*head, *args, **kwargs), reps=3,
+                          warmup=1)
+            plain_ms = event_ms(lambda: plain(*head, *args, **kwargs),
+                                reps=1, warmup=0)
+            it_bytes = (2 * pd.numel() * pd.element_size()
+                        + nvecs[method] * n * b.element_size())
+            bound_ms = kints[0] * it_bytes / bw * 1e3
+            print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
+                  f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err="
+                  f"{err:.3e} rel={rel:.3e}; true_res kernel "
+                  f"{res_k[0]:.3e} plain {res_p[0]:.3e}; ||A^H r|| kernel "
+                  f"{res_k[1]:.3e} plain {res_p[1]:.3e}; ms={ms:.3f} "
+                  f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
+                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+            if f32:
+                check(kints[1] == rints[1],
+                      f"{label}: same status as the plain version")
+            else:
+                check(kints[1:] == rints[1:],
+                      f"{label}: same status and flags as the plain version")
+            check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
+                  f"{label}: niter {kints[0]} within ±max(2, 10%) of "
+                  f"{rints[0]}")
+            if zero_rhs:
+                check(kints[0] == 0 and not bool(k[0].any())
+                      and kints[1] == 2,
+                      f"{label}: x = 0, zero residual, no iteration")
+            elif f32:
+                check(res_k[0] <= 1.5 * res_p[0],
+                      f"{label}: true residual {res_k[0]:.2e} no worse than "
+                      f"1.5 x the plain version's {res_p[0]:.2e}")
+            else:
+                check(rel <= 1e-7, f"{label}: x agrees ({rel:.2e} <= 1e-7)")
+            if want_code is not None:
+                check(kints[1] == want_code,
+                      f"{label}: stopped on code {want_code}")
+            if to_report and f32:
+                report[method + "_dia"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+            del k, r
+        del systems
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -1562,6 +1698,94 @@ def main():
             profile_solve(lambda: (None, solve()[-1]), top=8)
     del A, b, c, pd, ot, pda, ota
 
+    with Phase("5o lsqr, lsmr, lslq end to end", 240):
+        # The convection-diffusion stencil with 0.5 on its main diagonal at
+        # 128^3, b seeded normal, in f32 and in f64: each public entry
+        # point with its default options (the whole-solve kernel), then
+        # with history=True (the general route through the DIA SpMV kernel
+        # and its adjoint).  ms per solve, niter and us per iteration; the
+        # true relative residual ||b - Ax|| / ||b|| and ||A^H (b - Ax)||
+        # (f64, the plain SpMV), the first no worse than 1.5 times that of
+        # the kernel's plain version on the same inputs, on both routes;
+        # the status the plain version gives; and the launch counts, set
+        # to 0 just before each path and read after.  The kernels line
+        # takes the launches of the f32 default solves.
+        from krylov_tpu_torch.solvers.lslq import _STATUS as lslq_status
+        gk_ops = {}
+        for dt in (torch.float32, torch.float64):
+            A = kt.DIAOperator(shifted_dia(128, dt))
+            b = rhs(A.shape[0], dt, gen=np.random.default_rng(SEED + 15))
+            n = b.shape[0]
+            pd, ot = A._pd, A._offsets
+            pda, offa = A.aligned_adjoint()
+            ota = offsets_tensor(offa, dev)
+            f32 = dt == torch.float32
+            for method in ("lsqr", "lsmr", "lslq"):
+                name = method + "_dia"
+                solve = (lambda m=method, A=A, b=b, **kw:
+                         getattr(kt, m)(A, b, **kw))
+                gk_ops[method, f32] = solve
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.perf_counter()
+                x, stats = solve()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                counts_fused = kt.kernel_launches()
+                t = time.perf_counter()
+                xh, sh = solve(history=True)
+                torch.cuda.synchronize()
+                ms_h = (time.perf_counter() - t) * 1e3
+                counts = kt.kernel_launches()
+                args, kwargs = gk_args(method, dt, n)
+                ref = getattr(cf, name + "_fused_ref")(pd, pda, ot, ota, b,
+                                                       *args, **kwargs)
+                code = rt.final_status_code(
+                    [v for v in ref[1:] if v.dtype == torch.int32][1], 0, 1,
+                    False)
+                want = rt.decode_status(code, lslq_status)
+                res = ls_residuals(pd, ot, pda, ota, b, x)
+                res_p = ls_residuals(pd, ot, pda, ota, b, ref[0])
+                res_h = ls_residuals(pd, ot, pda, ota, b, xh)
+                label = f"{method} {'f32' if f32 else 'f64'}"
+                print(f"  {label}: niter={stats.niter} status="
+                      f"'{stats.status}' true_res={res[0]:.3e} ||A^H r||="
+                      f"{res[1]:.3e} ms/solve={ms:.2f} us/iter="
+                      f"{1e3 * ms / max(stats.niter, 1):.2f}; plain "
+                      f"version: niter={int(ref[1])} status='{want}' "
+                      f"true_res={res_p[0]:.3e}; history=True: niter="
+                      f"{sh.niter} status='{sh.status}' true_res="
+                      f"{res_h[0]:.3e} ms={ms_h:.1f}; launches "
+                      f"{counts_fused[name]} ({name}), "
+                      f"{counts['dia_spmv']} (dia_spmv, history)",
+                      flush=True)
+                check(stats.solved and sh.solved,
+                      f"{label} stopped solved (both routes)")
+                check(stats.status == want,
+                      f"{label}: the plain version's status")
+                check(x.shape == b.shape and x.dtype == dt
+                      and bool(torch.isfinite(x).all()),
+                      f"{label}: finite x of shape {tuple(b.shape)}")
+                check(res[0] <= 1.5 * res_p[0] and res_h[0] <= 1.5 * res_p[0],
+                      f"{label}: true residuals {res[0]:.3e}, {res_h[0]:.3e} "
+                      f"(history) <= 1.5 x the plain version's")
+                check(sh.residuals.size == sh.niter + 1,
+                      f"{label} (history=True) kept its history")
+                check(counts_fused[name] > 0, f"{label} launched {name} "
+                      f"({counts_fused[name]} times)")
+                check(counts["dia_spmv"] > 0, f"{label} (history=True) "
+                      f"launched dia_spmv ({counts['dia_spmv']} times)")
+                if f32:
+                    launches[name] = counts_fused[name]
+                del ref, x, xh
+            del A, b, pd, ot, pda, ota
+
+    with Phase("5p profiles of the three 128^3 Golub-Kahan solves", 90):
+        for method in ("lsqr", "lsmr", "lslq"):
+            print(f"  {method} f64:", flush=True)
+            profile_solve(gk_ops[method, False], top=6)
+    del gk_ops
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -1604,15 +1828,15 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the twenty-three ported methods through krylov_solve (the
+        # Each of the twenty-six ported methods through krylov_solve (the
         # non-symmetric ten on the convection-diffusion stencil, CGS and
-        # BiLQR in f64, the four SSY methods on the stencil with 0.5 on
-        # its main diagonal), against a direct call of its solver on the
-        # same inputs: the same status, niter and x (and y) (bit for bit:
-        # the kernels sum in a fixed order); then a BiLQR and a TriLQR
-        # workspace, and one workspace round trip (krylov_workspace,
-        # warm_start, krylov_solve_inplace) whose show_workspace reports
-        # the GPU.
+        # BiLQR in f64, the four SSY methods and LSQR, LSMR and LSLQ on
+        # the stencil with 0.5 on its main diagonal), against a direct
+        # call of its solver on the same inputs: the same status, niter and
+        # x (and y) (bit for bit: the kernels sum in a fixed order); then a
+        # BiLQR and a TriLQR workspace, and one workspace round trip
+        # (krylov_workspace, warm_start, krylov_solve_inplace) whose
+        # show_workspace reports the GPU.
         A = kt.DIAOperator(kt.poisson_dia(64))
         Acd = kt.DIAOperator(kt.convdiff_dia(64))
         Acd64 = kt.DIAOperator(kt.convdiff_dia(64, dtype=torch.float64))
@@ -1625,7 +1849,7 @@ def main():
                        "symmlq", "minres", "minres_qlp", "minares", "gmres",
                        "fgmres", "fom", "bicgstab", "cgs", "diom", "dqgmres",
                        "bilq", "qmr", "bilqr", "usymlq", "usymqr", "trilqr",
-                       "usymlqr"):
+                       "usymlqr", "lsqr", "lsmr", "lslq"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
                                         "bicgstab", "diom", "dqgmres",
@@ -1636,6 +1860,8 @@ def main():
                 extra = (c64,)
             if method in ("usymlq", "usymqr", "trilqr", "usymlqr"):
                 op, extra = Ash, (c32,)
+            if method in ("lsqr", "lsmr", "lslq"):
+                op = Ash
             *xs, st = kt.krylov_solve(method, op, bm, *extra)
             *xd, sd = getattr(kt, method)(op, bm, *extra)
             torch.cuda.synchronize()
@@ -1723,7 +1949,13 @@ def main():
                "trilqr_dia": ("krylov_tpu_torch/csrc/trilqr_dia.cu",
                               "krylov_tpu/ops/pallas_fused.py:7695"),
                "usymlqr_dia": ("krylov_tpu_torch/csrc/usymlqr_dia.cu",
-                               "krylov_tpu/ops/pallas_fused.py:7968")}
+                               "krylov_tpu/ops/pallas_fused.py:7968"),
+               "lsqr_dia": ("krylov_tpu_torch/csrc/lsqr_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:1394"),
+               "lsmr_dia": ("krylov_tpu_torch/csrc/lsmr_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:1641"),
+               "lslq_dia": ("krylov_tpu_torch/csrc/lslq_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:6942")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

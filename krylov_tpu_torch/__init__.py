@@ -7,11 +7,13 @@ A second package beside the JAX one, ported slice by slice.  It carries
 ``fgmres``, ``fom``, ``diom``, ``dqgmres``, ``bicgstab``, ``cgs``,
 ``bilq``, ``qmr`` and ``bilqr`` (Ax = b and Aᴴy = c), and, on the
 Saunders–Simon–Yip process, ``usymlq``, ``usymqr``, ``trilqr`` and
-``usymlqr`` (the saddle point [I A; Aᴴ 0]), on DIA stencil, CSR, dense
-and matrix-free operators (with their adjoints), through
-hand-written CUDA kernels for Hopper (``csrc/``): a DIA SpMV (plain and
-in a padded, chainable layout) and a whole-solve kernel for each solver,
-each with a plain PyTorch version used on the CPU; and the generic
+``usymlqr`` (the saddle point [I A; Aᴴ 0]), and, on Golub–Kahan
+bidiagonalisation, ``lsqr``, ``lsmr`` and ``lslq`` for min ‖b − Ax‖,
+on DIA stencil, CSR, dense and matrix-free operators (with their
+adjoints), through hand-written CUDA kernels for Hopper (``csrc/``): a
+DIA SpMV (plain and in a padded, chainable layout) and a whole-solve
+kernel for each solver, each with a plain PyTorch version used on the
+CPU; and the generic
 ``krylov_solve`` / ``krylov_workspace`` interface over those methods.
 Constructors put data on the card unless the caller passes
 ``device="cpu"``; solvers run on the device of their inputs, and put
@@ -39,13 +41,15 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
                              cg_lanczos_dia_fused,
                              cg_lanczos_shift_dia_fused, cgs_dia_fused,
                              cr_dia_fused, fom_dia_fused, gmres_dia_fused,
+                             lslq_dia_fused, lsmr_dia_fused, lsqr_dia_fused,
                              minares_dia_fused, minres_dia_fused,
                              minres_qlp_dia_fused, qmr_dia_fused,
                              symmlq_dia_fused, trilqr_dia_fused,
                              trunc_dia_fused, usymlq_dia_fused,
                              usymlqr_dia_fused, usymqr_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
-from .ops.kops import knorm_elliptic, sym_givens
+from .ops.kops import (kdot, kdotr, kdotr2, knorm, knorm_elliptic,
+                       roots_quadratic, sym_givens, to_boundary)
 from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
 from .precond import ChebyshevPreconditioner, power_bound
 from .solvers.bicgstab import bicgstab, cgs
@@ -55,15 +59,19 @@ from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cr import car, cr
 from .solvers.fom import diom, dqgmres, fom
 from .solvers.gmres import fgmres, gmres
+from .solvers.lslq import lslq
+from .solvers.lsmr import lsmr
+from .solvers.lsqr import lsqr
 from .solvers.minares import minares
 from .solvers.minres import minres
 from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
 from .solvers.usymlq import trilqr, usymlq, usymlqr, usymqr
 from .stats import (AdjointStats, LanczosShiftStats, LanczosStats,
-                    SimpleStats, SymmlqStats)
+                    LSLQStats, LsmrStats, SimpleStats, SymmlqStats)
 
 # Generic interface + workspaces.
+from . import workspaces as _workspaces
 from .interface import (KRYLOV_METHODS, krylov_solve, krylov_solve_inplace,
                         krylov_workspace)
 from .show import kstdout, show_stats, show_workspace
@@ -97,9 +105,24 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "usymlq_dia": usymlq_dia_fused,
            "usymqr_dia": usymqr_dia_fused,
            "trilqr_dia": trilqr_dia_fused,
-           "usymlqr_dia": usymlqr_dia_fused}
+           "usymlqr_dia": usymlqr_dia_fused,
+           "lsqr_dia": lsqr_dia_fused,
+           "lsmr_dia": lsmr_dia_fused,
+           "lslq_dia": lslq_dia_fused}
 
 
 def kernel_launches():
     """Launch counts of the CUDA kernel wrappers, by kernel."""
     return {name: w.launches for name, w in KERNELS.items()}
+
+
+# The generated per-method workspace classes (CgWorkspace,
+# MinresWorkspace, ...), as the JAX package exports them (reference
+# src/krylov_workspaces.jl).
+for _method in METHOD_TABLE:
+    _cname = "".join(_w.capitalize() for _w in _method.split("_")) \
+        + "Workspace"
+    globals()[_cname] = getattr(_workspaces, _cname)
+del _method, _cname
+
+__version__ = "0.1.0"

@@ -47,6 +47,10 @@ same chunked, masked semantics, so that niter is exact across chunks.
   Saunders–Simon–Yip launches of ``csrc/ssy.cuh`` (``csrc/usymlq_dia.cu``,
   ``csrc/usymqr_dia.cu``, ``csrc/trilqr_dia.cu``,
   ``csrc/usymlqr_dia.cu``).
+* ``lsqr_dia_fused``, ``lsmr_dia_fused`` and ``lslq_dia_fused``: LSQR,
+  LSMR and LSLQ for min ‖b − Ax‖ (+ λ) on the Golub–Kahan launches of
+  ``csrc/gk.cuh`` (``csrc/lsqr_dia.cu``, ``csrc/lsmr_dia.cu``,
+  ``csrc/lslq_dia.cu``).
 """
 
 import math
@@ -83,6 +87,9 @@ ALPHA_BREAKDOWN = 30
 # BiLQ, QMR and BiLQR's own code (krylov_tpu/solvers/bilq.py; BiLQ's
 # solved codes are 35 and 36, decoded by its own strings)
 UV_BREAKDOWN = 38
+# LSLQ's forward-error codes (krylov_tpu/solvers/lslq.py:22-28)
+FWD_LBND = 44
+FWD_UBND = 45
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -141,6 +148,15 @@ _TL_RNORM, _TL_NSC, _TL_NST = 18, 37, 25
 # solved_primal, solved_dual and inconsistent_dual
 _TL_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
 _ULR_RNORM, _ULR_INCON, _ULR_NSC, _ULR_NST = 18, 5, 37, 11
+# LSQR, LSMR and LSLQ (csrc/gk.cuh): the partial rows, the work row of x
+# (after u and v), the int slot of the last zero-residual test; each
+# scalar array holds the host's parameters, the state and its staging
+# copy, then the error window (``window`` more slots)
+_GK_NPART, _GK_X, _GK_ZR = 4, 2, 3
+_LQ_RNORM, _LQ_ARNORM, _LQ_NSC, _LQ_NST = 22, 23, 41, 7
+# LSMR's rnorm, arnorm, acond, anorm and xnorm slots
+_LM_NORMS, _LM_NSC, _LM_NST = (29, 30, 31, 32, 33), 63, 7
+_LL_RNORM, _LL_ARNORM, _LL_CBND, _LL_NSC, _LL_NST = 29, 30, 4, 55, 9
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -175,6 +191,9 @@ usymlq_dia_fused_supported = cg_dia_fused_supported
 usymqr_dia_fused_supported = cg_dia_fused_supported
 trilqr_dia_fused_supported = cg_dia_fused_supported
 usymlqr_dia_fused_supported = cg_dia_fused_supported
+lsqr_dia_fused_supported = cg_dia_fused_supported
+lsmr_dia_fused_supported = cg_dia_fused_supported
+lslq_dia_fused_supported = cg_dia_fused_supported
 # the rings live in device memory, so any mem ≥ 2 has a kernel
 trunc_dia_fused_supported = cg_dia_fused_supported
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
@@ -2161,6 +2180,374 @@ def usymlqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, atol,
             s.incon)
 
 
+
+# ---------------------------------------------------------------------------
+# LSQR, LSMR and LSLQ: the plain versions
+# ---------------------------------------------------------------------------
+
+def _gk_start_ref(pd_adj, offsets_adj, b, one):
+    """β₁ = ‖b‖, u₁ = b/β₁, ‖Aᴴu₁‖² as summed, α₁ and v₁ = Aᴴu₁/α₁
+    (pallas_fused.py:1440-1450)."""
+    beta1 = torch.sqrt(torch.sum(b * b))
+    u = b / _safe(beta1, one)
+    ahu = dia_spmv_aligned_ref(pd_adj, offsets_adj, u)
+    anorm2 = torch.sum(ahu * ahu)
+    alpha = torch.sqrt(anorm2)
+    return beta1, u, anorm2, alpha, ahu / _safe(alpha, one)
+
+
+def _gk_ref(pd, offsets, pd_adj, offsets_adj, s, one):
+    """One Golub–Kahan step (pallas_fused.py:1481-1503): βu = Av − αu,
+    then αv = Aᴴu − βv unless β = 0, each normalised only where its norm
+    is not 0.  Returns (u, v, α, β, β ≠ 0)."""
+    u_un = dia_spmv_aligned_ref(pd, offsets, s.v) - s.alpha * s.u
+    beta = torch.sqrt(torch.sum(u_un * u_un))
+    bnz = beta != 0
+    u = torch.where(bnz, u_un / _safe(beta, one), u_un)
+    v_un = torch.where(bnz, dia_spmv_aligned_ref(pd_adj, offsets_adj, u)
+                       - beta * s.v, s.v)
+    alpha = torch.where(bnz, torch.sqrt(torch.sum(v_un * v_un)), s.alpha)
+    anz = bnz & (alpha != 0)
+    return u, torch.where(anz, v_un / _safe(alpha, one), v_un), alpha, \
+        beta, bnz
+
+
+def _window_norm(errs, first):
+    """√ of the sum of squares of the error window, slot by slot from
+    ``first`` on, circularly, in the order of the TPU kernels' window."""
+    w = errs.shape[0]
+    err2 = torch.zeros_like(errs[0])
+    for j in range(w):
+        e = errs[(first + j) % w]
+        err2 = err2 + e * e
+    return torch.sqrt(err2)
+
+
+def _ps_code(ill_cond_mach, ill_cond_lim, solved, zero_r, fwd_err):
+    """The TPU kernels' Paige–Saunders status chain, a later condition
+    winning (pallas_fused.py:1558-1563)."""
+    code = torch.zeros_like(solved, dtype=torch.int32)
+    for cond, c in ((ill_cond_mach, ILL_COND_MACH),
+                    (ill_cond_lim, COND_EXCEEDED), (solved, SOLVED_LSQ),
+                    (solved & zero_r, SOLVED_ZERO),
+                    (solved & fwd_err, FWD_ERR)):
+        code = torch.where(cond, c, code).to(torch.int32)
+    return code
+
+
+def _ctol(conlim, like):
+    conlim = _scalar(conlim, like)
+    return torch.where(conlim > 0, 1.0 / conlim, torch.zeros_like(conlim))
+
+
+def _check_window(window):
+    if int(window) < 1:
+        raise ValueError("window must be at least 1")
+
+
+def lsqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, axtol, btol,
+                       atol, rtol, etol, conlim, itmax, window=5):
+    """Plain PyTorch LSQR of min ‖b − Ax‖ (+ λ) (pallas_fused.py:
+    1394-1569): Golub–Kahan over A and Aᴴ, the rotation against λ, the
+    Paige–Saunders stops, the ‖x‖ rotation and the etol window.
+
+    Returns (x, niter, rnorm, arnorm, status, zero_resid) as tensors, as
+    ``lsqr_dia_fused`` does."""
+    _check_window(window)
+    tiny = torch.finfo(b.dtype).tiny
+    one, zero = _scalar(1, b), _scalar(0, b)
+    lam, axtol, btol, atol, rtol, etol = (_scalar(v, b) for v in (
+        lam, axtol, btol, atol, rtol, etol))
+    ctol = _ctol(conlim, b)
+    beta1, u, anorm2_0, alpha0, v = _gk_start_ref(pd_adj, offsets_adj, b,
+                                                  one)
+    arnorm0 = alpha0 * beta1
+    status0 = torch.where(beta1 == 0, ZERO_RESIDUAL, torch.where(
+        alpha0 == 0, MIN_LSQ_X, RUNNING))
+    t2 = arnorm0 / (torch.sqrt(torch.clamp(anorm2_0, min=tiny))
+                    * _safe(beta1, one))
+    status0 = torch.where((status0 == RUNNING) & ((t2 <= axtol)
+                                                  | ((1.0 + t2) <= 1.0)),
+                          SOLVED_LSQ, status0).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), u=u, v=v, w=v, iter=_i32(0, b), alpha=alpha0,
+        phibar=beta1, rhobar=alpha0, anorm2=anorm2_0, dnorm2=zero,
+        xnorm2=zero, res2=zero, c2=-one, s2=zero, zsc=zero, xenorm2=zero,
+        rnorm=beta1, arnorm=arnorm0, status=status0, zr=_i32(0, b),
+        errs=torch.zeros(window, dtype=b.dtype, device=b.device))
+
+    def step(s):
+        it = s.iter + 1
+        u, v, alpha, beta, bnz = _gk_ref(pd, offsets, pd_adj, offsets_adj,
+                                         s, one)
+        anorm2 = torch.where(bnz, s.anorm2 + s.alpha * s.alpha + beta * beta
+                             + torch.where(lam > 0, lam * lam, zero),
+                             s.anorm2)
+        c1, s1, rhobar1 = sym_givens(s.rhobar, lam)
+        psi = s1 * s.phibar
+        phibar_mid = c1 * s.phibar
+        cg, sg, rho = sym_givens(rhobar1, beta)
+        phi = cg * phibar_mid
+        phibar = sg * phibar_mid
+        xenorm2 = s.xenorm2 + phi * phi
+        errs = torch.cat([s.errs[1:], phi.reshape(1)])
+        err_lbnd = _window_norm(errs, 0)
+        tau = sg * phi
+        theta = sg * alpha
+        safe_rho = _safe(rho, one)
+        dnorm2 = s.dnorm2 + torch.sum(s.w * s.w) / (safe_rho * safe_rho)
+        x = s.x + (phi / safe_rho) * s.w
+        w = v - (theta / safe_rho) * s.w
+        delta = s.s2 * rho
+        gbar = -s.c2 * rho
+        rhs = phi - delta * s.zsc
+        zbar = rhs / _safe(gbar, one)
+        xnorm = torch.sqrt(s.xnorm2 + zbar * zbar)
+        c2, s2, gamma = sym_givens(gbar, theta)
+        zsc = rhs / _safe(gamma, one)
+        anorm = torch.sqrt(anorm2)
+        acond = anorm * torch.sqrt(dnorm2)
+        res2 = s.res2 + psi * psi
+        rnorm = torch.sqrt(phibar * phibar + res2)
+        arnorm = alpha * torch.abs(tau)
+        test1 = rnorm / beta1
+        test2 = arnorm / torch.clamp(anorm * rnorm, min=tiny)
+        test3 = 1.0 / torch.clamp(acond, min=tiny)
+        t1 = test1 / (1.0 + anorm * xnorm / beta1)
+        rnormtol = btol + axtol * anorm * xnorm / beta1
+        zero_r = ((1.0 + t1) <= 1.0) | (test1 <= rnormtol)
+        fwd_err = (it >= window) & (err_lbnd <= etol * torch.sqrt(xenorm2))
+        solved = (((1.0 + test2) <= 1.0) | (test2 <= axtol)
+                  | (arnorm <= atol + rtol * arnorm0) | zero_r | fwd_err)
+        return dict(x=x, u=u, v=v, w=w, iter=it, alpha=alpha, phibar=phibar,
+                    rhobar=-cg * alpha, anorm2=anorm2, dnorm2=dnorm2,
+                    xnorm2=s.xnorm2 + zsc * zsc, res2=res2, c2=c2, s2=s2,
+                    zsc=zsc, xenorm2=xenorm2, rnorm=rnorm, arnorm=arnorm,
+                    status=_ps_code((1.0 + test3) <= 1.0, test3 <= ctol,
+                                    solved, zero_r, fwd_err),
+                    zr=zero_r.to(torch.int32), errs=errs)
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.arnorm, s.status, s.zr
+
+
+def lsmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, axtol, btol,
+                       atol, rtol, etol, conlim, itmax, window=5):
+    """Plain PyTorch LSMR of min ‖b − Ax‖ (+ λ) (pallas_fused.py:
+    1641-1856): Golub–Kahan, LSMR's rotations, the ‖r‖, ‖A‖, cond(A) and
+    ‖x‖ estimates, the Paige–Saunders stops and the etol window.
+
+    Returns (x, niter, rnorm, arnorm, acond, anorm, xnorm, status,
+    zero_resid) as tensors, as ``lsmr_dia_fused`` does."""
+    _check_window(window)
+    tiny = torch.finfo(b.dtype).tiny
+    one, zero = _scalar(1, b), _scalar(0, b)
+    lam, axtol, btol, atol, rtol, etol = (_scalar(v, b) for v in (
+        lam, axtol, btol, atol, rtol, etol))
+    ctol = _ctol(conlim, b)
+    beta1, u, _, alpha0, v = _gk_start_ref(pd_adj, offsets_adj, b, one)
+    arnorm0 = alpha0 * beta1
+    status0 = torch.where(beta1 == 0, ZERO_RESIDUAL, torch.where(
+        alpha0 == 0, MIN_LSQ_X, torch.where(
+            beta1 <= axtol, SOLVED_LSQ, RUNNING))).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), u=u, v=v, h=v, hbar=torch.zeros_like(b),
+        iter=_i32(0, b), alpha=alpha0, zetabar=arnorm0, alphabar=alpha0,
+        rho=one, rhobar=one, cbar=one, sbar=zero, betadd=beta1, betad=zero,
+        rhodold=one, tautildeold=zero, thetatilde=zero, zeta=zero, dd=zero,
+        anorm2=alpha0 * alpha0, maxrbar=zero,
+        minrbar=_scalar(torch.finfo(b.dtype).max, b), xenorm2=zero,
+        rnorm=beta1, arnorm=arnorm0, acond=zero, anorm=alpha0, xnorm=zero,
+        status=status0, zr=_i32(0, b),
+        errs=torch.zeros(window, dtype=b.dtype, device=b.device))
+
+    def step(s):
+        it = s.iter + 1
+        u, v, alpha, beta, _ = _gk_ref(pd, offsets, pd_adj, offsets_adj, s,
+                                       one)
+        chat, shat, alphahat = sym_givens(s.alphabar, lam)
+        cg, sg, rho = sym_givens(alphahat, beta)
+        thetanew = sg * alpha
+        thetabar = s.sbar * rho
+        rhotemp = s.cbar * rho
+        cbar, sbar, rhobar = sym_givens(rhotemp, thetanew)
+        zeta = cbar * s.zetabar
+        zetabar = -sbar * s.zetabar
+        xenorm2 = s.xenorm2 + zeta * zeta
+        errs = torch.cat([s.errs[1:], zeta.reshape(1)])
+        err_lbnd = _window_norm(errs, 0)
+        delta = thetabar * rho / torch.clamp(s.rho * s.rhobar, min=tiny)
+        hbar = s.h - delta * s.hbar
+        x = s.x + (zeta / torch.clamp(rho * rhobar, min=tiny)) * hbar
+        h = v - (thetanew / torch.clamp(rho, min=tiny)) * s.h
+        betaacute = chat * s.betadd
+        betacheck = -shat * s.betadd
+        betahat = cg * betaacute
+        betadd = -sg * betaacute
+        ctildeold, stildeold, rhotildeold = sym_givens(s.rhodold, thetabar)
+        thetatilde = stildeold * rhobar
+        rhodold = ctildeold * rhobar
+        betad = -stildeold * s.betad + ctildeold * betahat
+        tautildeold = (s.zeta - s.thetatilde * s.tautildeold) \
+            / torch.clamp(rhotildeold, min=tiny)
+        taud = (zeta - thetatilde * tautildeold) / torch.clamp(rhodold,
+                                                               min=tiny)
+        dd = s.dd + betacheck * betacheck
+        rnorm = torch.sqrt(dd + (betad - taud) ** 2 + betadd * betadd)
+        anorm2_mid = s.anorm2 + beta * beta
+        anorm = torch.sqrt(anorm2_mid)
+        maxrbar = torch.maximum(s.maxrbar, s.rhobar)
+        minrbar = torch.where(it > 1, torch.minimum(s.minrbar, s.rhobar),
+                              s.minrbar)
+        acond = torch.maximum(maxrbar, rhotemp) / torch.clamp(
+            torch.minimum(minrbar, rhotemp), min=tiny)
+        arnorm = torch.abs(zetabar)
+        xnorm = torch.sqrt(torch.sum(x * x))
+        test1 = rnorm / beta1
+        test2 = arnorm / torch.clamp(anorm * rnorm, min=tiny)
+        test3 = 1.0 / torch.clamp(acond, min=tiny)
+        t1 = test1 / (1.0 + anorm * xnorm / beta1)
+        rnormtol = btol + axtol * anorm * xnorm / beta1
+        zero_r = ((1.0 + t1) <= 1.0) | (test1 <= rnormtol)
+        fwd_err = (it >= window) & (err_lbnd <= etol * torch.sqrt(xenorm2))
+        solved = (((1.0 + test2) <= 1.0) | (test2 <= axtol)
+                  | (arnorm <= atol + rtol * arnorm0) | zero_r | fwd_err)
+        return dict(x=x, u=u, v=v, h=h, hbar=hbar, iter=it, alpha=alpha,
+                    zetabar=zetabar, alphabar=cg * alpha, rho=rho,
+                    rhobar=rhobar, cbar=cbar, sbar=sbar, betadd=betadd,
+                    betad=betad, rhodold=rhodold, tautildeold=tautildeold,
+                    thetatilde=thetatilde, zeta=zeta, dd=dd,
+                    anorm2=anorm2_mid + alpha * alpha, maxrbar=maxrbar,
+                    minrbar=minrbar, xenorm2=xenorm2, rnorm=rnorm,
+                    arnorm=arnorm, acond=acond, anorm=anorm, xnorm=xnorm,
+                    status=_ps_code((1.0 + test3) <= 1.0, test3 <= ctol,
+                                    solved, zero_r, fwd_err),
+                    zr=zero_r.to(torch.int32), errs=errs)
+
+    s = _drive_ref(s0, step, itmax)
+    return (s.x, s.iter, s.rnorm, s.arnorm, s.acond, s.anorm, s.xnorm,
+            s.status, s.zr)
+
+
+def lslq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, sigma, atol,
+                       rtol, btol, etol, utol, conlim, itmax, use_sigma=False,
+                       transfer_to_lsqr=False, window=5):
+    """Plain PyTorch LSLQ of min ‖b − Ax‖ (+ λ) (pallas_fused.py:
+    6942-7164): Golub–Kahan, the LQ recurrences with the λ registers, the
+    σ error bounds, the forward-error window and the LSQR transfer.
+
+    Returns (x, niter, rnorm, arnorm, status, zero_resid, complex_bnd)
+    as tensors, as ``lslq_dia_fused`` does."""
+    _check_window(window)
+    tiny = torch.finfo(b.dtype).tiny
+    one, zero = _scalar(1, b), _scalar(0, b)
+    sigma, atol, rtol, etol, utol = (_scalar(v, b) for v in (
+        sigma, atol, rtol, etol, utol))
+    ctol = _ctol(conlim, b)
+    beta1, u, _, alpha0, v = _gk_start_ref(pd_adj, offsets_adj, b, one)
+    eps_lim = atol + rtol * beta1
+    status0 = torch.where(beta1 == 0, ZERO_RESIDUAL, torch.where(
+        alpha0 == 0, MIN_LSQ_X, torch.where(
+            beta1 <= eps_lim, SOLVED_ZERO, RUNNING))).to(torch.int32)
+    s0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), u=u, v=v, wbar=v, iter=_i32(0, b),
+        alpha=alpha0, lam_k=_scalar(lam, b), anorm2=alpha0 * alpha0,
+        smax=zero, smin=_scalar(float("inf"), b), gbar=alpha0, psi=beta1,
+        c=-one, s=zero, delta=-one, tau=alpha0 * beta1, zeta=zero,
+        zetabar=zero, zetatilde=zero, rhobar_sig=-sigma, csig=-one,
+        omega=zero, xlqnorm2=zero, rnorm=beta1, arnorm=alpha0 * beta1,
+        zr=_i32(0, b), cbnd=_i32(0, b), status=status0,
+        errs=torch.zeros(window, dtype=b.dtype, device=b.device))
+
+    def step(s_):
+        it0 = s_.iter
+        u, v, alpha, beta, bnz = _gk_ref(pd, offsets, pd_adj, offsets_adj,
+                                         s_, one)
+        lam_on = (s_.lam_k != 0) & bnz
+        cl, sl, blr = sym_givens(beta, s_.lam_k)
+        al = torch.where(lam_on, cl * alpha, alpha)
+        bl = torch.where(lam_on, blr, beta)
+        lam_k = torch.where(lam_on, torch.sqrt(
+            s_.lam_k * s_.lam_k + (sl * alpha) ** 2), s_.lam_k)
+        anorm2 = torch.where(bnz, s_.anorm2 + al * al + bl * bl, s_.anorm2)
+        anorm = torch.sqrt(anorm2)
+        cp, sp, gamma = sym_givens(s_.gbar, bl)
+        tau = -s_.tau * s_.delta / _safe(gamma, one)
+        delta = sp * al
+        cbnd = s_.cbnd == 1
+        rhobar_sig, csig, omega = s_.rhobar_sig, s_.csig, s_.omega
+        if use_sigma:
+            mubar = -csig * gamma
+            csig1, ssig1, _ = sym_givens(rhobar_sig, gamma)
+            rhobar_sig = ssig1 * mubar + csig1 * sigma
+            mubar = -csig1 * delta
+            h = delta * csig1 / _safe(rhobar_sig, one)
+            disc = sigma * (sigma - delta * h)
+            cbnd = cbnd | (disc < 0)
+            omega = torch.where(disc >= 0,
+                                torch.sqrt(torch.clamp(disc, min=0)), omega)
+            csig, ssig2, _ = sym_givens(rhobar_sig, delta)
+            rhobar_sig = ssig2 * mubar + csig * sigma
+        ebar = -gamma * s_.c
+        eta = gamma * s_.s
+        c, s, eps_ = sym_givens(ebar, delta)
+        smax = torch.maximum(s_.smax, torch.maximum(eps_, torch.abs(ebar)))
+        smin = torch.minimum(s_.smin, torch.minimum(eps_, torch.abs(ebar)))
+        acond = smax / torch.clamp(smin, min=tiny)
+        zeta = (tau - s_.zeta * eta) / _safe(eps_, one)
+        zetabar = zeta / _safe(c, one)
+        rnorm = torch.sqrt((s_.psi * cp - s_.zeta * eta) ** 2
+                           + (s_.psi * sp) ** 2)
+        arnorm = torch.sqrt((gamma * eps_ * zeta) ** 2
+                            + (delta * eta * s_.zeta) ** 2)
+        x = s_.x + (c * zeta) * s_.wbar + (s * zeta) * v
+        wbar = s * s_.wbar - c * v
+        xlqnorm2 = s_.xlqnorm2 + zeta * zeta
+        xlqnorm = torch.sqrt(xlqnorm2)
+        xcgnorm2 = xlqnorm2 + zetabar * zetabar
+        errs = s_.errs.index_put(((it0 % window).long().reshape(1),),
+                                 zeta.reshape(1))
+        fwd_lbnd = (it0 >= window) & (_window_norm(errs, 0)
+                                      <= etol * xlqnorm)
+        zetatilde = s_.zetatilde
+        fwd_ubnd = torch.zeros_like(fwd_lbnd)
+        if use_sigma:
+            taut = -tau * delta / _safe(omega, one)
+            zetatilde = (taut - zeta * (omega * s)) / _safe(-omega * c, one)
+            disc_cg = s_.zetatilde ** 2 - zetabar ** 2
+            cbnd = cbnd | ((it0 > 0) & (disc_cg < 0))
+            fwd_ubnd = (it0 > 0) & (disc_cg >= 0) & (
+                torch.sqrt(torch.clamp(disc_cg, min=0))
+                <= utol * torch.sqrt(xcgnorm2))
+        test2 = arnorm / torch.clamp(anorm * rnorm, min=tiny)
+        test3 = 1.0 / torch.clamp(acond, min=tiny)
+        t1 = rnorm / (1.0 + anorm * xlqnorm)
+        zero_r = ((1.0 + t1) <= 1.0) | (rnorm <= eps_lim)
+        solved = ((1.0 + test2) <= 1.0) | (test2 <= atol) | zero_r \
+            | fwd_lbnd | fwd_ubnd
+        code = torch.zeros_like(it0)
+        for cond, k in (((1.0 + test3) <= 1.0, ILL_COND_MACH),
+                        (test3 <= ctol, COND_EXCEEDED),
+                        (solved, SOLVED_LSQ), (zero_r, SOLVED_ZERO),
+                        (fwd_lbnd, FWD_LBND), (fwd_ubnd, FWD_UBND)):
+            code = torch.where(cond, k, code).to(torch.int32)
+        return dict(x=x, u=u, v=v, wbar=wbar, iter=it0 + 1, alpha=alpha,
+                    lam_k=lam_k, anorm2=anorm2, smax=smax, smin=smin,
+                    gbar=-cp * al, psi=s_.psi * sp, c=c, s=s, delta=delta,
+                    tau=tau, zeta=zeta, zetabar=zetabar, zetatilde=zetatilde,
+                    rhobar_sig=rhobar_sig, csig=csig, omega=omega,
+                    xlqnorm2=xlqnorm2, rnorm=rnorm, arnorm=arnorm,
+                    zr=zero_r.to(torch.int32), cbnd=cbnd.to(torch.int32),
+                    status=code, errs=errs)
+
+    s = _drive_ref(s0, step, itmax)
+    x = s.x
+    if transfer_to_lsqr:
+        x = torch.where((s.status != ZERO_RESIDUAL) & (s.status != MIN_LSQ_X),
+                        x + s.zetabar * s.wbar, x)
+    return x, s.iter, s.rnorm, s.arnorm, s.status, s.zr, s.cbnd
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -2979,3 +3366,112 @@ def usymlqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
 
 
 usymlqr_dia_fused.launches = 0
+
+
+def _gk_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, params,
+              itmax, nrows, nsc, nst, flag, window, finish=False):
+    """The buffers and launches shared by the LSQR, LSMR and LSLQ kernels
+    (``csrc/gk.cuh``): the work rows (u, v, x, then the method's own
+    vectors), the block partials, the scalars (the host's parameters, the
+    state and its staging copy, the error window) and the ints with
+    their staging copy.  Returns (work, sc, st)."""
+    _check_window(window)
+    pair = _pair(kind.upper(), b, pd)
+    _check_spmv(pd_adj, offsets_adj, b)
+    if pd_adj.dtype != pd.dtype:
+        raise ValueError("pd_adj must have pd's dtype")
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(nsc + int(window), b, dict(enumerate(params)))
+    # the init launches write every row and every state slot
+    work = torch.empty((nrows, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((_GK_NPART, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(nst, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, int(flag), int(window))
+    adj = (pd_adj.data_ptr(), offsets_adj.data_ptr(), pd_adj.shape[0])
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair}",
+         adj + (b.data_ptr(),) + bufs, f"ktt_{kind}_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + adj + bufs, st,
+         itmax)
+    if finish:
+        _finish(wrapper, f"ktt_{kind}_dia_finish_{pair[:3]}", b,
+                (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
+                 int(flag)))
+    return work, sc, st
+
+
+def lsqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, axtol, btol,
+                   atol, rtol, etol, conlim, itmax, window=5):
+    """Full LSQR solve of min ‖b − Ax‖ (+ λ) for a DIA matrix.
+
+    ``pd_adj`` and ``offsets_adj`` are Aᴴ's aligned diagonals and offsets
+    (``DIAOperator.aligned_adjoint``); ``window`` is the length of the
+    etol error window.  Returns (x, niter, rnorm, arnorm, status_code,
+    zero_resid) as tensors on b's device; the codes are those of
+    ``_runtime`` (2, 11, 20-24).
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return lsqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                  axtol, btol, atol, rtol, etol, conlim,
+                                  itmax, window)
+    work, sc, st = _gk_fused(lsqr_dia_fused, "lsqr", pd, pd_adj, offsets,
+                             offsets_adj, b, (lam, axtol, btol, atol, rtol,
+                                              etol, conlim), itmax, 4,
+                             _LQ_NSC, _LQ_NST, 0, window)
+    return (work[_GK_X].clone(), st[_IT], sc[_LQ_RNORM], sc[_LQ_ARNORM],
+            st[_STATUS], st[_GK_ZR])
+
+
+lsqr_dia_fused.launches = 0
+
+
+def lsmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, axtol, btol,
+                   atol, rtol, etol, conlim, itmax, window=5):
+    """Full LSMR solve of min ‖b − Ax‖ (+ λ) for a DIA matrix.  Returns
+    (x, niter, rnorm, arnorm, acond, anorm, xnorm, status_code,
+    zero_resid) as tensors on b's device."""
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return lsmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                  axtol, btol, atol, rtol, etol, conlim,
+                                  itmax, window)
+    work, sc, st = _gk_fused(lsmr_dia_fused, "lsmr", pd, pd_adj, offsets,
+                             offsets_adj, b, (lam, axtol, btol, atol, rtol,
+                                              etol, conlim), itmax, 5,
+                             _LM_NSC, _LM_NST, 0, window)
+    return (work[_GK_X].clone(), st[_IT], *sc[list(_LM_NORMS)].unbind(),
+            st[_STATUS], st[_GK_ZR])
+
+
+lsmr_dia_fused.launches = 0
+
+
+def lslq_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, sigma, atol,
+                   rtol, btol, etol, utol, conlim, itmax, use_sigma=False,
+                   transfer_to_lsqr=False, window=5):
+    """Full LSLQ solve of min ‖b − Ax‖ (+ λ) for a DIA matrix.
+
+    ``use_sigma`` turns on the σ error bounds and their ``utol`` stop;
+    ``transfer_to_lsqr`` moves x to the LSQR point after the loop (one
+    finishing launch).  Returns (x, niter, rnorm, arnorm, status_code,
+    zero_resid, complex_bnd) as tensors on b's device; the codes add 44
+    and 45, the forward-error lower and upper bounds.
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return lslq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                  sigma, atol, rtol, btol, etol, utol,
+                                  conlim, itmax, use_sigma, transfer_to_lsqr,
+                                  window)
+    flag = int(bool(use_sigma)) | 2 * int(bool(transfer_to_lsqr))
+    work, sc, st = _gk_fused(lslq_dia_fused, "lslq", pd, pd_adj, offsets,
+                             offsets_adj, b, (lam, 0.0, btol, atol, rtol,
+                                              etol, conlim, sigma, utol),
+                             itmax, 4, _LL_NSC, _LL_NST, flag, window,
+                             finish=bool(transfer_to_lsqr))
+    return (work[_GK_X].clone(), st[_IT], sc[_LL_RNORM], sc[_LL_ARNORM],
+            st[_STATUS], st[_GK_ZR], st[_LL_CBND])
+
+
+lslq_dia_fused.launches = 0

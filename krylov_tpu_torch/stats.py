@@ -54,6 +54,20 @@ class SimpleStats(KrylovStatsBase):
 
 
 @dataclass
+class LsmrStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:76-90."""
+    solved: bool = False
+    inconsistent: bool = False
+    residuals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    Aresiduals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    residual: float = 0.0
+    Aresidual: float = 0.0
+    Acond: float = 0.0
+    Anorm: float = 0.0
+    xNorm: float = 0.0
+
+
+@dataclass
 class LanczosStats(KrylovStatsBase):
     """reference: src/krylov_stats.jl:127-137."""
     solved: bool = False
@@ -97,3 +111,16 @@ class AdjointStats(KrylovStatsBase):
     @property
     def solved(self):
         return self.solved_primal and self.solved_dual
+
+
+@dataclass
+class LSLQStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:352-365."""
+    solved: bool = False
+    inconsistent: bool = False
+    residuals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    Aresiduals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    err_lbnds: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    error_with_bnd: bool = False
+    err_ubnds_lq: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    err_ubnds_cg: np.ndarray = field(default_factory=lambda: np.zeros(0))

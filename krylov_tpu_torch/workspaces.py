@@ -25,6 +25,9 @@ from .solvers import cg_lanczos as _cg_lanczos
 from .solvers import cr as _cr
 from .solvers import fom as _fom
 from .solvers import gmres as _gmres
+from .solvers import lslq as _lslq
+from .solvers import lsmr as _lsmr
+from .solvers import lsqr as _lsqr
 from .solvers import minares as _minares
 from .solvers import minres as _minres
 from .solvers import minres_qlp as _minres_qlp
@@ -104,13 +107,15 @@ _PORTED = {
     "usymqr": (_usymlq._usymqr_solve, _usymlq.usymqr),
     "trilqr": (_usymlq._trilqr_solve, _usymlq.trilqr),
     "usymlqr": (_usymlq._usymlqr_solve, _usymlq.usymlqr),
+    "lsqr": (_lsqr._lsqr_solve, _lsqr.lsqr),
+    "lsmr": (_lsmr._lsmr_solve, _lsmr.lsmr),
+    "lslq": (_lslq._lslq_solve, _lslq.lslq),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
 _QUEUE_ITEM = {
-    **dict.fromkeys(("lsqr", "lsmr", "lslq", "cgls", "crls",
-                     "cgls_lanczos_shift", "cgne", "crmr", "craig",
-                     "craigmr", "lnlq"), 5),
+    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift", "cgne", "crmr",
+                     "craig", "craigmr", "lnlq"), 5),
     **dict.fromkeys(("tricg", "trimr", "gpmr"), 6),
     **dict.fromkeys(("block_minres", "block_gmres"), 7),
 }

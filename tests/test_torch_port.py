@@ -252,13 +252,13 @@ def test_slice6_wrapper_slots_match_kernel_enums(source, slots):
     assert _enum("bilanczos.cuh", "SharedSlot")[:2] == ["ATOL", "RTOL"]
 
 
-def _enum_values(source, name):
+def _enum_values(source, name, header="ssy.cuh"):
     """name -> value of ``enum name { ... }`` in a csrc file, where each
     member is the last plus one or an expression of earlier members and
-    of the SSY header's shared enums."""
+    of the shared enums of its header (the SSY header by default)."""
     env = {}
     for enum in ("SharedSlot", "SharedInt", "Row", "Part"):
-        env.update(_enum_values_in("ssy.cuh", enum, {}))
+        env.update(_enum_values_in(header, enum, {}))
     return _enum_values_in(source, name, env)
 
 
@@ -317,6 +317,44 @@ def test_ssy_wrapper_slots_match_kernel_enums(source, slots):
     assert _enum_values_in("ssy.cuh", "Part", {})["NPART"] == cf._SSY_NPART
 
 
+@pytest.mark.parametrize("source,slots", [
+    ("lsqr_dia.cu", {"ScalarSlot": {"RNORM": cf._LQ_RNORM,
+                                    "ARNORM": cf._LQ_ARNORM,
+                                    "NSC": cf._LQ_NSC},
+                     "IntSlot": {"NST": cf._LQ_NST},
+                     "OwnRow": {"NROWS": 4}}),
+    ("lsmr_dia.cu", {"ScalarSlot": dict(zip(("RNORM", "ARNORM", "ACOND",
+                                             "ANORM", "XNORM"),
+                                            cf._LM_NORMS),
+                                        NSC=cf._LM_NSC),
+                     "IntSlot": {"NST": cf._LM_NST},
+                     "OwnRow": {"NROWS": 5}}),
+    ("lslq_dia.cu", {"ScalarSlot": {"RNORM": cf._LL_RNORM,
+                                    "ARNORM": cf._LL_ARNORM,
+                                    "NSC": cf._LL_NSC},
+                     "IntSlot": {"CBND": cf._LL_CBND, "NST": cf._LL_NST},
+                     "OwnRow": {"NROWS": 4}}),
+])
+def test_gk_wrapper_slots_match_kernel_enums(source, slots):
+    """The slots the Golub–Kahan wrappers read, the array sizes they
+    allocate (a state and its staging copy, the error window after them)
+    and the work rows are the kernels' enum values; the host's parameters
+    come first in the order the wrappers pass them, and the shared
+    header's rows and partials are the wrappers' counts."""
+    for enum, want in slots.items():
+        got = _enum_values(source, enum, "gk.cuh")
+        for name, slot in want.items():
+            assert got[name] == slot, (source, name)
+    assert _enum("gk.cuh", "SharedSlot") == [
+        "LAM", "AXTOL", "BTOL", "ATOL", "RTOL", "ETOL", "CONLIM", "SIGMA",
+        "UTOL", "ALPHA"]
+    ints = _enum_values_in("gk.cuh", "SharedInt", {})
+    assert (ints["IT"], ints["STATUS"], ints["ZR"]) == (cf._IT, cf._STATUS,
+                                                        cf._GK_ZR)
+    assert _enum_values_in("gk.cuh", "Row", {})["X"] == cf._GK_X
+    assert _enum_values_in("gk.cuh", "Part", {})["NPART"] == cf._GK_NPART
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -332,7 +370,7 @@ def test_kernel_launches_and_exports():
                         "gmres_dia", "fom_dia", "bicgstab_dia", "cgs_dia",
                         "trunc_dia", "bilq_dia", "qmr_dia", "bilqr_dia",
                         "usymlq_dia", "usymqr_dia", "trilqr_dia",
-                        "usymlqr_dia"}
+                        "usymlqr_dia", "lsqr_dia", "lsmr_dia", "lslq_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -341,13 +379,17 @@ def test_kernel_launches_and_exports():
                  "minres_qlp_dia", "minares_dia", "gmres_dia", "fom_dia",
                  "bicgstab_dia", "cgs_dia", "trunc_dia", "bilq_dia",
                  "qmr_dia", "bilqr_dia", "usymlq_dia", "usymqr_dia",
-                 "trilqr_dia", "usymlqr_dia"):
+                 "trilqr_dia", "usymlqr_dia", "lsqr_dia", "lsmr_dia",
+                 "lslq_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
                  "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
                  "dqgmres", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
-                 "trilqr", "usymlqr", "AdjointStats",
+                 "trilqr", "usymlqr", "lsqr", "lsmr", "lslq",
+                 "AdjointStats", "LsmrStats", "LSLQStats", "kdot", "kdotr",
+                 "kdotr2", "knorm", "roots_quadratic", "to_boundary",
+                 "CgWorkspace", "UsymlqrWorkspace", "__version__",
                  "issolved_primal", "issolved_dual", "CSRMatrix",
                  "CSROperator", "AdjointOperator", "csr_from_coo",
                  "csr_from_dense", "spmv", "spmm", "knorm_elliptic",
@@ -1036,4 +1078,73 @@ def test_ssy_solvers_on_card_take_their_kernels():
             *xs, st = getattr(kt, method)(A, b, c, **kw)
             assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
             assert st.solved or st.inconsistent
+            assert kt.kernel_launches()[kernel] > n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["lsqr", "lsqr_lam", "lsmr", "lsmr_lam",
+                                    "lsmr_window12", "lslq", "lslq_sigma",
+                                    "lslq_transfer", "lsqr_zero_rhs",
+                                    "lslq_zero_rhs"])
+def test_gk_kernels_match_plain_on_card(kernel, dtype):
+    """The LSQR, LSMR and LSLQ kernels against their plain versions on the
+    16^3 convection-diffusion stencil with 0.5 on its main diagonal, at
+    the default tolerances: same status and flags, niter within
+    ±max(2, 10%), x to 1e-2 of max(|x|, |b|) in f32 and to 1e-6 in f64
+    (Golub–Kahan runs without reorthogonalisation, and its f64 stops move
+    with the order of the sums: tests/test_torch_ls.py says how far), as
+    chip_smoke.py holds them at full width; with λ = 0.1, a window of 12,
+    σ = 0.1, the LSQR transfer and b = 0."""
+    _card()
+    pd, pda, ot, ota, b, _ = _shifted_card(16, dtype)
+    if kernel.endswith("zero_rhs"):
+        b = torch.zeros_like(b)
+    name = kernel.split("_")[0]
+    tol = float(np.sqrt(np.finfo(np.float32 if dtype == torch.float32
+                                 else np.float64).eps))
+    lam = 0.1 if kernel.endswith("lam") else 0.0
+    window = 12 if kernel.endswith("window12") else 5
+    if name == "lslq":
+        args = (lam, 0.1 if kernel.endswith("sigma") else 0.0, tol, tol, tol,
+                tol, tol, 1e8, 2 * b.shape[0])
+        kw = {"use_sigma": kernel.endswith("sigma"),
+              "transfer_to_lsqr": kernel.endswith("transfer"),
+              "window": window}
+    else:
+        args = (lam, tol, tol, 0.0, 0.0, tol, 1e8, 2 * b.shape[0])
+        kw = {"window": window}
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    before = wrapper.launches
+    k = wrapper(pd, pda, ot, ota, b, *args, **kw)
+    assert wrapper.launches > before
+    r = ref(pd, pda, ot, ota, b, *args, **kw)
+    kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+    rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+    assert kints[1:] == rints[1:]
+    assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+    tol_x = 1e-2 if dtype == torch.float32 else 1e-6
+    scale = max(float(r[0].abs().max()), float(b.abs().max()))
+    assert float((k[0] - r[0]).abs().max()) <= tol_x * scale
+
+
+@pytest.mark.cuda
+def test_gk_solvers_on_card_take_their_kernels():
+    """lsqr, lsmr and lslq on a card operator run their kernels; with
+    history they take the general route through the SpMV kernel and its
+    adjoint."""
+    _card()
+    A = kt.convdiff_dia(16)
+    A.data[A.offsets.index(0)] += 0.5
+    A = kt.DIAOperator(A)
+    b = np.random.default_rng(20).standard_normal(16 ** 3).astype(
+        np.float32)
+    for method in ("lsqr", "lsmr", "lslq"):
+        for kw, kernel in (({}, method + "_dia"),
+                           ({"history": True}, "dia_spmv")):
+            n0 = kt.kernel_launches()[kernel]
+            x, st = getattr(kt, method)(A, b, **kw)
+            assert x.is_cuda and x.dtype == torch.float32
+            assert st.solved
             assert kt.kernel_launches()[kernel] > n0

@@ -619,3 +619,25 @@ def test_krylov_solve_and_workspace():
     for vt, vj in zip(kt.solution(wt), kj.solution(wj)):
         assert _rel(vt.numpy(), vj) <= TOL
     assert wt._x0 is None and wt._y0 is None
+
+
+def test_usymlqr_timemax_over_two_chunks_keeps_x_and_y():
+    """``usymlqr(..., timemax=1e6)`` on a solve of 106 iterations (two
+    chunks of ``_runtime.drive``) gives the x and y of its ``timemax=inf``
+    solve, bit for bit, and both solve the saddle system.  The port
+    composes x ← xᴸ + r and y ← y + zᴸ once, after the loop; the JAX
+    package composes them at the end of every chunk
+    (krylov_tpu/solvers/usymlq.py:1146-1149), so its second chunk adds r
+    and zᴸ again, and this test cannot hold the port to it here."""
+    rng = np.random.default_rng(0)
+    A = 2.0 * np.eye(200) + rng.standard_normal((200, 200)) / np.sqrt(200)
+    b, c = rng.standard_normal(200), rng.standard_normal(200)
+    x, y, st = kt.usymlqr(_t(A), _t(b), _t(c), atol=0.0, rtol=1e-12)
+    xm, ym, sm = kt.usymlqr(_t(A), _t(b), _t(c), atol=0.0, rtol=1e-12,
+                            timemax=1e6)
+    assert st.niter == sm.niter > 64 and st.status == sm.status
+    assert st.solved and sm.solved
+    assert torch.equal(x, xm) and torch.equal(y, ym)
+    x, y = xm.numpy(), ym.numpy()
+    assert np.linalg.norm(b - x - A @ y) <= 1e-10 * np.linalg.norm(b)
+    assert np.linalg.norm(c - A.T @ x) <= 1e-10 * np.linalg.norm(c)
