@@ -14,8 +14,10 @@ same size through ``gmres``, ``fgmres``, ``fom``, ``bicgstab``,
 and A^H y = c, in float64), and the same stencil with 0.5 on its main
 diagonal through ``usymlq``, ``usymqr``, ``trilqr`` and ``usymlqr`` (the
 saddle point [I A; A^H 0]) and, in float32 and float64, the least-squares
-solvers ``lsqr``, ``lsmr`` and ``lslq``, each by its whole-solve kernel
-and by the general route with its DIA SpMV kernel, chains the
+solvers ``lsqr``, ``lsmr`` and ``lslq`` and the least-norm solvers
+``craig``, ``craigmr``, ``lnlq``, ``cgne`` and ``crmr``, each by its
+whole-solve kernel and by the general route with its DIA SpMV kernel,
+chains the
 padded-layout SpMV, solves the systems whose dtypes once had no SpMV
 kernel, drives every ported method through ``krylov_solve`` and a
 workspace round trip, and checks that each path launched its kernels.
@@ -1102,6 +1104,131 @@ def main():
             del k, r
         del systems
 
+    with Phase("3i least-norm kernels vs plain", 240):
+        # CRAIG, CRAIGMR, LNLQ and CGNE/CRMR (by variant) on the
+        # convection-diffusion stencil with 0.5 on its main diagonal at the
+        # entry points' default tolerances, 64^3 f64 and 128^3 f32 (the
+        # full-width path), each kernel against its plain version on the
+        # same inputs: every int output (status, niter) equal but niter,
+        # which is held to +-max(2, 10%); the true relative residual
+        # ||b - Ax|| / ||b|| (f64, the plain SpMV) no worse than 1.5 times
+        # the plain version's; in f64 also x (and y) within 1e-6 relative.
+        # Variants at 128^3 f32: lambda = 0.3, b = 0 and LNLQ without the
+        # transfer to the CRAIG point.  In f32 CRAIG stops on its
+        # backward-error test at about 5e-3 true residual, as the JAX
+        # package's kernel does (ROADMAP.md watch list).  Bounds count
+        # bytes: the diagonals of A and A^H once each and the vectors each
+        # method must read and write -- CRAIG u, v, x, w, y; CRAIGMR also
+        # d, w_bar; LNLQ u, v, x, y, w_bar; CGNE/CRMR p, r, x; each read
+        # and written, and with lambda w2, q or s besides (the headers of
+        # csrc/*.cu).  ms, plain ms and the bound for the default cases.
+        ln_nvecs = {"craig": 10, "craigmr": 14, "lnlq": 10, "cgne_crmr": 6}
+        ln_cases = {"craig": ("craig", {}), "craigmr": ("craigmr", {}),
+                    "lnlq": ("lnlq", {}),
+                    "cgne": ("cgne_crmr", {"variant": "cgne"}),
+                    "crmr": ("cgne_crmr", {"variant": "crmr"})}
+
+        def ln_args(kernel, dt, n, lam=0.0):
+            """The arguments after (pd, pda, ot, ota, b) of a least-norm
+            kernel at the entry points' defaults: sqrt eps(T) for atol,
+            rtol (and CRAIG's btol), conlim 1e8, itmax m + n."""
+            tol = rt.default_tol(None, dt)
+            if kernel == "craig":
+                return (lam, tol, tol, tol, 1e8, 2 * n)
+            return (lam, tol, tol, 2 * n)
+
+        cases = [(m, 64, torch.float64, {}) for m in ln_cases]
+        cases += [(m, 128, torch.float32, {}) for m in ln_cases]
+        cases += [(m, 128, torch.float32, {"lam": 0.3}) for m in ln_cases]
+        cases += [(m, 128, torch.float32, {"zero_rhs": True})
+                  for m in ("craig", "craigmr", "lnlq", "cgne")]
+        cases += [("lnlq", 128, torch.float32, {"transfer_to_craig": False})]
+        systems = {}
+        gen = np.random.default_rng(SEED + 16)
+        for method, N, dt, kw in cases:
+            kw = dict(kw)
+            zero_rhs = kw.pop("zero_rhs", False)
+            lam = kw.pop("lam", 0.0)
+            kernel_name, kwargs = ln_cases[method]
+            kwargs = dict(kwargs, **kw)
+            if lam > 0 and kernel_name != "cgne_crmr":
+                kwargs["use_lam"] = True
+            if (N, dt) not in systems:
+                A = shifted_dia(N, dt)
+                pd = dia_align(A.data, A.offsets, A.shape[0])
+                pda, offa = kt.dia_align_adjoint(pd, A.offsets, A.shape[0])
+                systems[N, dt] = (pd, offsets_tensor(A.offsets, dev), pda,
+                                  offsets_tensor(offa, dev),
+                                  rhs(N ** 3, dt, gen))
+                del A
+            pd, ot, pda, ota, b = systems[N, dt]
+            if zero_rhs:
+                b = torch.zeros_like(b)
+            n = b.shape[0]
+            args = ln_args(kernel_name, dt, n, lam)
+            kernel = getattr(cf, kernel_name + "_dia_fused")
+            plain = getattr(cf, kernel_name + "_dia_fused_ref")
+            head = (pd, pda, ot, ota, b)
+            nvec = 1 if kernel_name == "cgne_crmr" else 2
+            k = kernel(*head, *args, **kwargs)
+            r = plain(*head, *args, **kwargs)
+            torch.cuda.synchronize()
+            kints = [int(v) for v in k[nvec:] if v.dtype == torch.int32]
+            rints = [int(v) for v in r[nvec:] if v.dtype == torch.int32]
+            err = max(float((a - w).abs().max())
+                      for a, w in zip(k[:nvec], r[:nvec]))
+            rel = max(float((a - w).abs().max())
+                      / max(float(w.abs().max()), 1e-300)
+                      for a, w in zip(k[:nvec], r[:nvec]))
+            f32 = dt == torch.float32
+            label = (f"{method} {f'{kw} ' if kw else ''}"
+                     f"{'lam = 0.3 ' if lam else ''}"
+                     f"{'b = 0 ' if zero_rhs else ''}{N}^3 "
+                     f"{'f32' if f32 else 'f64'}")
+            timed = not (kw or lam or zero_rhs)
+            line = (f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
+                    f"plain niter={rints[0]} codes={rints[1:]}; "
+                    f"max_abs_err={err:.3e} rel={rel:.3e}")
+            if not zero_rhs:
+                res_k = true_rel_residual(pd, ot, b, k[0])
+                res_p = true_rel_residual(pd, ot, b, r[0])
+                line += f"; true_res kernel {res_k:.3e} plain {res_p:.3e}"
+            if timed:
+                ms = event_ms(lambda: kernel(*head, *args, **kwargs), reps=3,
+                              warmup=1)
+                plain_ms = event_ms(lambda: plain(*head, *args, **kwargs),
+                                    reps=1, warmup=0)
+                it_bytes = (2 * pd.numel() * pd.element_size()
+                            + ln_nvecs[kernel_name] * n * b.element_size())
+                bound_ms = kints[0] * it_bytes / bw * 1e3
+                line += (f"; ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                         f"bound_ms={bound_ms:.3f} ({it_bytes / 1e6:.1f} MB "
+                         f"per iteration x {kints[0]}; "
+                         f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)")
+            print(line, flush=True)
+            check(kints[1:] == rints[1:],
+                  f"{label}: same status and flags as the plain version")
+            check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
+                  f"{label}: niter {kints[0]} within ±max(2, 10%) of "
+                  f"{rints[0]}")
+            if zero_rhs:
+                check(kints[0] == 0 and kints[1] == 2
+                      and not any(bool(v.any()) for v in k[:nvec]),
+                      f"{label}: x = 0, zero residual, no iteration")
+            else:
+                check(res_k <= 1.5 * res_p,
+                      f"{label}: true residual {res_k:.2e} no worse than "
+                      f"1.5 x the plain version's {res_p:.2e}")
+                if not f32:
+                    check(rel <= 1e-6, f"{label}: x agrees ({rel:.2e} <= "
+                          "1e-6)")
+            if timed and f32 and method != "crmr":
+                report[kernel_name + "_dia"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+            del k, r
+        del systems
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -1786,6 +1913,100 @@ def main():
             profile_solve(gk_ops[method, False], top=6)
     del gk_ops
 
+    with Phase("5q craig, craigmr, lnlq, cgne, crmr end to end", 240):
+        # The convection-diffusion stencil with 0.5 on its main diagonal at
+        # 128^3, b seeded normal, in f32 and in f64: each public entry
+        # point with its default options (the whole-solve kernel), then
+        # with history=True (the general route through the DIA SpMV kernel
+        # and its adjoint).  ms per solve, niter and us per iteration; the
+        # true relative residual ||b - Ax|| / ||b|| (f64, the plain SpMV),
+        # no worse than 1.5 times that of the kernel's plain version on the
+        # same inputs, on both routes; the status the plain version gives;
+        # and the launch counts, set to 0 just before each path and read
+        # after.  The kernels line takes the launches of the f32 default
+        # solves (CGNE's and CRMR's summed for their shared kernel).
+        from krylov_tpu_torch.solvers.craig import _STATUS as craig_status
+        from krylov_tpu_torch.solvers.cgne import _STATUS as cgne_status
+        ln_status = {**craig_status, **cgne_status}
+        ln_ops = {}
+        for dt in (torch.float32, torch.float64):
+            A = kt.DIAOperator(shifted_dia(128, dt))
+            b = rhs(A.shape[0], dt, gen=np.random.default_rng(SEED + 17))
+            n = b.shape[0]
+            pd, ot = A._pd, A._offsets
+            pda, offa = A.aligned_adjoint()
+            ota = offsets_tensor(offa, dev)
+            f32 = dt == torch.float32
+            for method, (kernel_name, kwargs) in ln_cases.items():
+                name = kernel_name + "_dia"
+                solve = (lambda m=method, A=A, b=b, **kw:
+                         getattr(kt, m)(A, b, **kw))
+                ln_ops[method, f32] = solve
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.perf_counter()
+                *_, stats = out = solve()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                counts_fused = kt.kernel_launches()
+                x = out[0]
+                t = time.perf_counter()
+                *_, sh = out_h = solve(history=True)
+                torch.cuda.synchronize()
+                ms_h = (time.perf_counter() - t) * 1e3
+                counts = kt.kernel_launches()
+                ref = getattr(cf, name + "_fused_ref")(
+                    pd, pda, ot, ota, b, *ln_args(kernel_name, dt, n),
+                    **kwargs)
+                nvec = 1 if kernel_name == "cgne_crmr" else 2
+                ref_niter, ref_code = [int(v) for v in ref[nvec:]
+                                       if v.dtype == torch.int32]
+                want = rt.decode_status(
+                    rt.final_status_code(ref_code, 0, 1, False), ln_status)
+                res = true_rel_residual(pd, ot, b, x)
+                res_p = true_rel_residual(pd, ot, b, ref[0])
+                res_h = true_rel_residual(pd, ot, b, out_h[0])
+                label = f"{method} {'f32' if f32 else 'f64'}"
+                print(f"  {label}: niter={stats.niter} status="
+                      f"'{stats.status}' true_res={res:.3e} ms/solve="
+                      f"{ms:.2f} us/iter={1e3 * ms / max(stats.niter, 1):.2f}"
+                      f"; plain version: niter={ref_niter} status='{want}' "
+                      f"true_res={res_p:.3e}; history=True: "
+                      f"niter={sh.niter} status='{sh.status}' true_res="
+                      f"{res_h:.3e} ms={ms_h:.1f}; launches "
+                      f"{counts_fused[name]} ({name}), "
+                      f"{counts['dia_spmv']} (dia_spmv, history)",
+                      flush=True)
+                check(stats.solved and sh.solved,
+                      f"{label} stopped solved (both routes)")
+                check(stats.status == want,
+                      f"{label}: the plain version's status")
+                check(all(v.shape == b.shape and v.dtype == dt
+                          and bool(torch.isfinite(v).all())
+                          for v in out[:-1]),
+                      f"{label}: finite solutions of shape {tuple(b.shape)}")
+                check(res <= 1.5 * res_p and res_h <= 1.5 * res_p,
+                      f"{label}: true residuals {res:.3e}, {res_h:.3e} "
+                      f"(history) <= 1.5 x the plain version's")
+                check(sh.residuals.size == sh.niter + 1,
+                      f"{label} (history=True) kept its history")
+                check(counts_fused[name] > 0, f"{label} launched {name} "
+                      f"({counts_fused[name]} times)")
+                check(counts["dia_spmv"] > 0, f"{label} (history=True) "
+                      f"launched dia_spmv ({counts['dia_spmv']} times)")
+                if f32:
+                    launches[name] = (launches.get(name, 0)
+                                      + counts_fused[name])
+                del ref, out, out_h, x
+            del A, b, pd, ot, pda, ota
+
+    with Phase("5r profiles of the five 128^3 least-norm solves", 120):
+        for method in ln_cases:
+            print(f"  {method} f64:", flush=True)
+            profile_solve(lambda m=method: (None, ln_ops[m, False]()[-1]),
+                          top=6)
+    del ln_ops
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -1828,10 +2049,11 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the twenty-six ported methods through krylov_solve (the
+        # Each of the thirty-one ported methods through krylov_solve (the
         # non-symmetric ten on the convection-diffusion stencil, CGS and
-        # BiLQR in f64, the four SSY methods and LSQR, LSMR and LSLQ on
-        # the stencil with 0.5 on its main diagonal), against a direct
+        # BiLQR in f64, the four SSY methods, LSQR, LSMR, LSLQ, CRAIG,
+        # CRAIGMR, LNLQ, CGNE and CRMR on the stencil with 0.5 on its main
+        # diagonal), against a direct
         # call of its solver on the same inputs: the same status, niter and
         # x (and y) (bit for bit: the kernels sum in a fixed order); then a
         # BiLQR and a TriLQR workspace, and one workspace round trip
@@ -1849,7 +2071,8 @@ def main():
                        "symmlq", "minres", "minres_qlp", "minares", "gmres",
                        "fgmres", "fom", "bicgstab", "cgs", "diom", "dqgmres",
                        "bilq", "qmr", "bilqr", "usymlq", "usymqr", "trilqr",
-                       "usymlqr", "lsqr", "lsmr", "lslq"):
+                       "usymlqr", "lsqr", "lsmr", "lslq", "craig", "craigmr",
+                       "lnlq", "cgne", "crmr"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
                                         "bicgstab", "diom", "dqgmres",
@@ -1860,7 +2083,8 @@ def main():
                 extra = (c64,)
             if method in ("usymlq", "usymqr", "trilqr", "usymlqr"):
                 op, extra = Ash, (c32,)
-            if method in ("lsqr", "lsmr", "lslq"):
+            if method in ("lsqr", "lsmr", "lslq", "craig", "craigmr", "lnlq",
+                          "cgne", "crmr"):
                 op = Ash
             *xs, st = kt.krylov_solve(method, op, bm, *extra)
             *xd, sd = getattr(kt, method)(op, bm, *extra)
@@ -1955,7 +2179,15 @@ def main():
                "lsmr_dia": ("krylov_tpu_torch/csrc/lsmr_dia.cu",
                             "krylov_tpu/ops/pallas_fused.py:1641"),
                "lslq_dia": ("krylov_tpu_torch/csrc/lslq_dia.cu",
-                            "krylov_tpu/ops/pallas_fused.py:6942")}
+                            "krylov_tpu/ops/pallas_fused.py:6942"),
+               "cgne_crmr_dia": ("krylov_tpu_torch/csrc/cgne_crmr_dia.cu",
+                                 "krylov_tpu/ops/pallas_fused.py:3571"),
+               "craig_dia": ("krylov_tpu_torch/csrc/craig_dia.cu",
+                             "krylov_tpu/ops/pallas_fused.py:5922"),
+               "craigmr_dia": ("krylov_tpu_torch/csrc/craigmr_dia.cu",
+                               "krylov_tpu/ops/pallas_fused.py:6132"),
+               "lnlq_dia": ("krylov_tpu_torch/csrc/lnlq_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:6345")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

@@ -8,7 +8,9 @@ A second package beside the JAX one, ported slice by slice.  It carries
 ``bilq``, ``qmr`` and ``bilqr`` (Ax = b and Aᴴy = c), and, on the
 Saunders–Simon–Yip process, ``usymlq``, ``usymqr``, ``trilqr`` and
 ``usymlqr`` (the saddle point [I A; Aᴴ 0]), and, on Golub–Kahan
-bidiagonalisation, ``lsqr``, ``lsmr`` and ``lslq`` for min ‖b − Ax‖,
+bidiagonalisation, ``lsqr``, ``lsmr`` and ``lslq`` for min ‖b − Ax‖
+and ``craig``, ``craigmr`` and ``lnlq`` for min ‖x‖ subject to Ax = b,
+with ``cgne`` and ``crmr`` (CG and CR on AAᴴ) for the same problem,
 on DIA stencil, CSR, dense and matrix-free operators (with their
 adjoints), through hand-written CUDA kernels for Hopper (``csrc/``): a
 DIA SpMV (plain and in a padded, chainable layout) and a whole-solve
@@ -39,8 +41,10 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
                              bilqr_dia_fused, car_dia_fused,
                              cg_cheby_dia_fused, cg_dia_fused,
                              cg_lanczos_dia_fused,
-                             cg_lanczos_shift_dia_fused, cgs_dia_fused,
-                             cr_dia_fused, fom_dia_fused, gmres_dia_fused,
+                             cg_lanczos_shift_dia_fused, cgne_crmr_dia_fused,
+                             cgs_dia_fused, cr_dia_fused, craig_dia_fused,
+                             craigmr_dia_fused, fom_dia_fused,
+                             gmres_dia_fused, lnlq_dia_fused,
                              lslq_dia_fused, lsmr_dia_fused, lsqr_dia_fused,
                              minares_dia_fused, minres_dia_fused,
                              minres_qlp_dia_fused, qmr_dia_fused,
@@ -56,7 +60,9 @@ from .solvers.bicgstab import bicgstab, cgs
 from .solvers.bilq import bilq, bilqr, qmr
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
+from .solvers.cgne import cgne, crmr
 from .solvers.cr import car, cr
+from .solvers.craig import craig, craigmr, lnlq
 from .solvers.fom import diom, dqgmres, fom
 from .solvers.gmres import fgmres, gmres
 from .solvers.lslq import lslq
@@ -68,7 +74,8 @@ from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
 from .solvers.usymlq import trilqr, usymlq, usymlqr, usymqr
 from .stats import (AdjointStats, LanczosShiftStats, LanczosStats,
-                    LSLQStats, LsmrStats, SimpleStats, SymmlqStats)
+                    LNLQStats, LSLQStats, LsmrStats, SimpleStats,
+                    SymmlqStats)
 
 # Generic interface + workspaces.
 from . import workspaces as _workspaces
@@ -108,7 +115,11 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "usymlqr_dia": usymlqr_dia_fused,
            "lsqr_dia": lsqr_dia_fused,
            "lsmr_dia": lsmr_dia_fused,
-           "lslq_dia": lslq_dia_fused}
+           "lslq_dia": lslq_dia_fused,
+           "craig_dia": craig_dia_fused,
+           "craigmr_dia": craigmr_dia_fused,
+           "lnlq_dia": lnlq_dia_fused,
+           "cgne_crmr_dia": cgne_crmr_dia_fused}
 
 
 def kernel_launches():

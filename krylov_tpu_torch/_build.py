@@ -36,7 +36,7 @@ _SPMV_PAIRS = _PAIRS + ("f64_f32", "bf16_bf16", "f16_f16", "c64_f32",
 # the kernels on the Saunders-Simon-Yip launches of csrc/ssy.cuh
 _SSY = ("usymlq", "usymqr", "trilqr", "usymlqr")
 # the kernels on the Golub-Kahan launches of csrc/gk.cuh
-_GK = ("lsqr", "lsmr", "lslq")
+_GK = ("lsqr", "lsmr", "lslq", "craig", "craigmr", "lnlq")
 # C entry points and their argument types; every pointer and the stream
 # is a c_void_p, so ctypes never cuts a 64-bit address to 32 bits.
 _SIGNATURES = {
@@ -160,8 +160,16 @@ _SIGNATURES = {
        + (_L, _I, _I, _I, _P) for k in _GK for t in _PAIRS},
     **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 4
        + (_L, _I, _I, _I, _I, _I, _P) for k in _GK for t in _PAIRS},
-    **{f"ktt_lslq_dia_finish_{t}": (_P,) * 3 + (_L, _I, _I, _P)
-       for t in ("f32", "f64")},
+    **{f"ktt_{k}_dia_finish_{t}": (_P,) * 3 + (_L, _I, _I, _P)
+       for k in ("lslq", "lnlq") for t in ("f32", "f64")},
+    # CGNE and CRMR (csrc/cgne_crmr_dia.cu): (pd_adj, offsets_adj, nd_adj,
+    # b, work, partial, sc, st, n, grid, variant, stream) and (pd, offsets,
+    # nd, pd_adj, offsets_adj, nd_adj, work, partial, sc, st, n, grid,
+    # variant, iters, cap, stream)
+    **{f"ktt_cgne_crmr_dia_init_{t}": (_P, _P, _I) + (_P,) * 5
+       + (_L, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_cgne_crmr_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I)
+       + (_P,) * 4 + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
 }
 
 

@@ -1,10 +1,12 @@
-// The Golub-Kahan launches shared by the LSQR, LSMR and LSLQ whole-solve
-// kernels (lsqr_dia.cu, lsmr_dia.cu, lslq_dia.cu) on Hopper (sm_90a),
-// with no grid-wide barrier.
+// The Golub-Kahan launches shared by the LSQR, LSMR, LSLQ, CRAIG, CRAIGMR
+// and LNLQ whole-solve kernels (lsqr_dia.cu, lsmr_dia.cu, lslq_dia.cu,
+// craig_dia.cu, craigmr_dia.cu, lnlq_dia.cu) on Hopper (sm_90a), with no
+// grid-wide barrier.
 //
 // What they compute is the Golub-Kahan step of the TPU kernels
 // krylov_tpu/ops/pallas_fused.py:1394 lsqr_dia_fused, :1641
-// lsmr_dia_fused and :6942 lslq_dia_fused (pallas_fused.py:1481-1503):
+// lsmr_dia_fused, :6942 lslq_dia_fused, :5922 craig_dia_fused, :6132
+// craigmr_dia_fused and :6345 lnlq_dia_fused (pallas_fused.py:1481-1503):
 //   u_hat = A v_k - alpha_k u_k,  beta_{k+1} = ||u_hat||,
 //   u_{k+1} = u_hat / beta_{k+1}               (u_hat where beta = 0),
 //   v_hat = A^H u_{k+1} - beta_{k+1} v_k      (v_k where beta = 0),
@@ -41,6 +43,20 @@
 // those it writes, so no block reads a scalar another block of the same
 // launch writes.  No launch writes a vector whose neighbours it reads:
 // launch 1 reads v's, launch 2 u's.
+//
+// Hooks (struct Hooks; LSQR, LSMR and LSLQ take its defaults, which add
+// nothing).  The least-norm methods update vectors that need u_k or v_k,
+// which launches 1 and 2 overwrite in place, so a method may add row
+// updates to those launches, with coefficients that thread 0 of every
+// block computes from the state (and, in launch 2, beta_{k+1}):
+//   av_row  (launch 1) sees u_k at its row before u_hat goes over it; its
+//           partials go to the auxiliary row launch 3 reads (CRAIG's
+//           ||w_{k+1}||^2);
+//   ahu_row (launch 2) sees v_k and u_{k+1} at its row before v_hat goes
+//           over v.
+// A method whose runs() is false for the state skips launches 1-3 and has
+// the commit set only its status (skip): CRAIG's alpha = 0 exit, which
+// counts no iteration.
 //
 // Layouts.  The scalar array holds the host's parameters (LAM .. UTOL),
 // then the state from ALPHA to the method's kNscState, then its staging
@@ -89,6 +105,17 @@ __device__ __forceinline__ T* row(T* work, int r, long long n) {
 
 template <typename T>
 __device__ __forceinline__ T sq(T v) { return v * v; }
+
+// The defaults of the hooks (see the top of this file).
+struct Hooks {
+  static constexpr bool kAvRows = false;
+  static constexpr bool kAhuRows = false;
+  template <typename T>
+  struct Pre {};
+  template <typename T>
+  __device__ static bool runs(const T*) { return true; }
+  __device__ static void skip(int*) {}
+};
 
 template <typename T> __device__ __forceinline__ T max_of();
 template <>
@@ -166,7 +193,8 @@ gk_init_ahu(const P* __restrict__ pda, const long long* __restrict__ offs_a,
 }
 
 // Init: v_1 = v_hat / alpha_1, x = 0 and the method's rows
-// (Method::init_row, whose partials go to the auxiliary row of parity 0);
+// (Method::init_row, given alpha_1 and the host's parameters, whose
+// partials go to the auxiliary row of parity 0);
 // block 0 zeroes the state, its staging copy and the error window and
 // sets the method's first state (Method::init_scalars).
 template <typename T, typename Method>
@@ -185,7 +213,7 @@ gk_init_vectors(T* __restrict__ work, T* __restrict__ partial, T* sc, int* st,
     const T vi = v[i] / sa;
     v[i] = vi;
     x[i] = T(0);
-    aux += Method::init_row(work, n, i, vi);
+    aux += Method::init_row(work, sc, n, i, vi, alpha, flag);
   }
   store_partial(aux, partial + PAUX * nparts);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -199,42 +227,63 @@ gk_init_vectors(T* __restrict__ work, T* __restrict__ partial, T* sc, int* st,
 
 // 1. Decide whether this iteration runs (GO, read by every later launch
 // of the iteration), then u_hat = A v_k - alpha_k u_k over u and the
-// partials of ||u_hat||^2.
-template <typename T, typename P>
+// partials of ||u_hat||^2; the method's av_row at each row.
+template <typename T, typename P, typename Method>
 __global__ void __launch_bounds__(kThreads)
 gk_av(const P* __restrict__ pd, const long long* __restrict__ offsets, int nd,
       T* __restrict__ work, T* __restrict__ partial, const T* sc, int* st,
-      long long n, int cap) {
+      long long n, int cap, int flag) {
   const bool go = st[STATUS] == RUNNING && st[IT] < cap;
   if (blockIdx.x == 0 && threadIdx.x == 0) st[GO] = go ? 1 : 0;
-  if (!go) return;
+  if (!go || !Method::runs(sc)) return;
+  __shared__ typename Method::template Pre<T> pre;
+  if constexpr (Method::kAvRows) {
+    if (threadIdx.x == 0) pre = Method::av_coef(sc, st, flag);
+    __syncthreads();
+  }
   const T alpha = sc[ALPHA];
   const T* v = row(work, V, n);
   T* u = row(work, U, n);
   T s = T(0);
+  T aux = T(0);
   for (long long i = first_row(); i < n; i += row_stride()) {
-    const T uh = stencil_row(pd, offsets, nd, v, i, n) - alpha * u[i];
+    const T ui = u[i];
+    const T uh = stencil_row(pd, offsets, nd, v, i, n) - alpha * ui;
+    if constexpr (Method::kAvRows) aux += Method::av_row(work, pre, n, i, ui);
     u[i] = uh;
     s += uh * uh;
   }
   store_partial(s, partial + PUU * gridDim.x);
+  if constexpr (Method::kAvRows) {
+    __syncthreads();
+    store_partial(aux, partial + (PAUX + st[IT] % 2) * gridDim.x);
+  }
 }
 
 // 2. beta_{k+1}; v_hat = A^H (u_hat / beta) - beta v_k over v (v_k where
-// beta = 0) and the partials of ||v_hat||^2.
-template <typename T, typename P>
+// beta = 0) and the partials of ||v_hat||^2; the method's ahu_row at each
+// row.
+template <typename T, typename P, typename Method>
 __global__ void __launch_bounds__(kThreads)
 gk_ahu(const P* __restrict__ pda, const long long* __restrict__ offs_a,
-       int nda, T* __restrict__ work, T* __restrict__ partial, const int* st,
-       long long n) {
-  if (!st[GO]) return;
+       int nda, T* __restrict__ work, T* __restrict__ partial, const T* sc,
+       const int* st, long long n, int flag) {
+  if (!st[GO] || !Method::runs(sc)) return;
   const int nparts = gridDim.x;
   const T beta = sqrt(all_sum(partial + PUU * nparts, nparts));
+  __shared__ typename Method::template Pre<T> pre;
+  if constexpr (Method::kAhuRows) {
+    if (threadIdx.x == 0) pre = Method::ahu_coef(sc, st, beta, flag);
+    __syncthreads();
+  }
   const T* u = row(work, U, n);
   T* v = row(work, V, n);
   T s = T(0);
   for (long long i = first_row(); i < n; i += row_stride()) {
     T vh = v[i];
+    if constexpr (Method::kAhuRows) {
+      Method::ahu_row(work, pre, n, i, vh, beta != T(0) ? u[i] / beta : u[i]);
+    }
     if (beta != T(0)) {
       vh = stencil_row_scaled(pda, offs_a, nda, u, beta, i, n) - beta * vh;
       v[i] = vh;
@@ -251,7 +300,7 @@ template <typename T, typename Method>
 __global__ void __launch_bounds__(kThreads)
 gk_update(T* __restrict__ work, T* __restrict__ partial, T* sc, int* st,
           long long n, int flag, int window) {
-  if (!st[GO]) return;
+  if (!st[GO] || !Method::runs(sc)) return;
   const int nparts = gridDim.x;
   const int it0 = st[IT];
   const T beta = sqrt(all_sum(partial + PUU * nparts, nparts));
@@ -285,12 +334,16 @@ gk_update(T* __restrict__ work, T* __restrict__ partial, T* sc, int* st,
 
 // 4. The method's tests on the sums of launch 3, the staging copy into
 // the state, the newest entry of the error window, and the iteration
-// count.
+// count; or, where the method skipped the iteration, its status alone.
 template <typename T, typename Method>
 __global__ void __launch_bounds__(kCommitThreads)
 gk_commit(T* sc, int* st, const T* __restrict__ partial, int nparts,
           int window) {
   if (!st[GO]) return;
+  if (!Method::runs(sc)) {
+    if (threadIdx.x == 0) Method::skip(st);
+    return;
+  }
   constexpr int kSc = Method::kNscState - ALPHA;
   constexpr int kSt = Method::kNstState - STATUS;
   const int it0 = st[IT];
@@ -335,13 +388,15 @@ __device__ __forceinline__ T window_norm(const T* sc, int window, int first,
 }
 
 // The init, per-iteration and finishing launch sequences; a method
-// supplies
-//   Method::init_row<T>(work, n, i, v1)                (gk_init_vectors)
+// derives from Hooks and supplies
+//   Method::init_row<T>(work, sc, n, i, v1, alpha1, flag) (gk_init_vectors)
 //   Method::init_scalars<T>(sc, st, alpha1, beta1, alpha1^2 as summed,
 //                           flag)                      (one thread)
 //   Method::step<T>(...), Method::update_row<T>(...)   (gk_update)
 //   Method::commit<T>(...)                              (gk_commit)
 //   Method::finishes<T>(sc, st, flag), finish_row<T>(...) (finish)
+//   and, where it sets kAvRows or kAhuRows, its Pre<T> and av_coef/av_row
+//   or ahu_coef/ahu_row (launches 1 and 2), and runs/skip
 // the number of its own work rows (kRows), the ends of its scalar and
 // int states (kNscState, kNstState), the state slot of the error
 // window's newest entry (kErrNew) and the ring slot it goes to
@@ -379,10 +434,11 @@ int iterate(const void* pd_, const void* offsets_, int nd, const void* pda_,
   T* sc = static_cast<T*>(sc_);
   int* st = static_cast<int*>(st_);
   for (int j = 0; j < iters; ++j) {
-    gk_av<T, P><<<grid, kThreads, 0, s>>>(pd, offs, nd, work, partial, sc,
-                                          st, n, cap);
-    gk_ahu<T, P><<<grid, kThreads, 0, s>>>(pda, offs_a, nda, work, partial,
-                                           st, n);
+    gk_av<T, P, Method><<<grid, kThreads, 0, s>>>(pd, offs, nd, work,
+                                                  partial, sc, st, n, cap,
+                                                  flag);
+    gk_ahu<T, P, Method><<<grid, kThreads, 0, s>>>(pda, offs_a, nda, work,
+                                                   partial, sc, st, n, flag);
     gk_update<T, Method><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n,
                                                    flag, window);
     gk_commit<T, Method><<<1, kCommitThreads, 0, s>>>(sc, st, partial, grid,
@@ -400,7 +456,7 @@ gk_finish(T* __restrict__ work, const T* sc, const int* st, long long n,
           int flag) {
   if (!Method::template finishes<T>(sc, st, flag)) return;
   for (long long i = first_row(); i < n; i += row_stride()) {
-    Method::template finish_row<T>(work, sc, n, i);
+    Method::template finish_row<T>(work, sc, n, i, flag);
   }
 }
 

@@ -43,7 +43,7 @@ enum IntSlot { CBND = ZR + 1, NST_STATE, NST = 2 * NST_STATE - STATUS };
 // the method's own rows of the vector workspace
 enum OwnRow { WBAR = NSHARED_ROWS, NROWS };
 
-struct Lslq {
+struct Lslq : Hooks {
   static constexpr int kRows = NROWS - NSHARED_ROWS;
   static constexpr int kNscState = NSC_STATE;
   static constexpr int kNstState = NST_STATE;
@@ -62,7 +62,8 @@ struct Lslq {
 
   // w_bar = v_1
   template <typename T>
-  __device__ static T init_row(T* work, long long n, long long i, T v1) {
+  __device__ static T init_row(T* work, const T*, long long n, long long i,
+                                T v1, T, int) {
     row(work, WBAR, n)[i] = v1;
     return T(0);
   }
@@ -236,7 +237,7 @@ struct Lslq {
   }
   template <typename T>
   __device__ static void finish_row(T* work, const T* sc, long long n,
-                                    long long i) {
+                                    long long i, int) {
     T* x = row(work, X, n);
     x[i] = x[i] + sc[ZETABAR] * row(work, WBAR, n)[i];
   }

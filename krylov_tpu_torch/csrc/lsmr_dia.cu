@@ -40,7 +40,7 @@ enum IntSlot { NST_STATE = ZR + 1, NST = 2 * NST_STATE - STATUS };
 // the method's own rows of the vector workspace
 enum OwnRow { H = NSHARED_ROWS, HBAR, NROWS };
 
-struct Lsmr {
+struct Lsmr : Hooks {
   static constexpr int kRows = NROWS - NSHARED_ROWS;
   static constexpr int kNscState = NSC_STATE;
   static constexpr int kNstState = NST_STATE;
@@ -59,7 +59,8 @@ struct Lsmr {
 
   // h_1 = v_1, h_bar = 0
   template <typename T>
-  __device__ static T init_row(T* work, long long n, long long i, T v1) {
+  __device__ static T init_row(T* work, const T*, long long n, long long i,
+                                T v1, T, int) {
     row(work, H, n)[i] = v1;
     row(work, HBAR, n)[i] = T(0);
     return T(0);

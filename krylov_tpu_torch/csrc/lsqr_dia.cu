@@ -37,7 +37,7 @@ enum IntSlot { NST_STATE = ZR + 1, NST = 2 * NST_STATE - STATUS };
 // the method's own rows of the vector workspace
 enum OwnRow { W = NSHARED_ROWS, NROWS };
 
-struct Lsqr {
+struct Lsqr : Hooks {
   static constexpr int kRows = NROWS - NSHARED_ROWS;
   static constexpr int kNscState = NSC_STATE;
   static constexpr int kNstState = NST_STATE;
@@ -56,7 +56,8 @@ struct Lsqr {
 
   // w_1 = v_1; the partials of ||w_1||^2
   template <typename T>
-  __device__ static T init_row(T* work, long long n, long long i, T v1) {
+  __device__ static T init_row(T* work, const T*, long long n, long long i,
+                                T v1, T, int) {
     row(work, W, n)[i] = v1;
     return v1 * v1;
   }

@@ -51,6 +51,12 @@ same chunked, masked semantics, so that niter is exact across chunks.
   LSMR and LSLQ for min ‖b − Ax‖ (+ λ) on the Golub–Kahan launches of
   ``csrc/gk.cuh`` (``csrc/lsqr_dia.cu``, ``csrc/lsmr_dia.cu``,
   ``csrc/lslq_dia.cu``).
+* ``craig_dia_fused``, ``craigmr_dia_fused`` and ``lnlq_dia_fused``:
+  CRAIG, CRAIGMR and LNLQ for min ‖x‖ subject to Ax = b (+ λ), on the
+  same launches with their row hooks (``csrc/craig_dia.cu``,
+  ``csrc/craigmr_dia.cu``, ``csrc/lnlq_dia.cu``).
+* ``cgne_crmr_dia_fused``: CGNE or CRMR for the same problem, CG or CR on
+  AAᴴ (``csrc/cgne_crmr_dia.cu``).
 """
 
 import math
@@ -90,6 +96,15 @@ UV_BREAKDOWN = 38
 # LSLQ's forward-error codes (krylov_tpu/solvers/lslq.py:22-28)
 FWD_LBND = 44
 FWD_UBND = 45
+# the least-norm family's codes (krylov_tpu/solvers/cgne.py:22-23,
+# craig.py:26-30)
+INCONS_CGNE = 32
+INCONS_CRMR = 33
+SOLVED_CRAIG = 39
+SOLVED_MN = 40
+INCONS_CRAIG = 41
+SOLVED_LNLQ_LQ = 42
+SOLVED_LNLQ_CG = 43
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -157,6 +172,15 @@ _LQ_RNORM, _LQ_ARNORM, _LQ_NSC, _LQ_NST = 22, 23, 41, 7
 # LSMR's rnorm, arnorm, acond, anorm and xnorm slots
 _LM_NORMS, _LM_NSC, _LM_NST = (29, 30, 31, 32, 33), 63, 7
 _LL_RNORM, _LL_ARNORM, _LL_CBND, _LL_NSC, _LL_NST = 29, 30, 4, 55, 9
+# CRAIG, CRAIGMR and LNLQ (csrc/gk.cuh, no error window): the work rows of
+# y (after u, v and x), and the rnorm (and CRAIGMR's arnorm) slots
+_LN_Y = 3
+_CRAIG_RNORM, _CRAIG_NSC, _CRAIG_NST = 18, 33, 7
+_CMR_RNORM, _CMR_ARNORM, _CMR_NSC, _CMR_NST = 16, 17, 31, 7
+_LNLQ_RNORM, _LNLQ_NSC, _LNLQ_NST = 19, 33, 9
+# CGNE and CRMR (csrc/cgne_crmr_dia.cu): the partial rows, the work rows
+# (x first), and the rnorm slot
+_NE_NPART, _NE_NROWS, _NE_RNORM, _NE_NSC, _NE_NST = 6, 6, 4, 9, 3
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -194,6 +218,10 @@ usymlqr_dia_fused_supported = cg_dia_fused_supported
 lsqr_dia_fused_supported = cg_dia_fused_supported
 lsmr_dia_fused_supported = cg_dia_fused_supported
 lslq_dia_fused_supported = cg_dia_fused_supported
+craig_dia_fused_supported = cg_dia_fused_supported
+craigmr_dia_fused_supported = cg_dia_fused_supported
+lnlq_dia_fused_supported = cg_dia_fused_supported
+cgne_crmr_dia_fused_supported = cg_dia_fused_supported
 # the rings live in device memory, so any mem ≥ 2 has a kernel
 trunc_dia_fused_supported = cg_dia_fused_supported
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
@@ -2549,6 +2577,323 @@ def lslq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, sigma, atol,
 
 
 # ---------------------------------------------------------------------------
+# CGNE and CRMR, CRAIG, CRAIGMR and LNLQ: the plain versions
+# ---------------------------------------------------------------------------
+
+def _check_variant(variant):
+    if variant not in ("cgne", "crmr"):
+        raise ValueError(f"variant must be 'cgne' or 'crmr', not {variant!r}")
+
+
+def cgne_crmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol,
+                            rtol, itmax, variant="cgne"):
+    """Plain PyTorch CGNE or CRMR of min ‖x‖ subject to Ax = b (+ λ)
+    (pallas_fused.py:3571-3666): CG or CR on AAᴴ, λ through s, and the
+    "probably inconsistent" exit.  s is left alone without λ, as in the
+    kernel, since no output reads it.
+
+    Returns (x, niter, rnorm, status) as tensors, as
+    ``cgne_crmr_dia_fused`` does."""
+    _check_variant(variant)
+    cgne = variant == "cgne"
+    lam_on = float(lam) > 0
+    one, zero = _scalar(1, b), _scalar(0, b)
+    lam, atol, rtol = (_scalar(v, b) for v in (lam, atol, rtol))
+    incons_code = INCONS_CGNE if cgne else INCONS_CRMR
+    rnorm0 = torch.sqrt(torch.sum(b * b))
+    p0 = dia_spmv_aligned_ref(pd_adj, offsets_adj, b)
+    if cgne:
+        gamma0 = rnorm0 * rnorm0
+        ind0 = torch.sqrt(torch.sum(p0 * p0))
+    else:
+        gamma0 = torch.sum(p0 * p0) + (lam * rnorm0 * rnorm0 if lam_on
+                                       else zero)
+        ind0 = torch.sqrt(gamma0)
+    eps_c = atol + rtol * rnorm0
+    eps_i = atol + rtol * ind0
+    status0 = torch.where(rnorm0 == 0, ZERO_RESIDUAL, torch.where(
+        rnorm0 <= eps_c, SOLVED, torch.where(
+            (rnorm0 > 100 * eps_c) & (ind0 <= eps_i), incons_code,
+            RUNNING))).to(torch.int32)
+    s0 = types.SimpleNamespace(x=torch.zeros_like(b), r=b, p=p0, s=b,
+                               gamma=gamma0, rnorm=rnorm0, iter=_i32(0, b),
+                               status=status0)
+
+    def step(s):
+        q = dia_spmv_aligned_ref(pd, offsets, s.p)
+        if lam_on:
+            q = q + lam * s.s
+        if cgne:
+            delta = torch.sum(s.p * s.p) + (lam * torch.sum(s.s * s.s)
+                                            if lam_on else zero)
+            alpha = s.gamma / _safe(delta, one)
+            x = s.x + alpha * s.p
+            r = s.r - alpha * q
+            gamma = torch.sum(r * r)
+            beta = gamma / _safe(s.gamma, one)
+            p = dia_spmv_aligned_ref(pd_adj, offsets_adj, r) + beta * s.p
+            ind = torch.sqrt(torch.sum(p * p))
+            rnorm = torch.sqrt(torch.clamp(gamma, min=0))
+        else:
+            alpha = s.gamma / _safe(torch.sum(q * q), one)
+            x = s.x + alpha * s.p
+            r = s.r - alpha * q
+            rnorm = torch.sqrt(torch.sum(r * r))
+            t = dia_spmv_aligned_ref(pd_adj, offsets_adj, r)
+            gamma = torch.sum(t * t) + (lam * rnorm * rnorm if lam_on
+                                        else zero)
+            beta = gamma / _safe(s.gamma, one)
+            p = t + beta * s.p
+            ind = torch.sqrt(torch.clamp(gamma, min=0))
+        solved = (rnorm <= eps_c) | ((rnorm + 1.0) <= 1.0)
+        incons = (rnorm > 100 * eps_c) & (ind <= eps_i)
+        code = torch.where(solved, SOLVED, torch.where(incons, incons_code,
+                                                       RUNNING))
+        return dict(x=x, r=r, p=p, s=r + beta * s.s if lam_on else s.s,
+                    gamma=gamma, rnorm=rnorm, iter=s.iter + 1,
+                    status=code.to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.status
+
+
+def craig_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                        btol, conlim, itmax, use_lam=False):
+    """Plain PyTorch CRAIG of min ‖x‖ subject to Ax = b (+ λ)
+    (pallas_fused.py:5922-6077), in the TPU kernel's order: v from Aᴴu,
+    the updates, u from Av and the tests on the new β; the λ two-rotation
+    scheme, and the α = 0 exit, which counts no iteration and changes
+    nothing but the status.
+
+    Returns (x, y, niter, rnorm, status) as tensors, as
+    ``craig_dia_fused`` does."""
+    tiny = torch.finfo(b.dtype).tiny
+    one, zero = _scalar(1, b), _scalar(0, b)
+    lam, atol, rtol, btol = (_scalar(v, b) for v in (lam, atol, rtol, btol))
+    ctol = _ctol(conlim, b)
+    beta1 = torch.sqrt(torch.sum(b * b))
+    eps_c = atol + rtol * beta1
+    z = torch.zeros_like(b)
+    s0 = types.SimpleNamespace(
+        x=z, y=z, u=b / _safe(beta1, one), v=z, w=z, w2=z, iter=_i32(0, b),
+        beta=beta1, theta=beta1, xi=-one, delta=lam, rho_prev=one,
+        anorm2=zero, dnorm2=zero, xnorm2=zero, rnorm=beta1,
+        status=torch.where(beta1 == 0, ZERO_RESIDUAL, RUNNING).to(
+            torch.int32))
+
+    def step(s):
+        nv = dia_spmv_aligned_ref(pd_adj, offsets_adj, s.u) - s.beta * s.v
+        alpha = torch.sqrt(torch.sum(nv * nv))
+        incons = alpha == 0
+        v = torch.where(incons, nv, nv / _safe(alpha, one))
+        anorm2 = s.anorm2 + alpha * alpha + lam * lam
+        if use_lam:
+            c1, s1, rho = sym_givens(alpha, s.delta)
+        else:
+            c1, s1, rho = one, zero, alpha
+        xi = -s.theta / _safe(rho, one) * s.xi
+        if use_lam:
+            x = s.x + (xi * c1) * v + (xi * s1) * s.w2
+            w2 = s1 * v - c1 * s.w2
+        else:
+            x = s.x + xi * v
+            w2 = s.w2
+        w = s.u - (s.theta / s.rho_prev) * s.w
+        y = s.y + (xi / rho) * w
+        dnorm2 = s.dnorm2 + torch.sqrt(torch.sum(w * w))
+        mu = dia_spmv_aligned_ref(pd, offsets, v) - alpha * s.u
+        beta = torch.sqrt(torch.sum(mu * mu))
+        u = torch.where(beta != 0, mu / _safe(beta, one), mu)
+        if use_lam:
+            theta = beta * c1
+            _, s2, delta = sym_givens(lam, beta * s1)
+            w2 = s2 * w2
+        else:
+            theta, delta = beta, s.delta
+        anorm2 = anorm2 + beta * beta
+        anorm = torch.sqrt(anorm2)
+        acond = anorm * torch.sqrt(dnorm2)
+        xnorm2 = s.xnorm2 + xi * xi
+        xnorm = torch.sqrt(xnorm2)
+        rnorm = beta * torch.abs(xi)
+        if use_lam:
+            rnorm = rnorm * torch.abs(c1)
+        bkwerr = rnorm / torch.sqrt(beta1 * beta1 + anorm2 * xnorm2 + tiny)
+        solved = (((1.0 + bkwerr) <= 1.0) | (bkwerr <= btol)
+                  | (rnorm <= eps_c)
+                  | (rnorm <= btol + atol * anorm * xnorm / _safe(beta1,
+                                                                   one)))
+        inv_acond = 1.0 / torch.clamp(acond, min=tiny)
+        code = torch.zeros_like(s.iter)
+        for cond, k in ((solved, SOLVED_CRAIG),
+                        ((1.0 + inv_acond) <= 1.0, ILL_COND_MACH),
+                        (inv_acond <= ctol, COND_EXCEEDED),
+                        (incons, INCONS_CRAIG)):
+            code = torch.where(cond, k, code).to(torch.int32)
+        new = dict(x=x, y=y, u=u, w=w, w2=w2, iter=s.iter + 1, beta=beta,
+                   theta=theta, xi=xi, delta=delta, rho_prev=rho,
+                   anorm2=anorm2, dnorm2=dnorm2, xnorm2=xnorm2, rnorm=rnorm)
+        # on the inconsistency exit the iteration's updates never happened
+        new = {k: torch.where(incons, getattr(s, k), val)
+               for k, val in new.items()}
+        return dict(new, v=v, status=code)
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.y, s.iter, s.rnorm, s.status
+
+
+def _ln_start_ref(pd_adj, offsets_adj, b, lam, use_lam, one):
+    """The Golub–Kahan start of CRAIGMR and LNLQ and the rotation of
+    (α₁, λ): β₁, u₁, α₁, v₁, cp, sp, α̂ and q = sp·v₁ (0 without λ)
+    (pallas_fused.py:6172-6193, 6386-6407)."""
+    beta1, u, _, alpha, v = _gk_start_ref(pd_adj, offsets_adj, b, one)
+    if use_lam:
+        cp, sp, alphahat = sym_givens(alpha, lam)
+        q = sp * v
+    else:
+        cp, sp, alphahat, q = one, one, alpha, torch.zeros_like(b)
+    return beta1, u, alpha, v, cp, sp, alphahat, q
+
+
+def craigmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol,
+                          rtol, itmax, use_lam=False):
+    """Plain PyTorch CRAIGMR of min ‖x‖ subject to Ax = b (+ λ)
+    (pallas_fused.py:6132-6283): Golub–Kahan, the QR of the lower
+    bidiagonal, the λ registers with the first iteration's d, and the
+    (‖r‖, ‖Aᴴr‖) stops.
+
+    Returns (x, y, niter, rnorm, arnorm, status) as tensors, as
+    ``craigmr_dia_fused`` does."""
+    one, zero = _scalar(1, b), _scalar(0, b)
+    lam, atol, rtol = (_scalar(v, b) for v in (lam, atol, rtol))
+    beta1, u, alpha0, v, cp, sp, alphahat, q = _ln_start_ref(
+        pd_adj, offsets_adj, b, lam, use_lam, one)
+    eps_c = atol + rtol * beta1
+    eps_i = atol + rtol * alpha0
+    z = torch.zeros_like(b)
+    s0 = types.SimpleNamespace(
+        x=z, y=z, u=u, v=v, w=z, wbar=u / _safe(alphahat, one), d=z, q=q,
+        iter=_i32(0, b), alpha=alpha0, zetabar=beta1, rhobar=alphahat,
+        theta=zero, cp=cp, sp=sp, lam_k=lam, rnorm=beta1, arnorm=alpha0,
+        status=torch.where(beta1 == 0, ZERO_RESIDUAL, torch.where(
+            alpha0 == 0, MIN_LSQ_X, RUNNING)).to(torch.int32))
+
+    def step(s):
+        u, v, alpha, beta, _ = _gk_ref(pd, offsets, pd_adj, offsets_adj, s,
+                                       one)
+        betahat = s.cp * beta if use_lam else beta
+        c, sg, rho = sym_givens(s.rhobar, betahat)
+        zeta = c * s.zetabar
+        zetabar = sg * s.zetabar
+        rnorm = torch.abs(zetabar)
+        sr = _safe(rho, one)
+        w = s.wbar / sr - (s.theta / sr) * s.w
+        if use_lam:
+            first = s.iter == 0
+            d = torch.where(first, (s.cp / sr) * s.v,
+                            (s.cp / sr) * s.v - (s.theta / sr) * s.d
+                            + (s.sp / sr) * s.q)
+            q = torch.where(first, s.q, s.sp * s.v - s.cp * s.q)
+            _, sd, lam_next = sym_givens(s.lam_k, s.sp * beta)
+            q = sd * q
+            cp, sp, alphahat = sym_givens(alpha, lam_next)
+        else:
+            d = s.v / sr - (s.theta / sr) * s.d
+            q, cp, sp, lam_next, alphahat = s.q, s.cp, s.sp, s.lam_k, alpha
+        arnorm = alpha * beta * torch.abs(zeta / sr)
+        wbar = torch.where(alpha != 0,
+                           (u - betahat * s.wbar) / _safe(alphahat, one),
+                           s.wbar)
+        code = torch.where(rnorm <= eps_c, SOLVED_MN, torch.where(
+            (rnorm > 100 * eps_c) & (arnorm <= eps_i), SOLVED_LSQ, RUNNING))
+        return dict(x=s.x + zeta * d, y=s.y + zeta * w, u=u, v=v, w=w,
+                    wbar=wbar, d=d, q=q, iter=s.iter + 1, alpha=alpha,
+                    zetabar=zetabar, rhobar=-c * alphahat,
+                    theta=sg * alphahat, cp=cp, sp=sp, lam_k=lam_next,
+                    rnorm=rnorm, arnorm=arnorm, status=code.to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    return s.x, s.y, s.iter, s.rnorm, s.arnorm, s.status
+
+
+def lnlq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                       itmax, use_lam=False, transfer_to_craig=True):
+    """Plain PyTorch LNLQ of min ‖x‖ subject to Ax = b (+ λ)
+    (pallas_fused.py:6345-6511): Golub–Kahan, the LQ recurrences, the λ
+    registers, and the move to the CRAIG point after the loop where the
+    stop was the CG branch and ζ̄ > eps (signed).
+
+    Returns (x, y, niter, rnorm, status) as tensors, as
+    ``lnlq_dia_fused`` does."""
+    eps = torch.finfo(b.dtype).eps
+    one, zero = _scalar(1, b), _scalar(0, b)
+    lam, atol, rtol = (_scalar(v, b) for v in (lam, atol, rtol))
+    beta1, u, alpha0, v, cp, sp, alphahat, q = _ln_start_ref(
+        pd_adj, offsets_adj, b, lam, use_lam, one)
+    tau = beta1 / _safe(alphahat, one)
+    eps_lim = atol + rtol * beta1
+    z = torch.zeros_like(b)
+    s0 = types.SimpleNamespace(
+        x=z, y=z, u=u, v=v, wbar=u, q=q, iter=_i32(0, b), alpha=alpha0,
+        alphahat=alphahat, s_k=zero, zeta_km1=zero,
+        zetabar=tau / _safe(alphahat, one), theta=tau, epsbar=alphahat,
+        tau=tau, cp=cp, sp=sp, rnorm=beta1, cgflag=_i32(0, b),
+        status=torch.where(beta1 == 0, ZERO_RESIDUAL, RUNNING).to(
+            torch.int32))
+
+    def step(s):
+        if use_lam:
+            second = s.iter >= 1
+            x = s.x + (s.tau * s.cp) * s.v + torch.where(
+                second, s.tau * s.sp, zero) * s.q
+            q = torch.where(second, s.sp * s.v - s.cp * s.q, s.q)
+        else:
+            x = s.x + s.tau * s.v
+            q = s.q
+        u, v, alpha, beta, _ = _gk_ref(pd, offsets, pd_adj, offsets_adj, s,
+                                       one)
+        if use_lam:
+            betahat = s.cp * beta
+            _, sd, lam_next = sym_givens(lam, s.sp * beta)
+            q = sd * q
+            cp, sp, alphahat = sym_givens(alpha, lam_next)
+        else:
+            betahat, cp, sp, alphahat = beta, s.cp, s.sp, alpha
+        tau = -betahat * s.tau / _safe(alphahat, one)
+        c, sk, eps_k = sym_givens(s.epsbar, betahat)
+        eta = alphahat * sk
+        epsbar = -alphahat * c
+        zeta = s.theta / _safe(eps_k, one)
+        theta = tau - eta * zeta
+        rnorm = torch.where(
+            s.iter == 0, s.rnorm, torch.abs(s.alphahat) * torch.sqrt(
+                (s.epsbar * s.zetabar) ** 2
+                + (betahat * s.s_k * s.zeta_km1) ** 2))
+        solved_lq = rnorm <= eps_lim
+        cg_stop = torch.zeros_like(solved_lq)
+        if transfer_to_craig:
+            cg_stop = ((torch.abs(s.zetabar) > eps)
+                       & (torch.abs(betahat * s.tau) <= eps_lim) & ~solved_lq)
+        code = torch.where(solved_lq, SOLVED_LNLQ_LQ, torch.where(
+            cg_stop, SOLVED_LNLQ_CG, RUNNING))
+        return dict(x=x, y=s.y + (zeta * c) * s.wbar + (zeta * sk) * u,
+                    u=u, v=v, wbar=sk * s.wbar - c * u, q=q,
+                    iter=s.iter + 1, alpha=alpha, alphahat=alphahat,
+                    s_k=sk, zeta_km1=zeta, zetabar=theta / _safe(epsbar, one),
+                    theta=theta, epsbar=epsbar, tau=tau, cp=cp, sp=sp,
+                    rnorm=rnorm, cgflag=cg_stop.to(torch.int32),
+                    status=code.to(torch.int32))
+
+    s = _drive_ref(s0, step, itmax)
+    transfer = (s.cgflag == 1) & (s.zetabar > eps)
+    xt = (s.x + (s.tau * s.cp) * s.v + (s.tau * s.sp) * s.q if use_lam
+          else s.x + s.tau * s.v)
+    return (torch.where(transfer, xt, s.x),
+            torch.where(transfer, s.y + s.zetabar * s.wbar, s.y), s.iter,
+            s.rnorm, s.status)
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -3370,11 +3715,11 @@ usymlqr_dia_fused.launches = 0
 
 def _gk_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, params,
               itmax, nrows, nsc, nst, flag, window, finish=False):
-    """The buffers and launches shared by the LSQR, LSMR and LSLQ kernels
-    (``csrc/gk.cuh``): the work rows (u, v, x, then the method's own
-    vectors), the block partials, the scalars (the host's parameters, the
-    state and its staging copy, the error window) and the ints with
-    their staging copy.  Returns (work, sc, st)."""
+    """The buffers and launches shared by the LSQR, LSMR, LSLQ, CRAIG,
+    CRAIGMR and LNLQ kernels (``csrc/gk.cuh``): the work rows (u, v, x,
+    then the method's own vectors), the block partials, the scalars (the
+    host's parameters, the state and its staging copy, the error window)
+    and the ints with their staging copy.  Returns (work, sc, st)."""
     _check_window(window)
     pair = _pair(kind.upper(), b, pd)
     _check_spmv(pd_adj, offsets_adj, b)
@@ -3475,3 +3820,109 @@ def lslq_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, sigma, atol,
 
 
 lslq_dia_fused.launches = 0
+
+
+def craig_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                    btol, conlim, itmax, use_lam=False):
+    """Full CRAIG solve of min ‖x‖ subject to Ax = b (+ λ) for a DIA
+    matrix (x = Aᴴy).
+
+    ``pd_adj`` and ``offsets_adj`` are Aᴴ's aligned diagonals and offsets
+    (``DIAOperator.aligned_adjoint``); ``use_lam`` turns on the λ
+    rotations.  Returns (x, y, niter, rnorm, status_code) as tensors on
+    b's device; the codes are 2, 11, 23, 39 (solved) and 41 (α = 0, the
+    system may be inconsistent).
+    """
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return craig_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                   atol, rtol, btol, conlim, itmax, use_lam)
+    # no error window: a ring of one slot, which nothing reads
+    work, sc, st = _gk_fused(craig_dia_fused, "craig", pd, pd_adj, offsets,
+                             offsets_adj, b, (lam, 0.0, btol, atol, rtol,
+                                              0.0, conlim), itmax, 6,
+                             _CRAIG_NSC, _CRAIG_NST, int(bool(use_lam)), 1)
+    return (work[_GK_X].clone(), work[_LN_Y].clone(), st[_IT],
+            sc[_CRAIG_RNORM], st[_STATUS])
+
+
+craig_dia_fused.launches = 0
+
+
+def craigmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                      itmax, use_lam=False):
+    """Full CRAIGMR solve of min ‖x‖ subject to Ax = b (+ λ) for a DIA
+    matrix.  Returns (x, y, niter, rnorm, arnorm, status_code) as tensors
+    on b's device; the codes are 2, 20 (‖Aᴴr‖ small: inconsistent), 24
+    and 40 (solved)."""
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return craigmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b,
+                                     lam, atol, rtol, itmax, use_lam)
+    work, sc, st = _gk_fused(craigmr_dia_fused, "craigmr", pd, pd_adj,
+                             offsets, offsets_adj, b, (lam, 0.0, 0.0, atol,
+                                                       rtol), itmax, 8,
+                             _CMR_NSC, _CMR_NST, int(bool(use_lam)), 1)
+    return (work[_GK_X].clone(), work[_LN_Y].clone(), st[_IT],
+            sc[_CMR_RNORM], sc[_CMR_ARNORM], st[_STATUS])
+
+
+craigmr_dia_fused.launches = 0
+
+
+def lnlq_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                   itmax, use_lam=False, transfer_to_craig=True):
+    """Full LNLQ solve of min ‖x‖ subject to Ax = b (+ λ) for a DIA
+    matrix.  ``transfer_to_craig`` allows the CG-point stop and moves x
+    and y to the CRAIG point after it (one finishing launch).  Returns
+    (x, y, niter, rnorm, status_code) as tensors on b's device; the codes
+    are 2, 42 (the LQ point) and 43 (the CRAIG point)."""
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return lnlq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                  atol, rtol, itmax, use_lam,
+                                  transfer_to_craig)
+    flag = int(bool(use_lam)) | 2 * int(bool(transfer_to_craig))
+    work, sc, st = _gk_fused(lnlq_dia_fused, "lnlq", pd, pd_adj, offsets,
+                             offsets_adj, b, (lam, 0.0, 0.0, atol, rtol),
+                             itmax, 6, _LNLQ_NSC, _LNLQ_NST, flag, 1,
+                             finish=bool(transfer_to_craig))
+    return (work[_GK_X].clone(), work[_LN_Y].clone(), st[_IT],
+            sc[_LNLQ_RNORM], st[_STATUS])
+
+
+lnlq_dia_fused.launches = 0
+
+
+def cgne_crmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol,
+                        rtol, itmax, variant="cgne"):
+    """Full CGNE or CRMR (``variant``) solve of min ‖x‖ subject to Ax = b
+    (+ λ) for a DIA matrix.  Returns (x, niter, rnorm, status_code) as
+    tensors on b's device; the codes are 1, 2 and 32 (CGNE) or 33 (CRMR),
+    "probably inconsistent"."""
+    _check(pd, offsets, b, None)
+    _check_variant(variant)
+    if b.device.type == "cpu":
+        return cgne_crmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b,
+                                       lam, atol, rtol, itmax, variant)
+    pair = _pair("CGNE/CRMR", b, pd)
+    _check_spmv(pd_adj, offsets_adj, b)
+    if pd_adj.dtype != pd.dtype:
+        raise ValueError("pd_adj must have pd's dtype")
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_NE_NSC, b, {0: lam, 1: atol, 2: rtol})
+    # the init launches write every row and every state slot
+    work = torch.empty((_NE_NROWS, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((_NE_NPART, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(_NE_NST, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, int(variant == "cgne"))
+    adj = (pd_adj.data_ptr(), offsets_adj.data_ptr(), pd_adj.shape[0])
+    _run(cgne_crmr_dia_fused, b, f"ktt_cgne_crmr_dia_init_{pair}",
+         adj + (b.data_ptr(),) + bufs, f"ktt_cgne_crmr_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + adj + bufs, st,
+         itmax)
+    return work[0].clone(), st[_IT], sc[_NE_RNORM], st[_STATUS]
+
+
+cgne_crmr_dia_fused.launches = 0

@@ -3,8 +3,9 @@
 A copy of the part of ``krylov_tpu/stats.py`` that the ported solvers
 use (numpy only; the port imports nothing of the JAX package): the
 shared status vocabulary, ``KrylovStatsBase``, ``SimpleStats``,
-``LanczosStats``, ``LanczosShiftStats``, ``SymmlqStats`` and
-``AdjointStats``, with the same fields and ``repr`` (reference:
+``LanczosStats``, ``LanczosShiftStats``, ``SymmlqStats``,
+``AdjointStats``, ``LNLQStats``, ``LsmrStats`` and ``LSLQStats``, with the
+same fields and ``repr`` (reference:
 src/krylov_stats.jl).
 """
 
@@ -111,6 +112,16 @@ class AdjointStats(KrylovStatsBase):
     @property
     def solved(self):
         return self.solved_primal and self.solved_dual
+
+
+@dataclass
+class LNLQStats(KrylovStatsBase):
+    """reference: src/krylov_stats.jl:305-315."""
+    solved: bool = False
+    residuals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    error_with_bnd: bool = False
+    error_bnd_x: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    error_bnd_y: np.ndarray = field(default_factory=lambda: np.zeros(0))
 
 
 @dataclass

@@ -22,7 +22,9 @@ from .solvers import bicgstab as _bicgstab
 from .solvers import bilq as _bilq
 from .solvers import cg as _cg
 from .solvers import cg_lanczos as _cg_lanczos
+from .solvers import cgne as _cgne
 from .solvers import cr as _cr
+from .solvers import craig as _craig
 from .solvers import fom as _fom
 from .solvers import gmres as _gmres
 from .solvers import lslq as _lslq
@@ -110,12 +112,16 @@ _PORTED = {
     "lsqr": (_lsqr._lsqr_solve, _lsqr.lsqr),
     "lsmr": (_lsmr._lsmr_solve, _lsmr.lsmr),
     "lslq": (_lslq._lslq_solve, _lslq.lslq),
+    "cgne": (_cgne._cgne_solve, _cgne.cgne),
+    "crmr": (_cgne._crmr_solve, _cgne.crmr),
+    "craig": (_craig._craig_solve, _craig.craig),
+    "craigmr": (_craig._craigmr_solve, _craig.craigmr),
+    "lnlq": (_craig._lnlq_solve, _craig.lnlq),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
 _QUEUE_ITEM = {
-    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift", "cgne", "crmr",
-                     "craig", "craigmr", "lnlq"), 5),
+    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift"), 5),
     **dict.fromkeys(("tricg", "trimr", "gpmr"), 6),
     **dict.fromkeys(("block_minres", "block_gmres"), 7),
 }

@@ -25,11 +25,11 @@ from krylov_tpu_torch import workspaces as tws
 PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
           "minres", "minres_qlp", "minares", "gmres", "fgmres", "fom",
           "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr",
-          "usymlq", "usymqr", "trilqr", "usymlqr", "lsqr", "lsmr", "lslq")
+          "usymlq", "usymqr", "trilqr", "usymlqr", "lsqr", "lsmr", "lslq",
+          "cgne", "crmr", "craig", "craigmr", "lnlq")
 # the ROADMAP.md Queue 1 item that ports each other method
 QUEUE_ITEM = {
-    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift", "cgne", "crmr",
-                     "craig", "craigmr", "lnlq"), 5),
+    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift"), 5),
     **dict.fromkeys(("tricg", "trimr", "gpmr"), 6),
     **dict.fromkeys(("block_minres", "block_gmres"), 7),
 }
@@ -66,6 +66,12 @@ BUDGETS = {
     "lsqr": lambda n: 4 * n + 3 * n,
     "lsmr": lambda n: 5 * n + 3 * n,
     "lslq": lambda n: 4 * n + 3 * n,
+    # tests/test_storage.py:68-72 with m = n
+    "cgne": lambda n: 3 * n + 2 * n,
+    "crmr": lambda n: 3 * n + 2 * n,
+    "lnlq": lambda n: 4 * n + 4 * n,
+    "craig": lambda n: 4 * n + 4 * n,
+    "craigmr": lambda n: 5 * n + 5 * n,
 }
 # the memory the ring methods' budgets are for (tests/test_storage.py:91-97)
 EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres"),
@@ -219,7 +225,7 @@ def test_warm_start_refused_and_double_word_through_the_workspace():
 @pytest.mark.parametrize("method", ["cg_lanczos", "cg_lanczos_shift",
                                     "symmlq", "minres_qlp", "bilqr",
                                     "usymqr", "trilqr", "usymlqr", "lsmr",
-                                    "lslq"])
+                                    "lslq", "lnlq"])
 def test_show_stats_matches_jax(method):
     """The port's stats classes render as the JAX package's do, field for
     field, given the same values."""

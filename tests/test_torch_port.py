@@ -370,7 +370,9 @@ def test_kernel_launches_and_exports():
                         "gmres_dia", "fom_dia", "bicgstab_dia", "cgs_dia",
                         "trunc_dia", "bilq_dia", "qmr_dia", "bilqr_dia",
                         "usymlq_dia", "usymqr_dia", "trilqr_dia",
-                        "usymlqr_dia", "lsqr_dia", "lsmr_dia", "lslq_dia"}
+                        "usymlqr_dia", "lsqr_dia", "lsmr_dia", "lslq_dia",
+                        "craig_dia", "craigmr_dia", "lnlq_dia",
+                        "cgne_crmr_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -380,13 +382,15 @@ def test_kernel_launches_and_exports():
                  "bicgstab_dia", "cgs_dia", "trunc_dia", "bilq_dia",
                  "qmr_dia", "bilqr_dia", "usymlq_dia", "usymqr_dia",
                  "trilqr_dia", "usymlqr_dia", "lsqr_dia", "lsmr_dia",
-                 "lslq_dia"):
+                 "lslq_dia", "craig_dia", "craigmr_dia", "lnlq_dia",
+                 "cgne_crmr_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
                  "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
                  "dqgmres", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
-                 "trilqr", "usymlqr", "lsqr", "lsmr", "lslq",
+                 "trilqr", "usymlqr", "lsqr", "lsmr", "lslq", "craig",
+                 "craigmr", "lnlq", "cgne", "crmr", "LNLQStats",
                  "AdjointStats", "LsmrStats", "LSLQStats", "kdot", "kdotr",
                  "kdotr2", "knorm", "roots_quadratic", "to_boundary",
                  "CgWorkspace", "UsymlqrWorkspace", "__version__",
@@ -1148,3 +1152,105 @@ def test_gk_solvers_on_card_take_their_kernels():
             assert x.is_cuda and x.dtype == torch.float32
             assert st.solved
             assert kt.kernel_launches()[kernel] > n0
+
+
+# the least-norm kernels' cases: (kernel, λ, keyword arguments)
+LN_CASES = {"craig": ("craig", 0.0, {}),
+            "craig_lam": ("craig", 0.3, {"use_lam": True}),
+            "craigmr": ("craigmr", 0.0, {}),
+            "craigmr_lam": ("craigmr", 0.3, {"use_lam": True}),
+            "lnlq": ("lnlq", 0.0, {}),
+            "lnlq_lam": ("lnlq", 0.3, {"use_lam": True}),
+            "lnlq_no_transfer": ("lnlq", 0.0, {"transfer_to_craig": False}),
+            "cgne": ("cgne_crmr", 0.0, {"variant": "cgne"}),
+            "cgne_lam": ("cgne_crmr", 0.3, {"variant": "cgne"}),
+            "crmr": ("cgne_crmr", 0.0, {"variant": "crmr"}),
+            "crmr_lam": ("cgne_crmr", 0.3, {"variant": "crmr"})}
+
+
+def ln_args(name, lam, dtype, n):
+    """The arguments after (pd, pd_adj, offsets, offsets_adj, b) of a
+    least-norm kernel at the entry points' defaults: √eps for atol, rtol
+    (and CRAIG's btol), conlim 1e8, itmax m + n."""
+    tol = float(np.sqrt(np.finfo(np.float32 if dtype == torch.float32
+                                 else np.float64).eps))
+    if name == "craig":
+        return (lam, tol, tol, tol, 1e8, 2 * n)
+    return (lam, tol, tol, 2 * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype", [(64, torch.float64),
+                                     (128, torch.float32)],
+                         ids=["64-f64", "128-f32"])
+@pytest.mark.parametrize("rhs", ["b", "zero_b"])
+@pytest.mark.parametrize("case", sorted(LN_CASES))
+def test_ln_kernels_match_plain_on_card(case, rhs, N, dtype):
+    """The CRAIG, CRAIGMR, LNLQ and CGNE/CRMR kernels against their plain
+    versions on the convection-diffusion stencil with 0.5 on its main
+    diagonal, at 64^3 f64 and 128^3 f32, with λ = 0.3, LNLQ without the
+    transfer, and b = 0: the same status (and every int output), niter
+    within ±max(2, 10%); in f64 x (and y) within 1e-6 of max(|x|, |b|)
+    (Golub–Kahan and CG on AAᴴ run without reorthogonalisation, and
+    their f64 iterates follow the order of the sums: tests/test_torch_ln.py
+    says how far); in f32 the true residual ‖b − Ax‖ (f64, the plain SpMV)
+    no worse than 1.5 times the plain version's, as chip_smoke.py holds
+    them."""
+    _card()
+    pd, pda, ot, ota, b, _ = _shifted_card(N, dtype)
+    if rhs == "zero_b":
+        b = torch.zeros_like(b)
+    name, lam, kw = LN_CASES[case]
+    args = ln_args(name, lam, dtype, b.shape[0])
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    before = wrapper.launches
+    k = wrapper(pd, pda, ot, ota, b, *args, **kw)
+    assert wrapper.launches > before
+    r = ref(pd, pda, ot, ota, b, *args, **kw)
+    nvec = 1 if name == "cgne_crmr" else 2
+    kints = [int(v) for v in k[nvec:] if v.dtype == torch.int32]
+    rints = [int(v) for v in r[nvec:] if v.dtype == torch.int32]
+    assert kints[1:] == rints[1:]
+    assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+    if rhs == "zero_b":
+        assert kints == [0, rt.ZERO_RESIDUAL]
+        assert not any(bool(v.any()) for v in k[:nvec])
+        return
+    if dtype == torch.float64:
+        for v, w in zip(k[:nvec], r[:nvec]):
+            scale = max(float(w.abs().max()), float(b.abs().max()))
+            assert float((v - w).abs().max()) <= 1e-6 * scale
+        return
+
+    def true_res(x):
+        res = b.double() - dia_spmv_aligned_ref(pd.double(), ot, x.double())
+        return float(res.norm() / b.double().norm())
+
+    assert true_res(k[0]) <= 1.5 * true_res(r[0])
+
+
+@pytest.mark.cuda
+def test_ln_solvers_on_card_take_their_kernels():
+    """craig, craigmr, lnlq, cgne and crmr on a card operator run their
+    kernels; with history they take the general route through the SpMV
+    kernel and its adjoint; LNLQ's kernel route returns SimpleStats and
+    its general route LNLQStats, as the JAX package's do."""
+    _card()
+    A = kt.convdiff_dia(16)
+    A.data[A.offsets.index(0)] += 0.5
+    A = kt.DIAOperator(A)
+    b = np.random.default_rng(21).standard_normal(16 ** 3).astype(
+        np.float32)
+    kernels = {"craig": "craig_dia", "craigmr": "craigmr_dia",
+               "lnlq": "lnlq_dia", "cgne": "cgne_crmr_dia",
+               "crmr": "cgne_crmr_dia"}
+    for method, kernel in kernels.items():
+        for kw, used in (({}, kernel), ({"history": True}, "dia_spmv")):
+            n0 = kt.kernel_launches()[used]
+            *xs, st = getattr(kt, method)(A, b, **kw)
+            assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
+            assert st.solved
+            assert kt.kernel_launches()[used] > n0
+            if method == "lnlq":
+                assert type(st) is (kt.LNLQStats if kw else kt.SimpleStats)
