@@ -15,7 +15,10 @@ and A^H y = c, in float64), and the same stencil with 0.5 on its main
 diagonal through ``usymlq``, ``usymqr``, ``trilqr`` and ``usymlqr`` (the
 saddle point [I A; A^H 0]) and, in float32 and float64, the least-squares
 solvers ``lsqr``, ``lsmr`` and ``lslq`` and the least-norm solvers
-``craig``, ``craigmr``, ``lnlq``, ``cgne`` and ``crmr``, each by its
+``craig``, ``craigmr``, ``lnlq``, ``cgne`` and ``crmr``, and on the
+unshifted stencils the normal-equation solvers ``cgls``, ``crls`` and
+``cgls_lanczos_shift`` (convection-diffusion, lambda = 0.1) and
+``tricg`` (Poisson), each by its
 whole-solve kernel and by the general route with its DIA SpMV kernel,
 chains the
 padded-layout SpMV, solves the systems whose dtypes once had no SpMV
@@ -1229,6 +1232,189 @@ def main():
             del k, r
         del systems
 
+    def ne_residual(pd, ot, pda, ota, b, x, lam):
+        """||A^H (b - Ax) - lam x|| / ||A^H b|| in f64 with the plain SpMV:
+        the optimality residual of min ||b - Ax||^2 + lam ||x||^2 (0/0
+        read as 0 where b = 0)."""
+        xd = x.double()
+        g = dia_spmv_aligned_ref(pda.double(), ota, b.double()
+                                 - dia_spmv_aligned_ref(pd.double(), ot, xd))
+        nb = float(dia_spmv_aligned_ref(pda.double(), ota,
+                                        b.double()).norm())
+        r = float((g - lam * xd).norm())
+        return r / nb if nb > 0 else r
+
+    def block_residual(pd, ot, pda, ota, b, c, x, y, tau, nu):
+        """||[b; c] - [tau I A; A^H nu I][x; y]|| / ||[b; c]|| in f64 with
+        the plain SpMV: TriCG's true relative residual."""
+        xd, yd = x.double(), y.double()
+        top = b.double() - (tau * xd + dia_spmv_aligned_ref(pd.double(), ot,
+                                                            yd))
+        bot = c.double() - (dia_spmv_aligned_ref(pda.double(), ota, xd)
+                            + nu * yd)
+        nbc = float(torch.sqrt(b.double().norm() ** 2
+                               + c.double().norm() ** 2))
+        r = float(torch.sqrt(top.norm() ** 2 + bot.norm() ** 2))
+        return r / nbc if nbc > 0 else r
+
+    nq_shifts = [0.1, 1.0]
+
+    def nq_system(N, dt, poisson, gen):
+        """(pd, ot, pda, ota, b, c): convdiff_dia(N), or poisson_dia(N) for
+        TriCG, its aligned diagonals and those of A^H, b and c seeded."""
+        A = (kt.poisson_dia if poisson else kt.convdiff_dia)(N, dtype=dt)
+        pd = dia_align(A.data, A.offsets, A.shape[0])
+        pda, offa = kt.dia_align_adjoint(pd, A.offsets, A.shape[0])
+        out = (pd, offsets_tensor(A.offsets, dev), pda,
+               offsets_tensor(offa, dev), rhs(N ** 3, dt, gen),
+               rhs(N ** 3, dt, gen))
+        del A
+        return out
+
+    with Phase("3j normal-equation and TriCG kernels vs plain", 240):
+        # CGLS, CRLS and CGLS-Lanczos-shift (shifts 0.1 and 1) on the
+        # convection-diffusion stencil and TriCG on the Poisson stencil,
+        # at 64^3 f64 and 128^3 f32 (the full-width path), at the entry
+        # points' default tolerances (sqrt eps), each kernel against its
+        # plain version on the same inputs: every int output (status,
+        # indefinite flags) equal but niter, which is held to +-max(2,
+        # 10%) (TriCG's to +-max(3, 10%): its stop moves by 1 to 3
+        # iterations near the threshold, tests/test_fused.py:1145-1149);
+        # in f64 x (and y) within 1e-6 relative; the true relative
+        # residual (f64, the plain SpMV: the normal-equation residual
+        # ||A^H (b - Ax) - lam x|| / ||A^H b|| for the CGLS family, every
+        # shift's, and the block residual for TriCG) no worse than 1.5
+        # times the plain version's.  Variants: lam = 0 (lam = 0.1 is the
+        # main path's), b = 0, and TriCG's spd and flip presets; spd
+        # ([I A; A I], indefinite for the Poisson stencil, 48274
+        # iterations at 64^3 in f64) is capped at 200 iterations and held
+        # to the capped trajectory.  Bounds count bytes: the diagonals of
+        # A and A^H once each per iteration and the vectors each method
+        # must read and write -- CGLS x, r, p; CRLS x, r, Ar, p, Ap, q;
+        # each read and written; the shift solver v and v_prev read and
+        # the next v written, and each shift's x and p read and written
+        # while it is active (a shift's active iterations are those of the
+        # same solve with that shift alone); TriCG v_k, u_k, v_{k-1},
+        # u_{k-1}, the four directions, x and y read, and v_{k+1}, u_{k+1},
+        # the directions, x and y written (the headers of csrc/*.cu).  ms,
+        # plain ms and the bound for the main path's cases (128^3 f32,
+        # lam = 0.1, TriCG's default preset).
+        nq_nvecs = {"cgls": 6, "crls": 12, "cgls_lanczos_shift": 3,
+                    "tricg": 18}
+        nq_cases = []
+        for N, dt in ((64, torch.float64), (128, torch.float32)):
+            for name in ("cgls", "crls", "cgls_lanczos_shift", "tricg"):
+                nq_cases.append((name, N, dt, {}))
+                nq_cases.append((name, N, dt, {"zero_rhs": True}))
+            nq_cases += [("cgls", N, dt, {"lam": 0.0}),
+                         ("crls", N, dt, {"lam": 0.0}),
+                         ("tricg", N, dt, {"preset": "flip"}),
+                         ("tricg", N, dt, {"preset": "spd"})]
+        presets = {None: (1.0, -1.0), "flip": (-1.0, 1.0), "spd": (1.0, 1.0)}
+        systems = {}
+        gen = np.random.default_rng(SEED + 18)
+        for name, N, dt, kw in nq_cases:
+            kw = dict(kw)
+            zero_rhs = kw.pop("zero_rhs", False)
+            lam = kw.pop("lam", 0.1)
+            preset = kw.pop("preset", None)
+            tricg = name == "tricg"
+            if (N, dt, tricg) not in systems:
+                systems[N, dt, tricg] = nq_system(N, dt, tricg, gen)
+            pd, ot, pda, ota, b, c = systems[N, dt, tricg]
+            if zero_rhs:
+                b, c = torch.zeros_like(b), torch.zeros_like(c)
+            n = b.shape[0]
+            tol = rt.default_tol(None, dt)
+            itmax = 200 if preset == "spd" else 2 * n
+            shifts_t = torch.tensor(nq_shifts, dtype=dt, device=dev)
+            if tricg:
+                tau, nu = presets[preset]
+                head, args = (pd, pda, ot, ota, b, c), (tau, nu, tol, tol,
+                                                        itmax)
+                nvec, ncode = 2, 4
+            else:
+                head = (pd, pda, ot, ota, b)
+                args = ((shifts_t if name == "cgls_lanczos_shift" else lam),
+                        tol, tol, itmax)
+                nvec, ncode = 1, (3 if name == "cgls_lanczos_shift" else 4)
+            kernel = getattr(cf, name + "_dia_fused")
+            plain = getattr(cf, name + "_dia_fused_ref")
+            k = kernel(*head, *args)
+            r = plain(*head, *args)
+            torch.cuda.synchronize()
+            it_k, it_r = int(k[nvec]), int(r[nvec])
+            codes_k = [int(k[ncode])] + (k[4].tolist() if ncode == 3 else [])
+            codes_r = [int(r[ncode])] + (r[4].tolist() if ncode == 3 else [])
+            err = max(float((a - w).abs().max())
+                      for a, w in zip(k[:nvec], r[:nvec]))
+            rel = max(float((a - w).abs().max())
+                      / max(float(w.abs().max()), 1e-300)
+                      for a, w in zip(k[:nvec], r[:nvec]))
+            f32 = dt == torch.float32
+            label = (f"{name} {'lam = 0 ' if lam == 0 and not tricg else ''}"
+                     f"{f'{preset} ' if preset else ''}"
+                     f"{'b = 0 ' if zero_rhs else ''}{N}^3 "
+                     f"{'f32' if f32 else 'f64'}")
+            timed = f32 and not zero_rhs and lam == 0.1 and preset is None
+            line = (f"  {label}: kernel niter={it_k} codes={codes_k}; "
+                    f"plain niter={it_r} codes={codes_r}; "
+                    f"max_abs_err={err:.3e} rel={rel:.3e}")
+            if tricg:
+                res_k = block_residual(pd, ot, pda, ota, b, c, k[0], k[1],
+                                       tau, nu)
+                res_p = block_residual(pd, ot, pda, ota, b, c, r[0], r[1],
+                                       tau, nu)
+            elif name == "cgls_lanczos_shift":
+                res_k = max(ne_residual(pd, ot, pda, ota, b, k[0][i], lm)
+                            for i, lm in enumerate(nq_shifts))
+                res_p = max(ne_residual(pd, ot, pda, ota, b, r[0][i], lm)
+                            for i, lm in enumerate(nq_shifts))
+            else:
+                res_k = ne_residual(pd, ot, pda, ota, b, k[0], lam)
+                res_p = ne_residual(pd, ot, pda, ota, b, r[0], lam)
+            line += f"; true_res kernel {res_k:.3e} plain {res_p:.3e}"
+            if timed:
+                ms = event_ms(lambda: kernel(*head, *args), reps=3,
+                              warmup=1)
+                plain_ms = event_ms(lambda: plain(*head, *args), reps=1,
+                                    warmup=0)
+                vec = n * b.element_size()
+                bound_bytes = it_k * (2 * pd.numel() * pd.element_size()
+                                      + nq_nvecs[name] * vec)
+                if name == "cgls_lanczos_shift":
+                    active = sum(int(kernel(*head, shifts_t[i:i + 1],
+                                            *args[1:])[1])
+                                 for i in range(len(nq_shifts)))
+                    bound_bytes += active * 4 * vec
+                    line += f"; shift-iterations active {active}"
+                bound_ms = bound_bytes / bw * 1e3
+                line += (f"; ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                         f"bound_ms={bound_ms:.3f} ({bound_bytes / 1e6:.1f} "
+                         f"MB; {1e3 * ms / max(it_k, 1):.1f} us/iter)")
+            print(line, flush=True)
+            check(codes_k == codes_r,
+                  f"{label}: same status and flags as the plain version")
+            band = max(3 if tricg else 2, 0.1 * it_r)
+            check(abs(it_k - it_r) <= band,
+                  f"{label}: niter {it_k} within ±{band:g} of {it_r}")
+            if zero_rhs:
+                check(it_k == 0 and codes_k[0] == 2
+                      and not any(bool(v.any()) for v in k[:nvec]),
+                      f"{label}: x = 0, zero residual, no iteration")
+                continue
+            check(res_k <= 1.5 * res_p,
+                  f"{label}: true residual {res_k:.2e} no worse than 1.5 x "
+                  f"the plain version's {res_p:.2e}")
+            if not f32:
+                check(rel <= 1e-6, f"{label}: x agrees ({rel:.2e} <= 1e-6)")
+            if timed:
+                report[name + "_dia"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+            del k, r
+        del systems
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -2007,6 +2193,133 @@ def main():
                           top=6)
     del ln_ops
 
+    with Phase("5s cgls, crls, cgls_lanczos_shift, tricg end to end", 240):
+        # The main path of the normal-equation family and TriCG at 128^3,
+        # b and c seeded normal, in f32 and in f64: cgls(A, b, lam=0.1),
+        # crls(A, b, lam=0.1) and cgls_lanczos_shift(A, b, [0.1, 1]) on
+        # the convection-diffusion stencil and tricg(P, b, c) (tau = 1,
+        # nu = -1) on the Poisson stencil, each public entry point with
+        # its default options (the whole-solve kernel), then with
+        # history=True (the general route through the DIA SpMV kernel and
+        # its adjoint).  ms per solve, niter and us per iteration; the
+        # true relative residual (f64, the plain SpMV: the normal-equation
+        # residual ||A^H (b - Ax) - lam x|| / ||A^H b||, the largest over
+        # the shifts, and TriCG's block residual), no worse than 1.5 times
+        # that of the kernel's plain version on the same inputs, on both
+        # routes; the plain version's status; niter equal to the plain
+        # version's in f64 and within +-max(2, 10%) in f32; and the launch
+        # counts, set to 0 just before each path and read after.  The
+        # kernels line takes the launches of the f32 default solves.
+        from krylov_tpu_torch.solvers.cgls import _CRLS_STATUS
+        from krylov_tpu_torch.solvers.tricg import _STATUS as tricg_status
+        nq_status = {**_CRLS_STATUS, **tricg_status}
+        nq_ops = {}
+        for dt in (torch.float32, torch.float64):
+            gen = np.random.default_rng(SEED + 19)
+            C = kt.DIAOperator(kt.convdiff_dia(128, dtype=dt))
+            P = kt.DIAOperator(kt.poisson_dia(128, dtype=dt))
+            b, c = rhs(128 ** 3, dt, gen), rhs(128 ** 3, dt, gen)
+            n = b.shape[0]
+            tol = rt.default_tol(None, dt)
+            f32 = dt == torch.float32
+            runs = {"cgls": (C, (b,), {"lam": 0.1}, (0.1, tol, tol, 2 * n)),
+                    "crls": (C, (b,), {"lam": 0.1}, (0.1, tol, tol, 2 * n)),
+                    "cgls_lanczos_shift": (
+                        C, (b, nq_shifts), {},
+                        (torch.tensor(nq_shifts, dtype=dt, device=dev), tol,
+                         tol, 2 * n)),
+                    "tricg": (P, (b, c), {}, (1.0, -1.0, tol, tol, 2 * n))}
+            for method, (op, args, kw, ref_args) in runs.items():
+                name = method + "_dia"
+                pda, offa = op.aligned_adjoint()
+                ota = offsets_tensor(offa, dev)
+                head = (op._pd, pda, op._offsets, ota)
+                tricg = method == "tricg"
+
+                def res_of(out, op=op, pda=pda, ota=ota, tricg=tricg,
+                           method=method, kw=kw):
+                    if tricg:
+                        return block_residual(op._pd, op._offsets, pda, ota,
+                                              b, c, out[0], out[1], 1.0,
+                                              -1.0)
+                    lams = (nq_shifts if method == "cgls_lanczos_shift"
+                            else [kw["lam"]])
+                    X = out[0] if len(lams) > 1 else out[0][None]
+                    return max(ne_residual(op._pd, op._offsets, pda, ota, b,
+                                           X[i], lm)
+                               for i, lm in enumerate(lams))
+
+                solve = (lambda m=method, op=op, args=args, kw=kw, **extra:
+                         getattr(kt, m)(op, *args, **kw, **extra))
+                nq_ops[method, f32] = solve
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.perf_counter()
+                *_, stats = out = solve()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                counts_fused = kt.kernel_launches()
+                t = time.perf_counter()
+                *_, sh = out_h = solve(history=True)
+                torch.cuda.synchronize()
+                ms_h = (time.perf_counter() - t) * 1e3
+                counts = kt.kernel_launches()
+                ref = getattr(cf, name + "_fused_ref")(
+                    *head, *((b, c) if tricg else (b,)), *ref_args)
+                nvec = 2 if tricg else 1
+                ref_niter = int(ref[nvec])
+                ref_code = int(ref[3] if method == "cgls_lanczos_shift"
+                               else ref[4])
+                want = rt.decode_status(
+                    rt.final_status_code(ref_code, 0, 1, False), nq_status)
+                res, res_p, res_h = res_of(out), res_of(ref), res_of(out_h)
+                label = f"{method} {'f32' if f32 else 'f64'}"
+                print(f"  {label}: niter={stats.niter} status="
+                      f"'{stats.status}' true_res={res:.3e} ms/solve="
+                      f"{ms:.2f} us/iter={1e3 * ms / max(stats.niter, 1):.2f}"
+                      f"; plain version: niter={ref_niter} status='{want}' "
+                      f"true_res={res_p:.3e}; history=True: "
+                      f"niter={sh.niter} status='{sh.status}' true_res="
+                      f"{res_h:.3e} ms={ms_h:.1f}; launches "
+                      f"{counts_fused[name]} ({name}), "
+                      f"{counts['dia_spmv']} (dia_spmv, history)",
+                      flush=True)
+                check(stats.solved and sh.solved,
+                      f"{label} stopped solved (both routes)")
+                check(stats.status == want,
+                      f"{label}: the plain version's status")
+                band = 0 if not f32 else max(2, 0.1 * ref_niter)
+                check(abs(stats.niter - ref_niter) <= band,
+                      f"{label}: niter {stats.niter} within ±{band:g} of the "
+                      f"plain version's {ref_niter}")
+                check(all(bool(torch.isfinite(v).all())
+                          and v.dtype == dt and v.shape[-1] == n
+                          for v in out[:-1]),
+                      f"{label}: finite solutions of width {n}")
+                check(res <= 1.5 * res_p and res_h <= 1.5 * res_p,
+                      f"{label}: true residuals {res:.3e}, {res_h:.3e} "
+                      f"(history) <= 1.5 x the plain version's")
+                hist = (sh.residuals if method != "cgls_lanczos_shift"
+                        else sh.residuals[0])
+                check(len(hist) >= 1, f"{label} (history=True) kept its "
+                      "history")
+                check(counts_fused[name] > 0, f"{label} launched {name} "
+                      f"({counts_fused[name]} times)")
+                check(counts["dia_spmv"] > 0, f"{label} (history=True) "
+                      f"launched dia_spmv ({counts['dia_spmv']} times)")
+                if f32:
+                    launches[name] = counts_fused[name]
+                del ref, out, out_h
+            del C, P, b, c
+
+    with Phase("5t profiles of the four 128^3 normal-equation and TriCG "
+               "solves", 120):
+        for method in ("cgls", "crls", "cgls_lanczos_shift", "tricg"):
+            print(f"  {method} f64:", flush=True)
+            profile_solve(lambda m=method: (None, nq_ops[m, False]()[-1]),
+                          top=6)
+    del nq_ops
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -2049,11 +2362,12 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the thirty-one ported methods through krylov_solve (the
-        # non-symmetric ten on the convection-diffusion stencil, CGS and
-        # BiLQR in f64, the four SSY methods, LSQR, LSMR, LSLQ, CRAIG,
-        # CRAIGMR, LNLQ, CGNE and CRMR on the stencil with 0.5 on its main
-        # diagonal), against a direct
+        # Each of the thirty-five ported methods through krylov_solve (the
+        # non-symmetric ten, CGLS, CRLS and CGLS-Lanczos-shift on the
+        # convection-diffusion stencil, CGS and BiLQR in f64, the four SSY
+        # methods, LSQR, LSMR, LSLQ, CRAIG, CRAIGMR, LNLQ, CGNE and CRMR on
+        # the stencil with 0.5 on its main diagonal, TriCG on the Poisson
+        # stencil), against a direct
         # call of its solver on the same inputs: the same status, niter and
         # x (and y) (bit for bit: the kernels sum in a fixed order); then a
         # BiLQR and a TriLQR workspace, and one workspace round trip
@@ -2072,11 +2386,17 @@ def main():
                        "fgmres", "fom", "bicgstab", "cgs", "diom", "dqgmres",
                        "bilq", "qmr", "bilqr", "usymlq", "usymqr", "trilqr",
                        "usymlqr", "lsqr", "lsmr", "lslq", "craig", "craigmr",
-                       "lnlq", "cgne", "crmr"):
+                       "lnlq", "cgne", "crmr", "cgls", "crls",
+                       "cgls_lanczos_shift", "tricg"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
                                         "bicgstab", "diom", "dqgmres",
-                                        "bilq", "qmr") else A), b
+                                        "bilq", "qmr", "cgls", "crls",
+                                        "cgls_lanczos_shift") else A), b
+            if method == "cgls_lanczos_shift":
+                extra = (nq_shifts,)
+            if method == "tricg":
+                extra = (c32,)
             if method in ("cgs", "bilqr"):   # in f64, as phase 3e says
                 op, bm = Acd64, b.double()
             if method == "bilqr":
@@ -2187,7 +2507,16 @@ def main():
                "craigmr_dia": ("krylov_tpu_torch/csrc/craigmr_dia.cu",
                                "krylov_tpu/ops/pallas_fused.py:6132"),
                "lnlq_dia": ("krylov_tpu_torch/csrc/lnlq_dia.cu",
-                            "krylov_tpu/ops/pallas_fused.py:6345")}
+                            "krylov_tpu/ops/pallas_fused.py:6345"),
+               "cgls_dia": ("krylov_tpu_torch/csrc/cgls_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:3309"),
+               "crls_dia": ("krylov_tpu_torch/csrc/crls_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:3429"),
+               "cgls_lanczos_shift_dia": (
+                   "krylov_tpu_torch/csrc/cgls_lanczos_shift_dia.cu",
+                   "krylov_tpu/ops/pallas_fused.py:7217"),
+               "tricg_dia": ("krylov_tpu_torch/csrc/tricg_dia.cu",
+                             "krylov_tpu/ops/pallas_fused.py:5427")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

@@ -11,6 +11,9 @@ Saunders–Simon–Yip process, ``usymlq``, ``usymqr``, ``trilqr`` and
 bidiagonalisation, ``lsqr``, ``lsmr`` and ``lslq`` for min ‖b − Ax‖
 and ``craig``, ``craigmr`` and ``lnlq`` for min ‖x‖ subject to Ax = b,
 with ``cgne`` and ``crmr`` (CG and CR on AAᴴ) for the same problem,
+and ``cgls``, ``crls`` and ``cgls_lanczos_shift`` (CG and CR on AᴴA)
+for min ‖b − Ax‖² + λ‖x‖², and ``tricg`` for the symmetric
+quasi-definite [τI A; Aᴴ νI][x; y] = [b; c],
 on DIA stencil, CSR, dense and matrix-free operators (with their
 adjoints), through hand-written CUDA kernels for Hopper (``csrc/``): a
 DIA SpMV (plain and in a padded, chainable layout) and a whole-solve
@@ -41,16 +44,19 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
                              bilqr_dia_fused, car_dia_fused,
                              cg_cheby_dia_fused, cg_dia_fused,
                              cg_lanczos_dia_fused,
-                             cg_lanczos_shift_dia_fused, cgne_crmr_dia_fused,
-                             cgs_dia_fused, cr_dia_fused, craig_dia_fused,
-                             craigmr_dia_fused, fom_dia_fused,
-                             gmres_dia_fused, lnlq_dia_fused,
+                             cg_lanczos_shift_dia_fused, cgls_dia_fused,
+                             cgls_lanczos_shift_dia_fused,
+                             cgne_crmr_dia_fused, cgs_dia_fused,
+                             cr_dia_fused, craig_dia_fused,
+                             craigmr_dia_fused, crls_dia_fused,
+                             fom_dia_fused, gmres_dia_fused, lnlq_dia_fused,
                              lslq_dia_fused, lsmr_dia_fused, lsqr_dia_fused,
                              minares_dia_fused, minres_dia_fused,
                              minres_qlp_dia_fused, qmr_dia_fused,
-                             symmlq_dia_fused, trilqr_dia_fused,
-                             trunc_dia_fused, usymlq_dia_fused,
-                             usymlqr_dia_fused, usymqr_dia_fused)
+                             symmlq_dia_fused, tricg_dia_fused,
+                             trilqr_dia_fused, trunc_dia_fused,
+                             usymlq_dia_fused, usymlqr_dia_fused,
+                             usymqr_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
 from .ops.kops import (kdot, kdotr, kdotr2, knorm, knorm_elliptic,
                        roots_quadratic, sym_givens, to_boundary)
@@ -60,6 +66,7 @@ from .solvers.bicgstab import bicgstab, cgs
 from .solvers.bilq import bilq, bilqr, qmr
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
+from .solvers.cgls import cgls, cgls_lanczos_shift, crls
 from .solvers.cgne import cgne, crmr
 from .solvers.cr import car, cr
 from .solvers.craig import craig, craigmr, lnlq
@@ -72,6 +79,7 @@ from .solvers.minares import minares
 from .solvers.minres import minres
 from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
+from .solvers.tricg import tricg
 from .solvers.usymlq import trilqr, usymlq, usymlqr, usymqr
 from .stats import (AdjointStats, LanczosShiftStats, LanczosStats,
                     LNLQStats, LSLQStats, LsmrStats, SimpleStats,
@@ -119,7 +127,11 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "craig_dia": craig_dia_fused,
            "craigmr_dia": craigmr_dia_fused,
            "lnlq_dia": lnlq_dia_fused,
-           "cgne_crmr_dia": cgne_crmr_dia_fused}
+           "cgne_crmr_dia": cgne_crmr_dia_fused,
+           "cgls_dia": cgls_dia_fused,
+           "crls_dia": crls_dia_fused,
+           "cgls_lanczos_shift_dia": cgls_lanczos_shift_dia_fused,
+           "tricg_dia": tricg_dia_fused}
 
 
 def kernel_launches():

@@ -34,7 +34,7 @@ _PAIRS = ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")
 _SPMV_PAIRS = _PAIRS + ("f64_f32", "bf16_bf16", "f16_f16", "c64_f32",
                         "c64_c64", "c128_f64", "c128_c128")
 # the kernels on the Saunders-Simon-Yip launches of csrc/ssy.cuh
-_SSY = ("usymlq", "usymqr", "trilqr", "usymlqr")
+_SSY = ("usymlq", "usymqr", "trilqr", "usymlqr", "tricg")
 # the kernels on the Golub-Kahan launches of csrc/gk.cuh
 _GK = ("lsqr", "lsmr", "lslq", "craig", "craigmr", "lnlq")
 # C entry points and their argument types; every pointer and the stream
@@ -169,6 +169,25 @@ _SIGNATURES = {
     **{f"ktt_cgne_crmr_dia_init_{t}": (_P, _P, _I) + (_P,) * 5
        + (_L, _I, _I, _P) for t in _PAIRS},
     **{f"ktt_cgne_crmr_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I)
+       + (_P,) * 4 + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    # CGLS and CRLS (csrc/cgls_dia.cu, csrc/crls_dia.cu): ([pd, offsets,
+    # nd,] pd_adj, offsets_adj, nd_adj, b, work, partial, sc, st, n, grid,
+    # stream), CRLS's with A's diagonals first, and (pd, offsets, nd,
+    # pd_adj, offsets_adj, nd_adj, work, partial, sc, st, n, grid, iters,
+    # cap, stream)
+    **{f"ktt_cgls_dia_init_{t}": (_P, _P, _I) + (_P,) * 5 + (_L, _I, _P)
+       for t in _PAIRS},
+    **{f"ktt_crls_dia_init_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 5
+       + (_L, _I, _P) for t in _PAIRS},
+    **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _P) for k in ("cgls", "crls") for t in _PAIRS},
+    # CGLS-Lanczos-shift (csrc/cgls_lanczos_shift_dia.cu): (pd_adj,
+    # offsets_adj, nd_adj, b, work, partial, sc, st, n, grid, nshifts,
+    # stream) and (pd, offsets, nd, pd_adj, offsets_adj, nd_adj, work,
+    # partial, sc, st, n, grid, nshifts, iters, cap, stream)
+    **{f"ktt_cgls_lanczos_shift_dia_init_{t}": (_P, _P, _I) + (_P,) * 5
+       + (_L, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_cgls_lanczos_shift_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I)
        + (_P,) * 4 + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
 }
 

@@ -1,12 +1,12 @@
-// The Saunders-Simon-Yip launches shared by the USYMLQ, USYMQR, TriLQR
-// and USYMLQR whole-solve kernels (usymlq_dia.cu, usymqr_dia.cu,
-// trilqr_dia.cu, usymlqr_dia.cu) on Hopper (sm_90a), with no grid-wide
-// barrier.
+// The Saunders-Simon-Yip launches shared by the USYMLQ, USYMQR, TriLQR,
+// USYMLQR and TriCG whole-solve kernels (usymlq_dia.cu, usymqr_dia.cu,
+// trilqr_dia.cu, usymlqr_dia.cu, tricg_dia.cu) on Hopper (sm_90a), with
+// no grid-wide barrier.
 //
 // What they compute is the SSY step of the TPU kernels
 // krylov_tpu/ops/pallas_fused.py:6565 usymlq_dia_fused, :6756
-// usymqr_dia_fused, :7695 trilqr_dia_fused and :7968 usymlqr_dia_fused
-// (pallas_fused.py:6646-6658):
+// usymqr_dia_fused, :7695 trilqr_dia_fused, :7968 usymlqr_dia_fused and
+// :5427 tricg_dia_fused (pallas_fused.py:6646-6658, 5499-5508):
 //   q = A u_k - gamma_k v_{k-1},  p = A^H v_k - beta_k u_{k-1}
 //   (the gamma and beta terms from the second iteration on),
 //   alpha = <v_k, q>,  q -= alpha v_k,  p -= alpha u_k,
@@ -31,7 +31,9 @@
 //                            the method's vector updates
 //                            (Method::update_row),
 //                            v_{k+1} = q / beta_{k+1} and
-//                            u_{k+1} = p / gamma_{k+1} in place
+//                            u_{k+1} = p / gamma_{k+1} in place (where
+//                            a norm is 0, or for TriCG at most
+//                            eps^(3/4), as the method says)
 //   4. ssy_commit  (1 block) the staging copy into the state, and the
 //                            iteration count
 // The state every block of launch 3 reads is only written by launch 4,
@@ -217,6 +219,37 @@ __device__ __forceinline__ void ssy_next_row(T* work, int it0, long long n,
   p[i] = gamma1 != T(0) ? p[i] / safe(gamma1) : uold;
 }
 
+// Row i of v_{k+1} and u_{k+1} for a method that keeps q (or p)
+// un-normalised where beta_{k+1} (or gamma_{k+1}) <= btol = eps^(3/4)
+// (TriCG, pallas_fused.py:5559-5563).
+template <typename T>
+__device__ __forceinline__ void ssy_next_row_btol(T* work, int it0,
+                                                  long long n, long long i,
+                                                  T beta1, T gamma1, T btol) {
+  T* q = row(work, V0 + next(it0), n);
+  T* p = row(work, U0 + next(it0), n);
+  if (beta1 > btol) q[i] = q[i] / beta1;
+  if (gamma1 > btol) p[i] = p[i] / gamma1;
+}
+
+// eps^(3/4) of T, taken in double and rounded to T, as the TPU kernel
+// takes it (pallas_fused.py:5446).
+template <typename T>
+__device__ __forceinline__ T btol_of() {
+  return static_cast<T>(pow(static_cast<double>(eps_of<T>()), 0.75));
+}
+
+// Method::kBtol where a method defines it (TriCG), else false: the
+// normalisation of ssy_next_row_btol instead of ssy_next_row's.
+template <typename M, typename = void>
+struct uses_btol {
+  static constexpr bool value = false;
+};
+template <typename M>
+struct uses_btol<M, decltype(void(M::kBtol))> {
+  static constexpr bool value = M::kBtol;
+};
+
 // The vectors a method's row update reads: v_k, v_{k-1}, u_k and q (the
 // un-normalised q of this iteration).
 template <typename T>
@@ -252,7 +285,11 @@ ssy_update(T* __restrict__ work, T* __restrict__ partial, T* sc, int* st,
                      row(work, V0 + next(it0), n)};
   for (long long i = first_row(); i < n; i += row_stride()) {
     Method::update_row(work, coef, vecs, it0, n, i);
-    ssy_next_row(work, it0, n, i, beta1, gamma1, Method::kKeep);
+    if constexpr (uses_btol<Method>::value) {
+      ssy_next_row_btol(work, it0, n, i, beta1, gamma1, btol_of<T>());
+    } else {
+      ssy_next_row(work, it0, n, i, beta1, gamma1, Method::kKeep);
+    }
   }
 }
 

@@ -57,6 +57,13 @@ same chunked, masked semantics, so that niter is exact across chunks.
   ``csrc/craigmr_dia.cu``, ``csrc/lnlq_dia.cu``).
 * ``cgne_crmr_dia_fused``: CGNE or CRMR for the same problem, CG or CR on
   AAᴴ (``csrc/cgne_crmr_dia.cu``).
+* ``cgls_dia_fused`` and ``crls_dia_fused``: CGLS and CRLS for
+  min ‖b − Ax‖² + λ‖x‖², CG and CR on AᴴA (``csrc/cgls_dia.cu``,
+  ``csrc/crls_dia.cu``).
+* ``cgls_lanczos_shift_dia_fused``: every min ‖b − Ax‖² + λᵢ‖x‖² from
+  one Lanczos stream on AᴴA (``csrc/cgls_lanczos_shift_dia.cu``).
+* ``tricg_dia_fused``: TriCG for [τI A; Aᴴ νI][x; y] = [b; c] on the
+  Saunders–Simon–Yip launches (``csrc/tricg_dia.cu``).
 """
 
 import math
@@ -105,6 +112,8 @@ SOLVED_MN = 40
 INCONS_CRAIG = 41
 SOLVED_LNLQ_LQ = 42
 SOLVED_LNLQ_CG = 43
+# TriCG's breakdown code (krylov_tpu/solvers/tricg.py:24), FOM's number
+INCONS_TRI = 28
 
 # (b dtype, pd dtype) → the name suffix of the C entry points
 _PAIR = {
@@ -181,6 +190,17 @@ _LNLQ_RNORM, _LNLQ_NSC, _LNLQ_NST = 19, 33, 9
 # CGNE and CRMR (csrc/cgne_crmr_dia.cu): the partial rows, the work rows
 # (x first), and the rnorm slot
 _NE_NPART, _NE_NROWS, _NE_RNORM, _NE_NSC, _NE_NST = 6, 6, 4, 9, 3
+# CGLS and CRLS (csrc/cgls_dia.cu, csrc/crls_dia.cu): the partial rows,
+# the work rows (x first), and the rnorm and arnorm slots
+_GLS_NPART, _GLS_NROWS, _RLS_NPART, _RLS_NROWS = 5, 5, 6, 7
+_NQ_RNORM, _NQ_ARNORM, _NQ_NSC, _NQ_NST = 4, 5, 7, 3
+# CGLS-Lanczos-shift (csrc/cgls_lanczos_shift_dia.cu): as the
+# CG-Lanczos-shift kernel's arrays, with t in work row 3 and X from row 4
+_LZS_NSC, _LZS_NBLK, _LZS_RNORM, _LZS_NST, _LZS_INDEF = 5, 5, 4, 4, 1
+_LZS_X, _LZS_NPART = 4, 2
+# TriCG (csrc/tricg_dia.cu, on csrc/ssy.cuh): the rnorm slot, τ and ν
+# after the staging copy, and the work rows of x and y
+_TCG_RNORM, _TCG_TAU, _TCG_NSC, _TCG_NST, _TCG_NROWS = 11, 21, 23, 5, 12
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -222,6 +242,10 @@ craig_dia_fused_supported = cg_dia_fused_supported
 craigmr_dia_fused_supported = cg_dia_fused_supported
 lnlq_dia_fused_supported = cg_dia_fused_supported
 cgne_crmr_dia_fused_supported = cg_dia_fused_supported
+cgls_dia_fused_supported = cg_dia_fused_supported
+crls_dia_fused_supported = cg_dia_fused_supported
+cgls_lanczos_shift_dia_fused_supported = cg_dia_fused_supported
+tricg_dia_fused_supported = cg_dia_fused_supported
 # the rings live in device memory, so any mem ≥ 2 has a kernel
 trunc_dia_fused_supported = cg_dia_fused_supported
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
@@ -2894,6 +2918,250 @@ def lnlq_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
 
 
 # ---------------------------------------------------------------------------
+# CGLS, CRLS, CGLS-Lanczos-shift and TriCG: the plain versions
+# ---------------------------------------------------------------------------
+
+def _ne_start(b, lam, atol, rtol):
+    """λ as b's scalar, whether it is on (λ > 0), ε's tolerances and 1."""
+    return (_scalar(lam, b), float(lam) > 0, _scalar(atol, b),
+            _scalar(rtol, b), _scalar(1, b))
+
+
+def cgls_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                       itmax):
+    """Plain PyTorch CGLS of min ‖b − Ax‖² + λ‖x‖² (pallas_fused.py:
+    3309-3383): δ = ‖Ap‖² + λ‖p‖², s = Aᴴr − λx (λ itself, as the TPU
+    kernel), the stop on ‖s‖ ≤ atol + rtol‖Aᴴb‖.
+
+    Returns (x, niter, rnorm, arnorm, status) as tensors, as
+    ``cgls_dia_fused`` does."""
+    lam, lam_on, atol, rtol, one = _ne_start(b, lam, atol, rtol)
+    bnorm = torch.sqrt(torch.sum(b * b))
+    s0 = dia_spmv_aligned_ref(pd_adj, offsets_adj, b)
+    gamma0 = torch.sum(s0 * s0)
+    arnorm0 = torch.sqrt(gamma0)
+    eps_lim = atol + rtol * arnorm0
+    status0 = torch.where(bnorm == 0, ZERO_RESIDUAL, torch.where(
+        arnorm0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    st0 = types.SimpleNamespace(x=torch.zeros_like(b), r=b, p=s0,
+                                gamma=gamma0, rnorm=bnorm, arnorm=arnorm0,
+                                iter=_i32(0, b), status=status0)
+
+    def step(s):
+        q = dia_spmv_aligned_ref(pd, offsets, s.p)
+        delta = torch.sum(q * q)
+        if lam_on:
+            delta = delta + lam * torch.sum(s.p * s.p)
+        alpha = s.gamma / _safe(delta, one)
+        x = s.x + alpha * s.p
+        r = s.r - alpha * q
+        sv = dia_spmv_aligned_ref(pd_adj, offsets_adj, r)
+        if lam_on:
+            sv = sv - lam * x
+        gamma = torch.sum(sv * sv)
+        arnorm = torch.sqrt(gamma)
+        return dict(x=x, r=r, p=sv + (gamma / _safe(s.gamma, one)) * s.p,
+                    gamma=gamma, rnorm=torch.sqrt(torch.sum(r * r)),
+                    arnorm=arnorm, iter=s.iter + 1,
+                    status=torch.where(arnorm <= eps_lim, SOLVED,
+                                       RUNNING).to(torch.int32))
+
+    s = _drive_ref(st0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.arnorm, s.status
+
+
+def crls_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                       itmax):
+    """Plain PyTorch CRLS of min ‖b − Ax‖² + λ‖x‖² (pallas_fused.py:
+    3429-3521): x, r, Ar = Aᴴr, p, Ap and q = AᴴAp + λp, three stencils
+    at the start; ‖r‖ with λ is √(‖r‖² + λ‖x‖²); the stop on
+    ‖Ar‖ ≤ atol + rtol‖Aᴴb‖.
+
+    Returns (x, niter, rnorm, arnorm, status) as tensors, as
+    ``crls_dia_fused`` does."""
+    lam, lam_on, atol, rtol, one = _ne_start(b, lam, atol, rtol)
+
+    def q_of(ap, p):
+        q = dia_spmv_aligned_ref(pd_adj, offsets_adj, ap)
+        return q + lam * p if lam_on else q
+
+    def gamma_of(sv, arnorm):
+        g = torch.sum(sv * sv)
+        return g + lam * arnorm * arnorm if lam_on else g
+
+    rnorm0 = torch.sqrt(torch.sum(b * b))
+    ar0 = dia_spmv_aligned_ref(pd_adj, offsets_adj, b)
+    sv0 = dia_spmv_aligned_ref(pd, offsets, ar0)
+    arnorm0 = torch.sqrt(torch.sum(ar0 * ar0))
+    eps_lim = atol + rtol * arnorm0
+    status0 = torch.where(rnorm0 == 0, ZERO_RESIDUAL, torch.where(
+        arnorm0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    st0 = types.SimpleNamespace(
+        x=torch.zeros_like(b), r=b, ar=ar0, p=ar0, ap=sv0, q=q_of(sv0, ar0),
+        gamma=gamma_of(sv0, arnorm0), rnorm=rnorm0, arnorm=arnorm0,
+        iter=_i32(0, b), status=status0)
+
+    def step(s):
+        alpha = s.gamma / _safe(torch.sum(s.q * s.q), one)
+        x = s.x + alpha * s.p
+        ar = s.ar - alpha * s.q
+        arnorm = torch.sqrt(torch.sum(ar * ar))
+        r = s.r - alpha * s.ap
+        sv = dia_spmv_aligned_ref(pd, offsets, ar)
+        gamma = gamma_of(sv, arnorm)
+        beta = gamma / _safe(s.gamma, one)
+        p = ar + beta * s.p
+        ap = sv + beta * s.ap
+        rr = torch.sum(r * r)
+        rnorm = (torch.sqrt(rr + lam * torch.sum(x * x)) if lam_on
+                 else torch.sqrt(rr))
+        return dict(x=x, r=r, ar=ar, p=p, ap=ap, q=q_of(ap, p), gamma=gamma,
+                    rnorm=rnorm, arnorm=arnorm, iter=s.iter + 1,
+                    status=torch.where(arnorm <= eps_lim, SOLVED,
+                                       RUNNING).to(torch.int32))
+
+    s = _drive_ref(st0, step, itmax)
+    return s.x, s.iter, s.rnorm, s.arnorm, s.status
+
+
+def cgls_lanczos_shift_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b,
+                                     shifts, atol, rtol, itmax):
+    """Plain PyTorch CGLS-Lanczos-shift of every min ‖b − Ax‖² + λᵢ‖x‖²
+    from one Lanczos stream on AᴴA (pallas_fused.py:7217-7342): v₀ =
+    Aᴴb/‖Aᴴb‖ while every shift's p starts at the unnormalised Aᴴb; each
+    iteration t = Av, then Aᴴt.  A converged shift freezes; the solve
+    stops when every shift has converged.  ``shifts`` is a 1-D tensor on
+    b's device.
+
+    Returns (X (nshifts, n), niter, rnorms, status, indefinite) as
+    tensors, as ``cgls_lanczos_shift_dia_fused`` does."""
+    one = _scalar(1, b)
+    ns = shifts.shape[0]
+    mv0 = dia_spmv_aligned_ref(pd_adj, offsets_adj, b)
+    beta0 = torch.sqrt(torch.sum(mv0 * mv0))
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * beta0
+    v0 = mv0 / _safe(beta0, one)
+    conv0 = (beta0 <= eps_lim).expand(ns).clone()
+    status0 = torch.where(
+        beta0 == 0, ZERO_RESIDUAL,
+        torch.where(conv0.all(), SOLVED, RUNNING)).to(torch.int32)
+    st0 = types.SimpleNamespace(
+        X=torch.zeros((ns, b.shape[0]), dtype=b.dtype, device=b.device),
+        P=mv0.expand(ns, -1).clone(), v=v0, vprev=v0, iter=_i32(0, b),
+        beta=beta0, sigma=beta0.expand(ns).clone(),
+        omega=torch.zeros_like(shifts), gamma=torch.ones_like(shifts),
+        rnorm=beta0.expand(ns).clone(), conv=conv0,
+        indef=torch.zeros(ns, dtype=torch.bool, device=b.device),
+        status=status0)
+
+    def step(s):
+        t = dia_spmv_aligned_ref(pd, offsets, s.v)
+        w = dia_spmv_aligned_ref(pd_adj, offsets_adj, t)
+        delta = torch.sum(s.v * w)
+        w = w - delta * s.v
+        w = torch.where(s.iter > 0, w - s.beta * s.vprev, w)
+        beta = torch.sqrt(torch.sum(w * w))
+        v_new = w / _safe(beta, one)
+        gamma = 1.0 / ((delta + shifts) - s.omega / s.gamma)
+        mask = ~s.conv
+        col = mask[:, None]
+        om = beta * gamma
+        sigma = torch.where(mask, -om * s.sigma, s.sigma)
+        om2 = torch.where(mask, om * om, s.omega)
+        rnorm = torch.where(mask, torch.abs(sigma), s.rnorm)
+        conv = torch.where(mask, rnorm <= eps_lim, s.conv)
+        return dict(
+            X=torch.where(col, s.X + gamma[:, None] * s.P, s.X),
+            P=torch.where(col, sigma[:, None] * v_new + om2[:, None] * s.P,
+                          s.P),
+            v=v_new, vprev=s.v, iter=s.iter + 1, beta=beta, sigma=sigma,
+            omega=om2, gamma=torch.where(mask, gamma, s.gamma), rnorm=rnorm,
+            conv=conv, indef=s.indef | (gamma <= 0),
+            status=torch.where(conv.all(), SOLVED, RUNNING).to(torch.int32))
+
+    s = _drive_ref(st0, step, itmax)
+    return s.X, s.iter, s.rnorm, s.status, s.indef.to(torch.int32)
+
+
+def tricg_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, tau, nu,
+                        atol, rtol, itmax):
+    """Plain PyTorch TriCG of [τI A; Aᴴ νI][x; y] = [b; c] (pallas_fused.py:
+    5427-5583): the SSY process, the LDLᴴ of Sₖ.ₖ, the π solve, the odd
+    and even x and y directions; q or p stays un-normalised where its
+    norm is at most eps^¾, both at once is a breakdown (code 28) unless
+    the solved test holds.
+
+    Returns (x, y, niter, rnorm, status) as tensors, as
+    ``tricg_dia_fused`` does."""
+    one, zero = _scalar(1, b), _scalar(0, b)
+    tau, nu = _scalar(tau, b), _scalar(nu, b)
+    btol = _scalar(float(torch.finfo(b.dtype).eps) ** 0.75, b)
+    beta0, gamma0, v1, u1 = _ssy_start(b, c)
+    rnorm0 = torch.sqrt(gamma0 * gamma0 + beta0 * beta0)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * rnorm0
+    status0 = torch.where(rnorm0 == 0, ZERO_RESIDUAL, torch.where(
+        rnorm0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    zv = torch.zeros_like(b)
+    st0 = types.SimpleNamespace(
+        x=zv, y=zv, vk=v1, uk=u1, vkm1=zv, ukm1=zv, gxo=zv, gxe=zv, gyo=zv,
+        gye=zv, iter=_i32(0, b), beta=beta0, gamma=gamma0, d_m3=zero,
+        d_m2=zero, pi_m3=zero, pi_m2=zero, delta_km1=zero, rnorm=rnorm0,
+        status=status0)
+
+    def step(s):
+        is1 = s.iter == 0
+        q, p, alpha, beta1, gamma1 = _ssy_ref(pd, offsets, pd_adj,
+                                              offsets_adj, s, one, zero)
+        # the LDLᴴ of Sₖ.ₖ (pallas_fused.py:5511-5523)
+        delta1 = alpha / _safe(tau, one)
+        d_even1 = nu - delta1 * delta1 * tau
+        sigma = s.beta / _safe(s.d_m2, one)
+        eta = s.gamma / _safe(s.d_m3, one)
+        lam = -(eta * s.delta_km1 * s.d_m3) / _safe(s.d_m2, one)
+        d_oddk = tau - sigma * sigma * s.d_m2
+        deltak = (alpha - lam * sigma * s.d_m2) / _safe(d_oddk, one)
+        d_evenk = nu - eta * eta * s.d_m3 - lam * lam * s.d_m2 \
+            - deltak * deltak * d_oddk
+        d_odd = torch.where(is1, tau, d_oddk)
+        delta = torch.where(is1, delta1, deltak)
+        d_even = torch.where(is1, d_even1, d_evenk)
+        # LₖDₖπₖ = β₁e₁ + γ₁e₂ (pallas_fused.py:5525-5532)
+        pi_oddk = -(sigma * s.d_m2 * s.pi_m2) / _safe(d_odd, one)
+        pi_odd = torch.where(is1, s.beta / _safe(d_odd, one), pi_oddk)
+        pi_even = torch.where(
+            is1, (s.gamma - delta * s.beta) / _safe(d_even, one),
+            -(delta * d_odd * pi_oddk + lam * s.d_m2 * s.pi_m2
+              + eta * s.d_m3 * s.pi_m3) / _safe(d_even, one))
+        # the directions, x and y (pallas_fused.py:5534-5554)
+        gx_evenk = s.vk - sigma * s.gxe
+        gy_evenk = -sigma * s.gye
+        gx_oddk = -(eta * s.gxo + lam * s.gxe) - delta * gx_evenk
+        gy_oddk = s.uk - (eta * s.gyo + lam * s.gye) - delta * gy_evenk
+        gxo = torch.where(is1, s.vk, gx_evenk)
+        gxe = torch.where(is1, -delta * s.vk, gx_oddk)
+        gyo = torch.where(is1, zero, gy_evenk)
+        gye = torch.where(is1, s.uk, gy_oddk)
+        zeta_odd = pi_odd - delta * pi_even
+        rnorm = torch.sqrt((gamma1 * zeta_odd) ** 2 + (beta1 * pi_even) ** 2)
+        solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+        breakdown = (beta1 <= btol) & (gamma1 <= btol)
+        code = torch.where(solved, SOLVED, torch.where(
+            breakdown, INCONS_TRI, RUNNING))
+        return dict(
+            x=s.x + pi_odd * gxo + pi_even * gxe,
+            y=s.y + pi_odd * gyo + pi_even * gye,
+            vk=torch.where(beta1 > btol, q / _safe(beta1, one), q),
+            uk=torch.where(gamma1 > btol, p / _safe(gamma1, one), p),
+            vkm1=s.vk, ukm1=s.uk, gxo=gxo, gxe=gxe, gyo=gyo, gye=gye,
+            iter=s.iter + 1, beta=beta1, gamma=gamma1, d_m3=d_odd,
+            d_m2=d_even, pi_m3=pi_odd, pi_m2=pi_even, delta_km1=delta,
+            rnorm=rnorm, status=code.to(torch.int32))
+
+    s = _drive_ref(st0, step, itmax)
+    return s.x, s.y, s.iter, s.rnorm, s.status
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -2911,6 +3179,16 @@ def _pair(name, b, pd):
     if pair is None or b.device.type != "cuda":
         raise ValueError(f"no {name} kernel for b {b.dtype} with pd "
                          f"{pd.dtype} on {b.device}")
+    return pair
+
+
+def _pair_adjoint(name, b, pd, pd_adj, offsets_adj):
+    """``_pair`` of a kernel that also applies Aᴴ; raises where Aᴴ's
+    diagonals do not fit b or have another dtype than A's."""
+    pair = _pair(name, b, pd)
+    _check_spmv(pd_adj, offsets_adj, b)
+    if pd_adj.dtype != pd.dtype:
+        raise ValueError("pd_adj must have pd's dtype")
     return pair
 
 
@@ -3489,10 +3767,7 @@ def _bi_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
     (``csrc/bilanczos.cuh``): the work rows (v and u in three buffers
     each, then the method's own vectors), the block partials, the
     scalars and the flags.  Returns (work, sc, st)."""
-    pair = _pair(kind.upper(), b, pd)
-    _check_spmv(pd_adj, offsets_adj, b)
-    if pd_adj.dtype != pd.dtype:
-        raise ValueError("pd_adj must have pd's dtype")
+    pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
     sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
     # the init launch writes every row an iteration reads before it does
@@ -3580,18 +3855,16 @@ bilqr_dia_fused.launches = 0
 
 
 def _ssy_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
-               rtol, itmax, nrows, nsc, nst, flag, finish):
-    """The buffers and launches shared by the USYMLQ, USYMQR, TriLQR and
-    USYMLQR kernels (``csrc/ssy.cuh``): the work rows (v and u in three
-    buffers each, then the method's own vectors), the block partials, the
-    scalars and the ints with their staging copies.  Returns (work, sc,
+               rtol, itmax, nrows, nsc, nst, flag, finish, scalars=None):
+    """The buffers and launches shared by the USYMLQ, USYMQR, TriLQR,
+    USYMLQR and TriCG kernels (``csrc/ssy.cuh``): the work rows (v and u
+    in three buffers each, then the method's own vectors), the block
+    partials, the scalars (``scalars``: the method's own host values, by
+    slot) and the ints with their staging copies.  Returns (work, sc,
     st)."""
-    pair = _pair(kind.upper(), b, pd)
-    _check_spmv(pd_adj, offsets_adj, b)
-    if pd_adj.dtype != pd.dtype:
-        raise ValueError("pd_adj must have pd's dtype")
+    pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
-    sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
+    sc = _host_scalars(nsc, b, {0: atol, 1: rtol, **(scalars or {})})
     # the init launch writes every row and every state slot
     work = torch.empty((nrows, n), dtype=b.dtype, device=b.device)
     partial = torch.empty((_SSY_NPART, grid), dtype=b.dtype, device=b.device)
@@ -3721,10 +3994,7 @@ def _gk_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, params,
     host's parameters, the state and its staging copy, the error window)
     and the ints with their staging copy.  Returns (work, sc, st)."""
     _check_window(window)
-    pair = _pair(kind.upper(), b, pd)
-    _check_spmv(pd_adj, offsets_adj, b)
-    if pd_adj.dtype != pd.dtype:
-        raise ValueError("pd_adj must have pd's dtype")
+    pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
     sc = _host_scalars(nsc + int(window), b, dict(enumerate(params)))
     # the init launches write every row and every state slot
@@ -3905,10 +4175,7 @@ def cgne_crmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol,
     if b.device.type == "cpu":
         return cgne_crmr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b,
                                        lam, atol, rtol, itmax, variant)
-    pair = _pair("CGNE/CRMR", b, pd)
-    _check_spmv(pd_adj, offsets_adj, b)
-    if pd_adj.dtype != pd.dtype:
-        raise ValueError("pd_adj must have pd's dtype")
+    pair = _pair_adjoint("CGNE/CRMR", b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
     sc = _host_scalars(_NE_NSC, b, {0: lam, 1: atol, 2: rtol})
     # the init launches write every row and every state slot
@@ -3926,3 +4193,130 @@ def cgne_crmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol,
 
 
 cgne_crmr_dia_fused.launches = 0
+
+
+def _nq_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, lam, atol,
+              rtol, itmax, nrows, npart):
+    """The buffers and launches of the CGLS and CRLS kernels: the work rows
+    (x first), the block partials, the scalars (λ, atol, rtol, then the
+    state) and the ints.  Returns (x, niter, rnorm, arnorm, status)."""
+    pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
+    n, grid = b.shape[0], _grid(b)
+    sc = _host_scalars(_NQ_NSC, b, {0: lam, 1: atol, 2: rtol})
+    # the init launches write every row read and every state slot
+    work = torch.empty((nrows, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((npart, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(_NQ_NST, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid)
+    a = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0])
+    adj = (pd_adj.data_ptr(), offsets_adj.data_ptr(), pd_adj.shape[0])
+    # CRLS's start applies A as well as Aᴴ
+    init = (a if kind == "crls" else ()) + adj + (b.data_ptr(),) + bufs
+    _run(wrapper, b, f"ktt_{kind}_dia_init_{pair}", init,
+         f"ktt_{kind}_dia_iterate_{pair}", a + adj + bufs, st, itmax)
+    return (work[0].clone(), st[_IT], sc[_NQ_RNORM], sc[_NQ_ARNORM],
+            st[_STATUS])
+
+
+def cgls_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                   itmax):
+    """Full CGLS solve of min ‖b − Ax‖² + λ‖x‖² for a DIA matrix.
+
+    ``pd_adj`` and ``offsets_adj`` are Aᴴ's aligned diagonals and offsets
+    (``DIAOperator.aligned_adjoint``).  Returns (x, niter, rnorm, arnorm,
+    status_code) as tensors on b's device; the codes are 1 (‖Aᴴr − λx‖
+    small enough) and 2 (b = 0)."""
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return cgls_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                  atol, rtol, itmax)
+    return _nq_fused(cgls_dia_fused, "cgls", pd, pd_adj, offsets,
+                     offsets_adj, b, lam, atol, rtol, itmax, _GLS_NROWS,
+                     _GLS_NPART)
+
+
+cgls_dia_fused.launches = 0
+
+
+def crls_dia_fused(pd, pd_adj, offsets, offsets_adj, b, lam, atol, rtol,
+                   itmax):
+    """Full CRLS solve of min ‖b − Ax‖² + λ‖x‖² for a DIA matrix.  Returns
+    (x, niter, rnorm, arnorm, status_code) as ``cgls_dia_fused`` does;
+    with λ, rnorm is √(‖r‖² + λ‖x‖²)."""
+    _check(pd, offsets, b, None)
+    if b.device.type == "cpu":
+        return crls_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, lam,
+                                  atol, rtol, itmax)
+    return _nq_fused(crls_dia_fused, "crls", pd, pd_adj, offsets,
+                     offsets_adj, b, lam, atol, rtol, itmax, _RLS_NROWS,
+                     _RLS_NPART)
+
+
+crls_dia_fused.launches = 0
+
+
+def cgls_lanczos_shift_dia_fused(pd, pd_adj, offsets, offsets_adj, b,
+                                 shifts, atol, rtol, itmax):
+    """Every regularised least-squares problem min ‖b − Ax‖² + λᵢ‖x‖²
+    from one Lanczos stream on AᴴA, for a DIA matrix.  ``shifts`` (the
+    λᵢ) is a 1-D tensor of b's dtype on b's device; any number of them.
+
+    Returns (X (nshifts, n), niter, rnorms (nshifts,), status_code,
+    indefinite (nshifts,)) as tensors on b's device.
+    """
+    _check(pd, offsets, b, None)
+    if (shifts.dim() != 1 or shifts.dtype != b.dtype
+            or shifts.device != b.device or shifts.shape[0] < 1):
+        raise ValueError("shifts must be a non-empty vector of b's dtype "
+                         "on b's device")
+    if b.device.type == "cpu":
+        return cgls_lanczos_shift_dia_fused_ref(pd, pd_adj, offsets,
+                                                offsets_adj, b, shifts, atol,
+                                                rtol, itmax)
+    pair = _pair_adjoint("CGLS-Lanczos-shift", b, pd, pd_adj, offsets_adj)
+    n, grid, ns = b.shape[0], _grid(b), shifts.shape[0]
+    sc = _host_scalars(_LZS_NSC + _LZS_NBLK * ns, b, {0: atol, 1: rtol})
+    sc[_LZS_NSC:_LZS_NSC + ns] = shifts
+    # zeroed: the first iteration reads none of v_prev's buffer
+    work = torch.zeros((_LZS_X + 2 * ns, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((_LZS_NPART, grid), dtype=b.dtype,
+                          device=b.device)
+    st = torch.zeros(_LZS_NST + 3 * ns, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, ns)
+    adj = (pd_adj.data_ptr(), offsets_adj.data_ptr(), pd_adj.shape[0])
+    _run(cgls_lanczos_shift_dia_fused, b,
+         f"ktt_cgls_lanczos_shift_dia_init_{pair}",
+         adj + (b.data_ptr(),) + bufs,
+         f"ktt_cgls_lanczos_shift_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + adj + bufs, st,
+         itmax)
+    rn = _LZS_NSC + _LZS_RNORM * ns
+    idf = _LZS_NST + _LZS_INDEF * ns
+    return (work[_LZS_X:_LZS_X + ns].clone(), st[_IT],
+            sc[rn:rn + ns].clone(), st[_STATUS], st[idf:idf + ns].clone())
+
+
+cgls_lanczos_shift_dia_fused.launches = 0
+
+
+def tricg_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, tau, nu, atol,
+                    rtol, itmax):
+    """Full TriCG solve of [τI A; Aᴴ νI][x; y] = [b; c] for a square DIA
+    matrix.  Returns (x, y, niter, rnorm, status_code) as tensors on b's
+    device; the codes are 1 (solved), 2 (b = c = 0) and 28 (both SSY
+    norms at most eps^¾: "inconsistent linear system")."""
+    _check_pair(pd, offsets, b, c)
+    if b.device.type == "cpu":
+        return tricg_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                   tau, nu, atol, rtol, itmax)
+    work, sc, st = _ssy_fused(tricg_dia_fused, "tricg", pd, pd_adj, offsets,
+                              offsets_adj, b, c, atol, rtol, itmax,
+                              _TCG_NROWS, _TCG_NSC, _TCG_NST, 0, False,
+                              scalars={_TCG_TAU: tau, _TCG_TAU + 1: nu})
+    return (work[_SSY_X].clone(), work[_SSY_X + 1].clone(), st[_IT],
+            sc[_TCG_RNORM], st[_STATUS])
+
+
+tricg_dia_fused.launches = 0

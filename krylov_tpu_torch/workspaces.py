@@ -22,6 +22,7 @@ from .solvers import bicgstab as _bicgstab
 from .solvers import bilq as _bilq
 from .solvers import cg as _cg
 from .solvers import cg_lanczos as _cg_lanczos
+from .solvers import cgls as _cgls
 from .solvers import cgne as _cgne
 from .solvers import cr as _cr
 from .solvers import craig as _craig
@@ -34,6 +35,7 @@ from .solvers import minares as _minares
 from .solvers import minres as _minres
 from .solvers import minres_qlp as _minres_qlp
 from .solvers import symmlq as _symmlq
+from .solvers import tricg as _tricg
 from .solvers import usymlq as _usymlq
 
 # method -> (nsol, nA, nAt, warm_start_allowed, needs_c, two_operators)
@@ -117,12 +119,16 @@ _PORTED = {
     "craig": (_craig._craig_solve, _craig.craig),
     "craigmr": (_craig._craigmr_solve, _craig.craigmr),
     "lnlq": (_craig._lnlq_solve, _craig.lnlq),
+    "cgls": (_cgls._cgls_solve, _cgls.cgls),
+    "crls": (_cgls._crls_solve, _cgls.crls),
+    "cgls_lanczos_shift": (_cgls._cgls_lanczos_shift_solve,
+                           _cgls.cgls_lanczos_shift),
+    "tricg": (_tricg._tricg_solve, _tricg.tricg),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
 _QUEUE_ITEM = {
-    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift"), 5),
-    **dict.fromkeys(("tricg", "trimr", "gpmr"), 6),
+    **dict.fromkeys(("trimr", "gpmr"), 6),
     **dict.fromkeys(("block_minres", "block_gmres"), 7),
 }
 

@@ -13,8 +13,7 @@ import krylov_tpu_torch as kt
 
 # the open ROADMAP.md Queue 1 item that brings each name still missing
 QUEUED = {
-    5: ("cgls", "crls", "cgls_lanczos_shift"),
-    6: ("tricg", "trimr", "gpmr"),
+    6: ("trimr", "gpmr"),
     7: ("block_minres", "block_gmres", "hermitian_lanczos",
         "nonhermitian_lanczos", "arnoldi", "golub_kahan",
         "saunders_simon_yip", "montoison_orban", "block_hermitian_lanczos",

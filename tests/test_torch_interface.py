@@ -26,11 +26,11 @@ PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
           "minres", "minres_qlp", "minares", "gmres", "fgmres", "fom",
           "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr",
           "usymlq", "usymqr", "trilqr", "usymlqr", "lsqr", "lsmr", "lslq",
-          "cgne", "crmr", "craig", "craigmr", "lnlq")
+          "cgne", "crmr", "craig", "craigmr", "lnlq", "cgls", "crls",
+          "cgls_lanczos_shift", "tricg")
 # the ROADMAP.md Queue 1 item that ports each other method
 QUEUE_ITEM = {
-    **dict.fromkeys(("cgls", "crls", "cgls_lanczos_shift"), 5),
-    **dict.fromkeys(("tricg", "trimr", "gpmr"), 6),
+    **dict.fromkeys(("trimr", "gpmr"), 6),
     **dict.fromkeys(("block_minres", "block_gmres"), 7),
 }
 SHIFTS = [0.0, 1.0]
@@ -72,6 +72,11 @@ BUDGETS = {
     "lnlq": lambda n: 4 * n + 4 * n,
     "craig": lambda n: 4 * n + 4 * n,
     "craigmr": lambda n: 5 * n + 5 * n,
+    # tests/test_storage.py:64-66, 77 with m = n
+    "cgls": lambda n: 3 * n + 2 * n,
+    "cgls_lanczos_shift": lambda n: (3 + NSH) * n + 2 * n + 5 * NSH,
+    "crls": lambda n: 4 * n + 3 * n,
+    "tricg": lambda n: 6 * n + 6 * n,
 }
 # the memory the ring methods' budgets are for (tests/test_storage.py:91-97)
 EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres"),
@@ -90,12 +95,14 @@ def _system(n=20):
 
 
 # the methods that take c after b
-NEEDS_C = ("bilqr", "usymlq", "usymqr", "trilqr", "usymlqr")
+NEEDS_C = ("bilqr", "usymlq", "usymqr", "trilqr", "usymlqr", "tricg")
+# the methods that take the shifts after b
+SHIFTED = ("cg_lanczos_shift", "cgls_lanczos_shift")
 
 
 def _extra(method, b=None):
     """The arguments after b: the shifts, or c (here b again)."""
-    if method == "cg_lanczos_shift":
+    if method in SHIFTED:
         return (SHIFTS,)
     return (b,) if method in NEEDS_C else ()
 
@@ -263,7 +270,7 @@ def _storage_system(n=N_):
 def test_state_within_storage_budget(method):
     A, b = _storage_system()
     solve, _ = tws._resolve(method)
-    shifts = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
+    shifts = ([0.0, 1.0],) if method in SHIFTED else ()
     if method in NEEDS_C:
         shifts = (b,)
     *_, stats, state = solve(A, b, *shifts, **EXTRA_KW.get(method, {}))

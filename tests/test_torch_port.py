@@ -299,6 +299,13 @@ def _enum_values_in(source, name, env):
                                     "NST": cf._ULR_NST},
                         "OwnRow": {"X": cf._SSY_X, "Y": cf._SSY_X + 1,
                                    "NROWS": 13}}),
+    ("tricg_dia.cu", {"ScalarSlot": {"RNORM": cf._TCG_RNORM,
+                                     "TAU": cf._TCG_TAU,
+                                     "NU": cf._TCG_TAU + 1,
+                                     "NSC": cf._TCG_NSC},
+                      "IntSlot": {"NST": cf._TCG_NST},
+                      "OwnRow": {"X": cf._SSY_X, "Y": cf._SSY_X + 1,
+                                 "NROWS": cf._TCG_NROWS}}),
 ])
 def test_ssy_wrapper_slots_match_kernel_enums(source, slots):
     """The slots the SSY wrappers read, the array sizes they allocate (a
@@ -355,6 +362,43 @@ def test_gk_wrapper_slots_match_kernel_enums(source, slots):
     assert _enum_values_in("gk.cuh", "Part", {})["NPART"] == cf._GK_NPART
 
 
+@pytest.mark.parametrize("source,slots", [
+    ("cgls_dia.cu", {"ScalarSlot": {"LAM": 0, "ATOL": 1, "RTOL": 2,
+                                    "RNORM": cf._NQ_RNORM,
+                                    "ARNORM": cf._NQ_ARNORM,
+                                    "NSC": cf._NQ_NSC},
+                     "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                 "NST": cf._NQ_NST},
+                     "Row": {"ROW_X": 0, "NROWS": cf._GLS_NROWS},
+                     "Part": {"NPART": cf._GLS_NPART}}),
+    ("crls_dia.cu", {"ScalarSlot": {"LAM": 0, "ATOL": 1, "RTOL": 2,
+                                    "RNORM": cf._NQ_RNORM,
+                                    "ARNORM": cf._NQ_ARNORM,
+                                    "NSC": cf._NQ_NSC},
+                     "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS,
+                                 "NST": cf._NQ_NST},
+                     "Row": {"ROW_X": 0, "NROWS": cf._RLS_NROWS},
+                     "Part": {"NPART": cf._RLS_NPART}}),
+    ("cgls_lanczos_shift_dia.cu", {
+        "ScalarSlot": {"ATOL": 0, "RTOL": 1, "NSC": cf._LZS_NSC},
+        "Shift": {"RNORM": cf._LZS_RNORM, "NSHIFT_BLOCKS": cf._LZS_NBLK},
+        "IntSlot": {"IT": cf._IT, "STATUS": cf._STATUS, "NST": cf._LZS_NST},
+        "ShiftFlag": {"INDEF": cf._LZS_INDEF, "NFLAG_BLOCKS": 3},
+        "Part": {"NPART": cf._LZS_NPART}}),
+])
+def test_normal_equation_wrapper_slots_match_kernel_enums(source, slots):
+    """The slots the CGLS, CRLS and CGLS-Lanczos-shift wrappers set and
+    read and the array sizes they allocate are the kernels' enum
+    values; the shift kernel's X starts at work row ``_LZS_X``."""
+    for enum, want in slots.items():
+        members = _enum(source, enum)
+        for name, slot in want.items():
+            assert members.index(name) == slot, (source, name)
+    text = (ROOT / "krylov_tpu_torch" / "csrc" /
+            "cgls_lanczos_shift_dia.cu").read_text()
+    assert f"constexpr int VX = {cf._LZS_X};" in text
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -372,7 +416,8 @@ def test_kernel_launches_and_exports():
                         "usymlq_dia", "usymqr_dia", "trilqr_dia",
                         "usymlqr_dia", "lsqr_dia", "lsmr_dia", "lslq_dia",
                         "craig_dia", "craigmr_dia", "lnlq_dia",
-                        "cgne_crmr_dia"}
+                        "cgne_crmr_dia", "cgls_dia", "crls_dia",
+                        "cgls_lanczos_shift_dia", "tricg_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -383,14 +428,17 @@ def test_kernel_launches_and_exports():
                  "qmr_dia", "bilqr_dia", "usymlq_dia", "usymqr_dia",
                  "trilqr_dia", "usymlqr_dia", "lsqr_dia", "lsmr_dia",
                  "lslq_dia", "craig_dia", "craigmr_dia", "lnlq_dia",
-                 "cgne_crmr_dia"):
+                 "cgne_crmr_dia", "cgls_dia", "crls_dia",
+                 "cgls_lanczos_shift_dia", "tricg_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
                  "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
                  "dqgmres", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
                  "trilqr", "usymlqr", "lsqr", "lsmr", "lslq", "craig",
-                 "craigmr", "lnlq", "cgne", "crmr", "LNLQStats",
+                 "craigmr", "lnlq", "cgne", "crmr", "cgls", "crls",
+                 "cgls_lanczos_shift", "tricg", "CglsWorkspace",
+                 "TricgWorkspace", "LNLQStats",
                  "AdjointStats", "LsmrStats", "LSLQStats", "kdot", "kdotr",
                  "kdotr2", "knorm", "roots_quadratic", "to_boundary",
                  "CgWorkspace", "UsymlqrWorkspace", "__version__",
@@ -1254,3 +1302,163 @@ def test_ln_solvers_on_card_take_their_kernels():
             assert kt.kernel_launches()[used] > n0
             if method == "lnlq":
                 assert type(st) is (kt.LNLQStats if kw else kt.SimpleStats)
+
+
+# the normal-equation kernels' cases: (kernel, λ or the shifts)
+NQ_CASES = {"cgls": ("cgls", 0.0), "cgls_lam": ("cgls", 0.1),
+            "crls": ("crls", 0.0), "crls_lam": ("crls", 0.1),
+            "shift": ("cgls_lanczos_shift", [0.1, 1.0]),
+            "shift_zero": ("cgls_lanczos_shift", [0.0, 4.0])}
+
+
+def _card_system(N, dtype, poisson=False):
+    """convdiff_dia(N) (or poisson_dia(N)) on the card, its aligned
+    diagonals and those of its adjoint, and b, c drawn from one seed."""
+    A = (kt.poisson_dia if poisson else kt.convdiff_dia)(N, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+    rng = np.random.default_rng(22)
+    b = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    c = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    return (pd, pda, offsets_tensor(A.offsets, "cuda"),
+            offsets_tensor(offa, "cuda"), b, c)
+
+
+def _tol(dtype):
+    return float(np.sqrt(np.finfo(np.float32 if dtype == torch.float32
+                                  else np.float64).eps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype", [(64, torch.float64),
+                                     (128, torch.float32)],
+                         ids=["64-f64", "128-f32"])
+@pytest.mark.parametrize("rhs", ["b", "zero_b"])
+@pytest.mark.parametrize("case", sorted(NQ_CASES))
+def test_nq_kernels_match_plain_on_card(case, rhs, N, dtype):
+    """The CGLS, CRLS and CGLS-Lanczos-shift kernels against their plain
+    versions on the convection-diffusion stencil at 64^3 f64 and 128^3
+    f32, at the default tolerances, with λ = 0.1, two shifts (one of
+    them 0) and b = 0: the same status (and indefinite flags), niter
+    within ±max(2, 10%); in f64 x within 1e-6 of max(|x|, |b|) (CG on AᴴA
+    runs without reorthogonalisation and its f64 iterates follow the
+    order of the sums: tests/test_torch_cgls.py says how far); in f32 the
+    true normal-equation residual ‖Aᴴ(b − Ax) − λx‖ (f64, the plain SpMV)
+    no worse than 1.5 times the plain version's."""
+    _card()
+    pd, pda, ot, ota, b, _ = _card_system(N, dtype)
+    if rhs == "zero_b":
+        b = torch.zeros_like(b)
+    name, lam = NQ_CASES[case]
+    tol = _tol(dtype)
+    shifted = name == "cgls_lanczos_shift"
+    if shifted:
+        lam = torch.tensor(lam, dtype=dtype, device="cuda")
+    args = (lam, tol, tol, 2 * b.shape[0])
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    before = wrapper.launches
+    k = wrapper(pd, pda, ot, ota, b, *args)
+    assert wrapper.launches > before
+    r = ref(pd, pda, ot, ota, b, *args)
+    it_k, it_r = int(k[1]), int(r[1])
+    code = 3 if shifted else 4
+    assert int(k[code]) == int(r[code])
+    assert abs(it_k - it_r) <= max(2, 0.1 * it_r)
+    if shifted:
+        assert torch.equal(k[4], r[4])
+    if rhs == "zero_b":
+        assert it_k == 0 and int(k[code]) == rt.ZERO_RESIDUAL
+        assert not bool(k[0].any())
+        return
+    if dtype == torch.float64:
+        scale = max(float(r[0].abs().max()), float(b.abs().max()))
+        assert float((k[0] - r[0]).abs().max()) <= 1e-6 * scale
+        return
+    lams = lam.tolist() if shifted else [lam]
+    X_k, X_r = (k[0], r[0]) if shifted else (k[0][None], r[0][None])
+
+    def ne_res(x, lam_i):
+        x = x.double()
+        res = b.double() - dia_spmv_aligned_ref(pd.double(), ot, x)
+        g = dia_spmv_aligned_ref(pda.double(), ota, res) - lam_i * x
+        return float(g.norm())
+
+    for i, lam_i in enumerate(lams):
+        assert ne_res(X_k[i], lam_i) <= 1.5 * ne_res(X_r[i], lam_i) + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype", [(64, torch.float64),
+                                     (128, torch.float32)],
+                         ids=["64-f64", "128-f32"])
+@pytest.mark.parametrize("rhs", ["b", "zero_b"])
+@pytest.mark.parametrize("tau,nu", [(1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)],
+                         ids=["default", "spd", "flip"])
+def test_tricg_kernel_matches_plain_on_card(tau, nu, rhs, N, dtype):
+    """The TriCG kernel against its plain version on the Poisson stencil
+    at 64^3 f64 and 128^3 f32, at the default tolerances, under the
+    default, spd and flip (τ, ν), and with b = c = 0 (spd's [I A; A I] is
+    indefinite for this stencil, 48274 iterations at 64^3 in f64, so it
+    runs 200 iterations and is held to that trajectory): the same status,
+    niter within ±max(3, 10%) (the stop moves by 1 to 3 iterations near
+    the threshold, tests/test_fused.py:1145-1149); in f64 x and y within
+    1e-6 of max(|v|, |b|); in f32 the true block residual (f64, the plain
+    SpMV) no worse than 1.5 times the plain version's."""
+    _card()
+    pd, pda, ot, ota, b, c = _card_system(N, dtype, poisson=True)
+    if rhs == "zero_b":
+        b, c = torch.zeros_like(b), torch.zeros_like(c)
+    tol = _tol(dtype)
+    itmax = 200 if (tau, nu) == (1.0, 1.0) else 2 * b.shape[0]
+    args = (tau, nu, tol, tol, itmax)
+    before = cf.tricg_dia_fused.launches
+    k = cf.tricg_dia_fused(pd, pda, ot, ota, b, c, *args)
+    assert cf.tricg_dia_fused.launches > before
+    r = cf.tricg_dia_fused_ref(pd, pda, ot, ota, b, c, *args)
+    assert int(k[4]) == int(r[4])
+    assert abs(int(k[2]) - int(r[2])) <= max(3, 0.1 * int(r[2]))
+    if rhs == "zero_b":
+        assert int(k[2]) == 0 and int(k[4]) == rt.ZERO_RESIDUAL
+        assert not bool(k[0].any()) and not bool(k[1].any())
+        return
+    if dtype == torch.float64:
+        for v, w in zip(k[:2], r[:2]):
+            scale = max(float(w.abs().max()), float(b.abs().max()))
+            assert float((v - w).abs().max()) <= 1e-6 * scale
+        return
+
+    def block_res(x, y):
+        x, y = x.double(), y.double()
+        top = b.double() - (tau * x + dia_spmv_aligned_ref(pd.double(), ot,
+                                                           y))
+        bot = c.double() - (dia_spmv_aligned_ref(pda.double(), ota, x)
+                            + nu * y)
+        return float(torch.sqrt(top.norm() ** 2 + bot.norm() ** 2))
+
+    assert block_res(k[0], k[1]) <= 1.5 * block_res(r[0], r[1])
+
+
+@pytest.mark.cuda
+def test_nq_and_tricg_solvers_on_card_take_their_kernels():
+    """cgls, crls, cgls_lanczos_shift and tricg on a card operator run
+    their kernels; with history they take the general route through the
+    SpMV kernel and its adjoint."""
+    _card()
+    A = kt.DIAOperator(kt.convdiff_dia(16))
+    P = kt.DIAOperator(kt.poisson_dia(16))
+    rng = np.random.default_rng(23)
+    b = rng.standard_normal(16 ** 3).astype(np.float32)
+    c = rng.standard_normal(16 ** 3).astype(np.float32)
+    runs = {"cgls": (A, (b,), "cgls_dia"), "crls": (A, (b,), "crls_dia"),
+            "cgls_lanczos_shift": (A, (b, [0.1, 1.0]),
+                                   "cgls_lanczos_shift_dia"),
+            "tricg": (P, (b, c), "tricg_dia")}
+    for method, (op, args, kernel) in runs.items():
+        for kw, used in (({}, kernel), ({"history": True}, "dia_spmv")):
+            n0 = kt.kernel_launches()[used]
+            *xs, st = getattr(kt, method)(op, *args, **kw)
+            assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
+            assert st.solved
+            assert kt.kernel_launches()[used] > n0
