@@ -17,9 +17,11 @@ saddle point [I A; A^H 0]) and, in float32 and float64, the least-squares
 solvers ``lsqr``, ``lsmr`` and ``lslq`` and the least-norm solvers
 ``craig``, ``craigmr``, ``lnlq``, ``cgne`` and ``crmr``, and on the
 unshifted stencils the normal-equation solvers ``cgls``, ``crls`` and
-``cgls_lanczos_shift`` (convection-diffusion, lambda = 0.1) and
-``tricg`` (Poisson), each by its
-whole-solve kernel and by the general route with its DIA SpMV kernel,
+``cgls_lanczos_shift`` (convection-diffusion, lambda = 0.1),
+``tricg`` and ``trimr`` (Poisson), ``gpmr`` (K = 0.1 (P + I) and its
+transpose) and ``block_minres`` (Poisson + 0.5 I, four columns), each
+by its whole-solve kernel and by the general route with its DIA SpMV
+kernel,
 chains the
 padded-layout SpMV, solves the systems whose dtypes once had no SpMV
 kernel, drives every ported method through ``krylov_solve`` and a
@@ -136,7 +138,10 @@ def profile_solve(solve, top=10):
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
+        # an aten:: row repeats the device time of the kernels it
+        # launched (aten::linalg_qr and its geqr2 kernel), so only the
+        # kernels and copies count
+        if dev_us > 0 and not e.key.startswith("aten::"):
             rows.append((dev_us, e.count, e.key))
     busy_us = sum(r[0] for r in rows)
     if not rows:
@@ -1415,6 +1420,174 @@ def main():
             del k, r
         del systems
 
+    def scaled_poisson(N, dtype):
+        """K = 0.1 (P + I) (tools/exp_fused_all_tpu.py:72-85) and K^H from
+        adjoint_dia(), the true transpose, as DIA operators: GPMR's cell."""
+        P = kt.poisson_dia(N, dtype=dtype)
+        P.data[P.offsets.index(0)] += 1.0
+        K = kt.DIAOperator(kt.DIAMatrix(0.1 * P.data, P.offsets, P.shape))
+        del P
+        data, offs = K.adjoint_dia()
+        return K, kt.DIAOperator(kt.DIAMatrix(data, offs, K.shape))
+
+    def shifted_poisson(N, dtype, shift):
+        """poisson_dia(N) + shift I as a DIA operator: block MINRES's cell
+        (bench.py:485-497 with shift 0.5; tests/test_fused.py:335-348 with
+        shift -1.5)."""
+        P = kt.poisson_dia(N, dtype=dtype)
+        P.data[P.offsets.index(0)] += shift
+        return kt.DIAOperator(P)
+
+    def stacked_residual(K, KH, b, c, x, y, lam, mu):
+        """||[b; c] - [lam I K; K^H mu I][x; y]|| / ||[b; c]|| in f64 with
+        the plain SpMV: GPMR's true relative residual."""
+        xd, yd = x.double(), y.double()
+        top = b.double() - (lam * xd + dia_spmv_aligned_ref(
+            K._pd.double(), K._offsets, yd))
+        bot = c.double() - (dia_spmv_aligned_ref(KH._pd.double(),
+                                                 KH._offsets, xd) + mu * yd)
+        nbc = float(torch.sqrt(b.double().norm() ** 2
+                               + c.double().norm() ** 2))
+        r = float(torch.sqrt(top.norm() ** 2 + bot.norm() ** 2))
+        return r / nbc if nbc > 0 else r
+
+    def block_rel_residual(A, B, X):
+        """||B - AX||_F / ||B||_F in f64 with the plain SpMV."""
+        pd = A._pd.double()
+        R = B.double() - torch.stack(
+            [dia_spmv_aligned_ref(pd, A._offsets, X[:, j].double()
+                                  .contiguous())
+             for j in range(B.shape[1])], 1)
+        return float(R.norm() / B.double().norm())
+
+    with Phase("3k TriMR, GPMR and block MINRES kernels vs plain", 240):
+        # TriMR on the Poisson stencil (tau = 1, nu = -1, and the flip
+        # preset; tools/exp_fused_all_tpu.py:320-322), GPMR on
+        # K = 0.1 (P + I) and K^H from adjoint_dia() (lam = 1, mu = -1,
+        # memory 48, itmax 48; :323-326) and block MINRES on P + 0.5 I with
+        # a seeded normal B of 4 columns (bench.py:485-497), and on the
+        # indefinite P - 1.5 I at 64^3 f64 (tests/test_fused.py:335-348;
+        # capped at 200 iterations and held to that trajectory: it
+        # converges slowly at this size),
+        # at 64^3 f64 and 128^3 f32, at the entry points' default
+        # tolerances (sqrt eps), each kernel against its plain version on
+        # the same inputs: the same status (and GPMR's inconsistent flag),
+        # niter within +-3 (TriMR), +-1 (GPMR) and +-2 (block MINRES), the
+        # JAX package's own spreads (tests/test_fused.py:1147, 1514, 345);
+        # in f64 x (and y, X) within 1e-6 relative; the true relative
+        # residual (f64, the plain SpMV: the block residual, the stacked
+        # residual, ||B - AX||_F / ||B||_F) no worse than 1.5 times the
+        # plain version's.  Bounds count bytes (the headers of the .cu
+        # files): TriMR the two stencils and 14 vectors read, 8 written
+        # per iteration; GPMR per iteration k the two stencils, the 2k
+        # basis vectors read and the two new ones written, and after the
+        # loop the 2 niter basis vectors read and x, y written; block
+        # MINRES the stencil once and 8p vectors per iteration, and B read
+        # and V_1 written at the start.  ms, plain ms and the bound for
+        # the main path's cases (128^3 f32: TriMR's default preset, GPMR,
+        # block MINRES with P + 0.5 I).
+        sl_cases = []
+        for N, dt in ((64, torch.float64), (128, torch.float32)):
+            sl_cases += [("trimr", N, dt, None), ("trimr", N, dt, "flip"),
+                         ("gpmr", N, dt, None), ("block_minres", N, dt, 0.5)]
+        sl_cases.append(("block_minres", 64, torch.float64, -1.5))
+        gen = np.random.default_rng(SEED + 20)
+        for name, N, dt, variant in sl_cases:
+            n = N ** 3
+            tol = rt.default_tol(None, dt)
+            f32 = dt == torch.float32
+            if name == "trimr":
+                pd, ot, pda, ota, b, c = nq_system(N, dt, True, gen)
+                tau, nu = (-1.0, 1.0) if variant == "flip" else (1.0, -1.0)
+                head = (pd, pda, ot, ota, b, c)
+                args, kw = (tau, nu, tol, tol, 2 * n), {}
+                nvec, ncode, band = 2, 4, 3
+                nd2 = 2 * pd.numel() * pd.element_size()
+            elif name == "gpmr":
+                K, KH = scaled_poisson(N, dt)
+                b, c = rhs(n, dt, gen), rhs(n, dt, gen)
+                head = (K._pd, KH._pd, K._offsets, KH._offsets, b, c)
+                args, kw = (1.0, -1.0, tol, tol, 48), {"mem": 48}
+                nvec, ncode, band = 2, 4, 1
+                nd2 = (K._pd.numel() + KH._pd.numel()) * K._pd.element_size()
+            else:
+                A = shifted_poisson(N, dt, variant)
+                gb = torch.as_tensor(gen.standard_normal((n, 4)))
+                B = gb.to(dev, dt)
+                head = (A._pd, A._offsets, B)
+                # the indefinite system converges slowly at 64^3 (1.2e-2
+                # relative after 3000 iterations), so it runs 200
+                args = (tol, tol, 200 if variant < 0 else 2 * (n // 4))
+                kw, nvec, ncode, band = {}, 1, 3, 2
+            kernel = getattr(cf, name + "_dia_fused")
+            plain = getattr(cf, name + "_dia_fused_ref")
+            k = kernel(*head, *args, **kw)
+            r = plain(*head, *args, **kw)
+            torch.cuda.synchronize()
+            it_k, it_r = int(k[nvec]), int(r[nvec])
+            codes_k = [int(k[ncode])] + ([int(k[5])] if name == "gpmr"
+                                         else [])
+            codes_r = [int(r[ncode])] + ([int(r[5])] if name == "gpmr"
+                                         else [])
+            err = max(float((a - w).abs().max())
+                      for a, w in zip(k[:nvec], r[:nvec]))
+            rel = max(float((a - w).abs().max())
+                      / max(float(w.abs().max()), 1e-300)
+                      for a, w in zip(k[:nvec], r[:nvec]))
+            if name == "trimr":
+                res_k = block_residual(pd, ot, pda, ota, b, c, k[0], k[1],
+                                       tau, nu)
+                res_p = block_residual(pd, ot, pda, ota, b, c, r[0], r[1],
+                                       tau, nu)
+            elif name == "gpmr":
+                res_k = stacked_residual(K, KH, b, c, k[0], k[1], 1.0, -1.0)
+                res_p = stacked_residual(K, KH, b, c, r[0], r[1], 1.0, -1.0)
+            else:
+                res_k = block_rel_residual(A, B, k[0])
+                res_p = block_rel_residual(A, B, r[0])
+            label = (f"{name} {f'{variant} ' if variant else ''}{N}^3 "
+                     f"{'f32' if f32 else 'f64'}")
+            line = (f"  {label}: kernel niter={it_k} codes={codes_k}; "
+                    f"plain niter={it_r} codes={codes_r}; max_abs_err="
+                    f"{err:.3e} rel={rel:.3e}; true_res kernel {res_k:.3e} "
+                    f"plain {res_p:.3e}")
+            timed = f32 and variant in (None, 0.5)
+            if timed:
+                ms = event_ms(lambda: kernel(*head, *args, **kw), reps=3,
+                              warmup=1)
+                plain_ms = event_ms(lambda: plain(*head, *args, **kw),
+                                    reps=1, warmup=0)
+                vec = n * dt.itemsize
+                if name == "trimr":
+                    bound_bytes = it_k * (nd2 + 22 * vec)
+                elif name == "gpmr":
+                    bound_bytes = (sum(nd2 + (2 * j + 2) * vec
+                                       for j in range(1, it_k + 1))
+                                   + (2 * it_k + 2) * vec)
+                else:
+                    bound_bytes = (it_k * (A._pd.numel()
+                                           * A._pd.element_size()
+                                           + 8 * 4 * vec) + 2 * 4 * vec)
+                bound_ms = bound_bytes / bw * 1e3
+                line += (f"; ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                         f"bound_ms={bound_ms:.3f} ({bound_bytes / 1e6:.1f} "
+                         f"MB; {1e3 * ms / max(it_k, 1):.1f} us/iter)")
+            print(line, flush=True)
+            check(codes_k == codes_r,
+                  f"{label}: same status and flags as the plain version")
+            check(abs(it_k - it_r) <= band,
+                  f"{label}: niter {it_k} within ±{band} of {it_r}")
+            check(res_k <= 1.5 * res_p,
+                  f"{label}: true residual {res_k:.2e} no worse than 1.5 x "
+                  f"the plain version's {res_p:.2e}")
+            if not f32:
+                check(rel <= 1e-6, f"{label}: x agrees ({rel:.2e} <= 1e-6)")
+            if timed:
+                report[name + "_dia"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+            del k, r, head
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -2320,6 +2493,127 @@ def main():
                           top=6)
     del nq_ops
 
+    with Phase("5u trimr, gpmr, block_minres end to end", 240):
+        # The main path of the eleventh slice at 128^3, right-hand sides
+        # seeded normal, in f32 and in f64: trimr(P, b, c) (tau = 1,
+        # nu = -1) on the Poisson stencil, gpmr(K, K^H, b, c, lam=1, mu=-1,
+        # memory=48, itmax=48) with K = 0.1 (P + I) and K^H from
+        # adjoint_dia(), block_minres(P + 0.5 I, B) with B of 4 columns,
+        # each public entry point with its default options (the
+        # whole-solve kernel), then with history=True (the general route
+        # through the DIA SpMV kernel).  ms per solve, niter and us per
+        # iteration; the plain version's status; niter within +-3
+        # (TriMR), +-1 (GPMR) and +-2 (block MINRES) of the plain
+        # version's; the true relative residual (f64, the plain SpMV) of
+        # both routes no worse than 1.5 times the plain version's; the
+        # launch counts, set to 0 just before each path and read after.
+        # The kernels line takes the launches of the f32 default solves.
+        from krylov_tpu_torch.solvers.tricg import _STATUS as tri_status
+        sl_ops = {}
+        for dt in (torch.float32, torch.float64):
+            gen = np.random.default_rng(SEED + 21)
+            n = 128 ** 3
+            P = kt.DIAOperator(kt.poisson_dia(128, dtype=dt))
+            K, KH = scaled_poisson(128, dt)
+            A = shifted_poisson(128, dt, 0.5)
+            b, c = rhs(n, dt, gen), rhs(n, dt, gen)
+            B = torch.as_tensor(gen.standard_normal((n, 4))).to(dev, dt)
+            tol = rt.default_tol(None, dt)
+            f32 = dt == torch.float32
+            pda, offa = P.aligned_adjoint()
+            ota = offsets_tensor(offa, dev)
+            runs = {
+                "trimr": ((P, b, c), {}, 3,
+                          lambda: cf.trimr_dia_fused_ref(
+                              P._pd, pda, P._offsets, ota, b, c, 1.0, -1.0,
+                              tol, tol, 2 * n),
+                          lambda out: block_residual(
+                              P._pd, P._offsets, pda, ota, b, c, out[0],
+                              out[1], 1.0, -1.0)),
+                "gpmr": ((K, KH, b, c), {"lam": 1.0, "mu": -1.0,
+                                         "memory": 48, "itmax": 48}, 1,
+                         lambda: cf.gpmr_dia_fused_ref(
+                             K._pd, KH._pd, K._offsets, KH._offsets, b, c,
+                             1.0, -1.0, tol, tol, 48, 48),
+                         lambda out: stacked_residual(K, KH, b, c, out[0],
+                                                      out[1], 1.0, -1.0)),
+                "block_minres": ((A, B), {}, 2,
+                                 lambda: cf.block_minres_dia_fused_ref(
+                                     A._pd, A._offsets, B, tol, tol,
+                                     2 * (n // 4)),
+                                 lambda out: block_rel_residual(A, B,
+                                                                out[0]))}
+            for method, (args, kw, band, plain, res_of) in runs.items():
+                name = method + "_dia"
+                solve = (lambda m=method, args=args, kw=kw, **extra:
+                         getattr(kt, m)(*args, **kw, **extra))
+                sl_ops[method, f32] = solve
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.perf_counter()
+                *_, stats = out = solve()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                counts_fused = kt.kernel_launches()
+                reset_counts()
+                t = time.perf_counter()
+                *_, sh = out_h = solve(history=True)
+                torch.cuda.synchronize()
+                ms_h = (time.perf_counter() - t) * 1e3
+                counts = kt.kernel_launches()
+                ref = plain()
+                nvec = 1 if method == "block_minres" else 2
+                ref_niter = int(ref[nvec])
+                ref_code = rt.final_status_code(int(ref[nvec + 2]), 0, 1,
+                                                False)
+                if method == "gpmr" and int(ref[5]) and ref_code != 1:
+                    ref_code = rt.INCONSISTENT
+                want = rt.decode_status(ref_code, tri_status
+                                        if method == "trimr" else None)
+                res, res_p, res_h = res_of(out), res_of(ref), res_of(out_h)
+                label = f"{method} {'f32' if f32 else 'f64'}"
+                print(f"  {label}: niter={stats.niter} status="
+                      f"'{stats.status}' true_res={res:.3e} ms/solve="
+                      f"{ms:.2f} us/iter={1e3 * ms / max(stats.niter, 1):.2f}"
+                      f"; plain version: niter={ref_niter} status='{want}' "
+                      f"true_res={res_p:.3e}; history=True: "
+                      f"niter={sh.niter} status='{sh.status}' true_res="
+                      f"{res_h:.3e} ms={ms_h:.1f}; launches "
+                      f"{counts_fused[name]} ({name}), "
+                      f"{counts['dia_spmv']} (dia_spmv, history)",
+                      flush=True)
+                check(stats.solved and sh.solved,
+                      f"{label} stopped solved (both routes)")
+                check(stats.status == want,
+                      f"{label}: the plain version's status")
+                check(abs(stats.niter - ref_niter) <= band,
+                      f"{label}: niter {stats.niter} within ±{band} of the "
+                      f"plain version's {ref_niter}")
+                check(all(bool(torch.isfinite(v).all()) and v.dtype == dt
+                          and v.shape[0] == n for v in out[:-1]),
+                      f"{label}: finite solutions of height {n}")
+                check(res <= 1.5 * res_p and res_h <= 1.5 * res_p,
+                      f"{label}: true residuals {res:.3e}, {res_h:.3e} "
+                      f"(history) <= 1.5 x the plain version's")
+                check(len(sh.residuals) >= 1, f"{label} (history=True) kept "
+                      "its history")
+                check(counts_fused[name] > 0, f"{label} launched {name} "
+                      f"({counts_fused[name]} times)")
+                check(counts["dia_spmv"] > 0 and counts[name] == 0,
+                      f"{label} (history=True) launched dia_spmv "
+                      f"({counts['dia_spmv']} times) and not {name}")
+                if f32:
+                    launches[name] = counts_fused[name]
+                del ref, out, out_h
+            del P, K, KH, A, b, c, B
+
+    with Phase("5v profiles of the three 128^3 eleventh-slice solves", 120):
+        for method in ("trimr", "gpmr", "block_minres"):
+            print(f"  {method} f64:", flush=True)
+            profile_solve(lambda m=method: (None, sl_ops[m, False]()[-1]),
+                          top=6)
+    del sl_ops
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -2362,12 +2656,13 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the thirty-five ported methods through krylov_solve (the
+        # Each of the thirty-eight ported methods through krylov_solve (the
         # non-symmetric ten, CGLS, CRLS and CGLS-Lanczos-shift on the
         # convection-diffusion stencil, CGS and BiLQR in f64, the four SSY
         # methods, LSQR, LSMR, LSLQ, CRAIG, CRAIGMR, LNLQ, CGNE and CRMR on
-        # the stencil with 0.5 on its main diagonal, TriCG on the Poisson
-        # stencil), against a direct
+        # the stencil with 0.5 on its main diagonal, TriCG and TriMR on the
+        # Poisson stencil, GPMR on K = 0.1 (P + I) and K^H, block MINRES on
+        # the Poisson stencil with two columns), against a direct
         # call of its solver on the same inputs: the same status, niter and
         # x (and y) (bit for bit: the kernels sum in a fixed order); then a
         # BiLQR and a TriLQR workspace, and one workspace round trip
@@ -2381,13 +2676,15 @@ def main():
                   gen=np.random.default_rng(SEED + 10))
         Ash = kt.DIAOperator(shifted_dia(64))
         c32 = rhs(64 ** 3, gen=np.random.default_rng(SEED + 13))
+        K64, KH64 = scaled_poisson(64, torch.float32)
         for method in ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift",
                        "symmlq", "minres", "minres_qlp", "minares", "gmres",
                        "fgmres", "fom", "bicgstab", "cgs", "diom", "dqgmres",
                        "bilq", "qmr", "bilqr", "usymlq", "usymqr", "trilqr",
                        "usymlqr", "lsqr", "lsmr", "lslq", "craig", "craigmr",
                        "lnlq", "cgne", "crmr", "cgls", "crls",
-                       "cgls_lanczos_shift", "tricg"):
+                       "cgls_lanczos_shift", "tricg", "trimr", "gpmr",
+                       "block_minres"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
                                         "bicgstab", "diom", "dqgmres",
@@ -2395,8 +2692,12 @@ def main():
                                         "cgls_lanczos_shift") else A), b
             if method == "cgls_lanczos_shift":
                 extra = (nq_shifts,)
-            if method == "tricg":
+            if method in ("tricg", "trimr"):
                 extra = (c32,)
+            if method == "gpmr":
+                op, bm, extra = K64, KH64, (b, c32)
+            if method == "block_minres":
+                bm = torch.stack([b, c32], 1)
             if method in ("cgs", "bilqr"):   # in f64, as phase 3e says
                 op, bm = Acd64, b.double()
             if method == "bilqr":
@@ -2406,8 +2707,10 @@ def main():
             if method in ("lsqr", "lsmr", "lslq", "craig", "craigmr", "lnlq",
                           "cgne", "crmr"):
                 op = Ash
-            *xs, st = kt.krylov_solve(method, op, bm, *extra)
-            *xd, sd = getattr(kt, method)(op, bm, *extra)
+            kw = ({"lam": 1.0, "mu": -1.0, "memory": 48, "itmax": 48}
+                  if method == "gpmr" else {})
+            *xs, st = kt.krylov_solve(method, op, bm, *extra, **kw)
+            *xd, sd = getattr(kt, method)(op, bm, *extra, **kw)
             torch.cuda.synchronize()
             print(f"  {method}: niter={st.niter} status='{st.status}'",
                   flush=True)
@@ -2442,7 +2745,7 @@ def main():
               == kt.iteration_count(ws) and len(kt.solution(ws)) == 2,
               "a TriLQR workspace: both solved, one A and one A^H product "
               "per iteration, two solutions")
-        del A, Acd, Acd64, Ash, b, c32, c64
+        del A, Acd, Acd64, Ash, b, c32, c64, K64, KH64
 
     launches["dia_spmv_padded"] = launches_padded
     sources = {"dia_spmv": ("krylov_tpu_torch/csrc/dia_spmv.cu",
@@ -2516,7 +2819,14 @@ def main():
                    "krylov_tpu_torch/csrc/cgls_lanczos_shift_dia.cu",
                    "krylov_tpu/ops/pallas_fused.py:7217"),
                "tricg_dia": ("krylov_tpu_torch/csrc/tricg_dia.cu",
-                             "krylov_tpu/ops/pallas_fused.py:5427")}
+                             "krylov_tpu/ops/pallas_fused.py:5427"),
+               "trimr_dia": ("krylov_tpu_torch/csrc/trimr_dia.cu",
+                             "krylov_tpu/ops/pallas_fused.py:5639"),
+               "gpmr_dia": ("krylov_tpu_torch/csrc/gpmr_dia.cu",
+                            "krylov_tpu/ops/pallas_fused.py:8220"),
+               "block_minres_dia": (
+                   "krylov_tpu_torch/csrc/block_minres_dia.cu",
+                   "krylov_tpu/ops/pallas_fused.py:2669")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

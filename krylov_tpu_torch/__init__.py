@@ -12,8 +12,10 @@ bidiagonalisation, ``lsqr``, ``lsmr`` and ``lslq`` for min ‖b − Ax‖
 and ``craig``, ``craigmr`` and ``lnlq`` for min ‖x‖ subject to Ax = b,
 with ``cgne`` and ``crmr`` (CG and CR on AAᴴ) for the same problem,
 and ``cgls``, ``crls`` and ``cgls_lanczos_shift`` (CG and CR on AᴴA)
-for min ‖b − Ax‖² + λ‖x‖², and ``tricg`` for the symmetric
-quasi-definite [τI A; Aᴴ νI][x; y] = [b; c],
+for min ‖b − Ax‖² + λ‖x‖², ``tricg`` and ``trimr`` for the symmetric
+quasi-definite [τI A; Aᴴ νI][x; y] = [b; c], ``gpmr`` for the
+partitioned [λI A; B μI][x; y] = [b; c] with two operators, and
+``block_minres`` for AX = B with several right-hand sides,
 on DIA stencil, CSR, dense and matrix-free operators (with their
 adjoints), through hand-written CUDA kernels for Hopper (``csrc/``): a
 DIA SpMV (plain and in a padded, chainable layout) and a whole-solve
@@ -41,7 +43,8 @@ from .ops.cuda_dia import (dia_align_adjoint, dia_pad_layout,
                            dia_spmv_aligned, dia_spmv_padded,
                            dia_unpad_layout)
 from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
-                             bilqr_dia_fused, car_dia_fused,
+                             bilqr_dia_fused, block_minres_dia_fused,
+                             car_dia_fused,
                              cg_cheby_dia_fused, cg_dia_fused,
                              cg_lanczos_dia_fused,
                              cg_lanczos_shift_dia_fused, cgls_dia_fused,
@@ -49,12 +52,14 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
                              cgne_crmr_dia_fused, cgs_dia_fused,
                              cr_dia_fused, craig_dia_fused,
                              craigmr_dia_fused, crls_dia_fused,
-                             fom_dia_fused, gmres_dia_fused, lnlq_dia_fused,
+                             fom_dia_fused, gmres_dia_fused, gpmr_dia_fused,
+                             lnlq_dia_fused,
                              lslq_dia_fused, lsmr_dia_fused, lsqr_dia_fused,
                              minares_dia_fused, minres_dia_fused,
                              minres_qlp_dia_fused, qmr_dia_fused,
                              symmlq_dia_fused, tricg_dia_fused,
-                             trilqr_dia_fused, trunc_dia_fused,
+                             trilqr_dia_fused, trimr_dia_fused,
+                             trunc_dia_fused,
                              usymlq_dia_fused, usymlqr_dia_fused,
                              usymqr_dia_fused)
 from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
@@ -64,6 +69,7 @@ from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
 from .precond import ChebyshevPreconditioner, power_bound
 from .solvers.bicgstab import bicgstab, cgs
 from .solvers.bilq import bilq, bilqr, qmr
+from .solvers.block import block_minres
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cgls import cgls, cgls_lanczos_shift, crls
@@ -72,6 +78,7 @@ from .solvers.cr import car, cr
 from .solvers.craig import craig, craigmr, lnlq
 from .solvers.fom import diom, dqgmres, fom
 from .solvers.gmres import fgmres, gmres
+from .solvers.gpmr import gpmr
 from .solvers.lslq import lslq
 from .solvers.lsmr import lsmr
 from .solvers.lsqr import lsqr
@@ -79,7 +86,7 @@ from .solvers.minares import minares
 from .solvers.minres import minres
 from .solvers.minres_qlp import minres_qlp
 from .solvers.symmlq import symmlq
-from .solvers.tricg import tricg
+from .solvers.tricg import tricg, trimr
 from .solvers.usymlq import trilqr, usymlq, usymlqr, usymqr
 from .stats import (AdjointStats, LanczosShiftStats, LanczosStats,
                     LNLQStats, LSLQStats, LsmrStats, SimpleStats,
@@ -131,7 +138,10 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "cgls_dia": cgls_dia_fused,
            "crls_dia": crls_dia_fused,
            "cgls_lanczos_shift_dia": cgls_lanczos_shift_dia_fused,
-           "tricg_dia": tricg_dia_fused}
+           "tricg_dia": tricg_dia_fused,
+           "trimr_dia": trimr_dia_fused,
+           "gpmr_dia": gpmr_dia_fused,
+           "block_minres_dia": block_minres_dia_fused}
 
 
 def kernel_launches():

@@ -34,7 +34,7 @@ _PAIRS = ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")
 _SPMV_PAIRS = _PAIRS + ("f64_f32", "bf16_bf16", "f16_f16", "c64_f32",
                         "c64_c64", "c128_f64", "c128_c128")
 # the kernels on the Saunders-Simon-Yip launches of csrc/ssy.cuh
-_SSY = ("usymlq", "usymqr", "trilqr", "usymlqr", "tricg")
+_SSY = ("usymlq", "usymqr", "trilqr", "usymlqr", "tricg", "trimr")
 # the kernels on the Golub-Kahan launches of csrc/gk.cuh
 _GK = ("lsqr", "lsmr", "lslq", "craig", "craigmr", "lnlq")
 # C entry points and their argument types; every pointer and the stream
@@ -189,6 +189,23 @@ _SIGNATURES = {
        + (_L, _I, _I, _P) for t in _PAIRS},
     **{f"ktt_cgls_lanczos_shift_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I)
        + (_P,) * 4 + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    # GPMR (csrc/gpmr_dia.cu): (b, c, work, partial, sc, st, n, grid, mem,
+    # stream), (pd_a, offsets_a, nd_a, pd_b, offsets_b, nd_b, work,
+    # partial, sc, st, n, grid, mem, iters, cap, stream) and (work, sc,
+    # st, n, grid, mem, stream)
+    **{f"ktt_gpmr_dia_init_{t}": (_P,) * 6 + (_L, _I, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ktt_gpmr_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    **{f"ktt_gpmr_dia_finish_{t}": (_P,) * 3 + (_L, _I, _I, _P)
+       for t in ("f32", "f64")},
+    # block MINRES (csrc/block_minres_dia.cu, block_minres_dia_f64.cu):
+    # (Bt, work, partial, sc, st, n, grid, p, stream) and (pd, offsets, nd,
+    # work, partial, sc, st, n, grid, p, iters, cap, stream)
+    **{f"ktt_block_minres_dia_init_{t}": (_P,) * 5 + (_L, _I, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ktt_block_minres_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
+       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
 }
 
 

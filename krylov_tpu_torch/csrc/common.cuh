@@ -201,4 +201,71 @@ __device__ __forceinline__ T sum_partials(const T* partial, int nparts) {
   return block_sum(s);
 }
 
+// K sums over the block at once: v[j] summed over the block's threads is
+// stored at out[j * stride + blockIdx.x] (a block's partials of K dots),
+// or, with stride 0, at out[j] by thread 0 alone, for j < count.  Each sum
+// is taken in a fixed order, as block_sum's; blockDim.x is a multiple of
+// 32.
+template <typename T, int K>
+__device__ __forceinline__ void block_sums(T (&v)[K], T* out, int stride,
+                                           int count = K) {
+  __shared__ T warp_sums[K][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    T s = v[j];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) warp_sums[j][warp] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      T s = lane < nwarps ? warp_sums[j][lane] : T(0);
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_down_sync(0xffffffffu, s, o);
+      }
+      if (lane == 0 && j < count) {
+        if (stride == 0) {
+          out[j] = s;
+        } else {
+          out[static_cast<long long>(j) * stride + blockIdx.x] = s;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The sums of count rows of per-block partials (row j at
+// partial[j * nparts]), each in a fixed order, into out[0 .. count) in
+// shared memory, the same values in every block; every thread may read
+// them on return.
+template <typename T>
+__device__ __forceinline__ void sum_partial_rows(const T* partial, int nparts,
+                                                 int count, T* out) {
+  constexpr int K = 8;
+  for (int j0 = 0; j0 < count; j0 += K) {
+    T v[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = T(0);
+    for (int i = threadIdx.x; i < nparts; i += blockDim.x) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (j0 + j < count) {
+          v[j] += partial[static_cast<long long>(j0 + j) * nparts + i];
+        }
+      }
+    }
+    T s[K];
+    block_sums<T, K>(v, s, 0);
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < K && j0 + j < count; ++j) out[j0 + j] = s[j];
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace ktt

@@ -59,11 +59,12 @@ class AbstractLinearOperator:
         return self.matvec(x)
 
     def matmat(self, X):
-        return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])],
-                           dim=1)
+        # columns made contiguous: the SpMV kernel takes no strided vector
+        return torch.stack([self.matvec(X[:, j].contiguous())
+                            for j in range(X.shape[1])], dim=1)
 
     def rmatmat(self, X):
-        return torch.stack([self.rmatvec(X[:, j])
+        return torch.stack([self.rmatvec(X[:, j].contiguous())
                             for j in range(X.shape[1])], dim=1)
 
 

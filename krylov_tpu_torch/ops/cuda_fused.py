@@ -62,8 +62,16 @@ same chunked, masked semantics, so that niter is exact across chunks.
   ``csrc/crls_dia.cu``).
 * ``cgls_lanczos_shift_dia_fused``: every min ‖b − Ax‖² + λᵢ‖x‖² from
   one Lanczos stream on AᴴA (``csrc/cgls_lanczos_shift_dia.cu``).
-* ``tricg_dia_fused``: TriCG for [τI A; Aᴴ νI][x; y] = [b; c] on the
-  Saunders–Simon–Yip launches (``csrc/tricg_dia.cu``).
+* ``tricg_dia_fused`` and ``trimr_dia_fused``: TriCG and TriMR for
+  [τI A; Aᴴ νI][x; y] = [b; c] on the Saunders–Simon–Yip launches
+  (``csrc/tricg_dia.cu``, ``csrc/trimr_dia.cu``).
+* ``gpmr_dia_fused``: GPMR for [λI A; B μI][x; y] = [b; c] with two DIA
+  matrices, CGS over a basis of at most 64 slots and the back
+  substitution on the card (``csrc/gpmr_dia.cu``).
+* ``block_minres_dia_fused``: block MINRES for AX = B, B of 1 to 8
+  columns, with CholQR2 panels (``csrc/block_minres.cuh`` on
+  ``csrc/block.cuh``, instantiated in ``csrc/block_minres_dia.cu`` and
+  ``csrc/block_minres_dia_f64.cu``).
 """
 
 import math
@@ -201,6 +209,17 @@ _LZS_X, _LZS_NPART = 4, 2
 # TriCG (csrc/tricg_dia.cu, on csrc/ssy.cuh): the rnorm slot, τ and ν
 # after the staging copy, and the work rows of x and y
 _TCG_RNORM, _TCG_TAU, _TCG_NSC, _TCG_NST, _TCG_NROWS = 11, 21, 23, 5, 12
+# TriMR (csrc/trimr_dia.cu, on csrc/ssy.cuh): as TriCG's, with the four
+# direction panels of x and of y after y
+_TMR_RNORM, _TMR_TAU, _TMR_NSC, _TMR_NST, _TMR_NROWS = 22, 43, 45, 5, 16
+# GPMR (csrc/gpmr_dia.cu): the fixed scalar slots (ATOL, RTOL, LAM, MU,
+# EPS_LIM, RNORM), then arrays sized by mem (``_gp_layout``); the int
+# slots of the inconsistent flag and the array's size; the largest mem
+_GP_RNORM, _GP_H, _GP_INCON, _GP_NST, _GP_MAXMEM = 5, 6, 4, 5, 64
+# block MINRES (csrc/block_minres.cuh, on csrc/block.cuh): the rnorm
+# slot and the first state slot (Ψ), the int array's size, the largest p;
+# the arrays are sized by p (``_bm_layout``)
+_BM_RNORM, _BM_PSI, _BM_NST, _BM_MAXP = 3, 4, 4, 8
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -246,6 +265,26 @@ cgls_dia_fused_supported = cg_dia_fused_supported
 crls_dia_fused_supported = cg_dia_fused_supported
 cgls_lanczos_shift_dia_fused_supported = cg_dia_fused_supported
 tricg_dia_fused_supported = cg_dia_fused_supported
+trimr_dia_fused_supported = cg_dia_fused_supported
+
+
+def block_minres_dia_fused_supported(offsets, n, p, dtype,
+                                     stencil_dtype=None):
+    """The dtype gate of ``cg_dia_fused_supported``, and 1 ≤ p ≤ 8 (the
+    TPU kernel's gate, pallas_fused.py:2999)."""
+    return (cg_dia_fused_supported(offsets, n, dtype, stencil_dtype)
+            and 1 <= p <= _BM_MAXP)
+
+
+def gpmr_dia_fused_supported(offsets_a, offsets_b, n, dtype, mem,
+                             stencil_dtype=None):
+    """The dtype gate of ``cg_dia_fused_supported``, and mem ≤ 64: the
+    kernel keeps the 2k × 2k triangle's scalar work in one thread per
+    block (the TPU kernel's SMEM bound, pallas_fused.py:8553)."""
+    return (cg_dia_fused_supported(offsets_a, n, dtype, stencil_dtype)
+            and 2 <= mem <= _GP_MAXMEM)
+
+
 # the rings live in device memory, so any mem ≥ 2 has a kernel
 trunc_dia_fused_supported = cg_dia_fused_supported
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
@@ -3161,6 +3200,491 @@ def tricg_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, tau, nu,
     return s.x, s.y, s.iter, s.rnorm, s.status
 
 
+def trimr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c, tau, nu,
+                        atol, rtol, itmax):
+    """Plain PyTorch TriMR of [τI A; Aᴴ νI][x; y] = [b; c] (pallas_fused.py:
+    5639-5863): the SSY process, the four previous reflections applied to
+    the new columns of Sₖ₊₁.ₖ, the current cascade of four, the four-deep
+    x and y direction recurrences (masked coefficients on zeroed panels at
+    the first two iterations) and the π pair; q or p stays un-normalised
+    where its norm is at most eps^¾, both at once is a breakdown (code 28)
+    unless the solved test holds.
+
+    Returns (x, y, niter, rnorm, status) as tensors, as
+    ``trimr_dia_fused`` does."""
+    one, zero = _scalar(1, b), _scalar(0, b)
+    tau, nu = _scalar(tau, b), _scalar(nu, b)
+    btol = _scalar(float(torch.finfo(b.dtype).eps) ** 0.75, b)
+    beta0, gamma0, v1, u1 = _ssy_start(b, c)
+    rnorm0 = torch.sqrt(gamma0 * gamma0 + beta0 * beta0)
+    eps_lim = _scalar(atol, b) + _scalar(rtol, b) * rnorm0
+    status0 = torch.where(rnorm0 == 0, ZERO_RESIDUAL, torch.where(
+        rnorm0 <= eps_lim, SOLVED, RUNNING)).to(torch.int32)
+    zv = torch.zeros_like(b)
+    scal = ("oc1", "os1", "oc2", "os2", "oc3", "os3", "oc4", "os4",
+            "sbar_m2", "ebar_m3", "lbar_m3", "mu_m5", "mu_m4", "lam_m4")
+    st0 = types.SimpleNamespace(
+        x=zv, y=zv, vk=v1, uk=u1, vkm1=zv, ukm1=zv,
+        gx=torch.zeros((4,) + b.shape, dtype=b.dtype, device=b.device),
+        gy=torch.zeros((4,) + b.shape, dtype=b.dtype, device=b.device),
+        iter=_i32(0, b), beta=beta0, gamma=gamma0, pibar_odd=beta0,
+        pibar_even=gamma0, rnorm=rnorm0, status=status0,
+        **dict.fromkeys(scal, zero))
+
+    def step(s):
+        first = s.iter == 0
+        ge2 = s.iter >= 1
+        q, p, alpha, beta1, gamma1 = _ssy_ref(pd, offsets, pd_adj,
+                                              offsets_adj, s, one, zero)
+        # the four previous reflections (pallas_fused.py:5742-5770)
+        sbis_m2 = s.oc1 * s.sbar_m2 + s.os1 * alpha
+        ebis_m2 = s.os1 * nu
+        lbis_m2 = s.os1 * beta1
+        thbis = s.os1 * s.sbar_m2 - s.oc1 * alpha
+        dbis_even = -s.oc1 * nu
+        sbis_even = -s.oc1 * beta1
+        e_m3 = s.oc2 * s.ebar_m3 + s.os2 * sbis_m2
+        l_m3 = s.oc2 * s.lbar_m3 + s.os2 * ebis_m2
+        mu_m3 = s.os2 * lbis_m2
+        shat_m2 = s.os2 * s.ebar_m3 - s.oc2 * sbis_m2
+        ehat_m2 = s.os2 * s.lbar_m3 - s.oc2 * ebis_m2
+        lhat_m2 = -s.oc2 * lbis_m2
+        stmp_m2 = s.oc3 * shat_m2 + s.os3 * thbis
+        etmp_m2 = s.oc3 * ehat_m2 + s.os3 * dbis_even
+        ltmp_m2 = s.oc3 * lhat_m2 + s.os3 * sbis_even
+        thetabar_k = s.os3 * shat_m2 - s.oc3 * thbis
+        dbar_even_k = s.os3 * ehat_m2 - s.oc3 * dbis_even
+        sbar_even_k = s.os3 * lhat_m2 - s.oc3 * sbis_even
+        s_m2 = s.oc4 * stmp_m2 + s.os4 * tau
+        e_m2 = s.oc4 * etmp_m2 + s.os4 * alpha
+        l_m2 = s.oc4 * ltmp_m2
+        mu_m2 = s.os4 * gamma1
+        dbar_odd_k = s.os4 * stmp_m2 - s.oc4 * tau
+        sbar_odd_k = s.os4 * etmp_m2 - s.oc4 * alpha
+        ebar_odd_k = s.os4 * ltmp_m2
+        lbar_odd_k = -s.oc4 * gamma1
+        thetabar = torch.where(first, alpha, thetabar_k)
+        dbar_odd = torch.where(first, tau, dbar_odd_k)
+        dbar_even = torch.where(first, nu, dbar_even_k)
+        sbar_odd = torch.where(first, alpha, sbar_odd_k)
+        sbar_even = torch.where(first, beta1, sbar_even_k)
+        lbar_odd = torch.where(first, gamma1, lbar_odd_k)
+        ebar_odd = torch.where(first, zero, ebar_odd_k)
+        e_m3, l_m3, mu_m3, s_m2, e_m2, l_m2, mu_m2 = (
+            torch.where(first, zero, v)
+            for v in (e_m3, l_m3, mu_m3, s_m2, e_m2, l_m2, mu_m2))
+        # the current cascade (pallas_fused.py:5786-5794)
+        c1, s1, theta_k = sym_givens(thetabar, gamma1)
+        g_k = s1 * dbar_even
+        dbar_even2 = c1 * dbar_even
+        c2, s2, d_odd = sym_givens(dbar_odd, theta_k)
+        s_odd = c2 * sbar_odd + s2 * dbar_even2
+        dbis_even2 = s2 * sbar_odd - c2 * dbar_even2
+        c3, s3, dhat_even = sym_givens(dbis_even2, g_k)
+        c4, s4, d_even = sym_givens(dhat_even, beta1)
+        # the directions on the zeroed panels (pallas_fused.py:5796-5817)
+        sd_odd, sd_even = _safe(d_odd, one), _safe(d_even, one)
+        mu5 = torch.where(first, zero, s.mu_m5)
+        mu4 = torch.where(first, zero, s.mu_m4)
+        lam4 = torch.where(first, zero, s.lam_m4)
+        gx, gy = s.gx, s.gy
+        gx_odd = (s.vk - mu5 * gx[0] - lam4 * gx[1] - e_m3 * gx[2]
+                  - s_m2 * gx[3]) / sd_odd
+        gx_even = (-mu4 * gx[1] - l_m3 * gx[2] - e_m2 * gx[3]
+                   - s_odd * gx_odd) / sd_even
+        gy_odd = (-mu5 * gy[0] - lam4 * gy[1] - e_m3 * gy[2]
+                  - s_m2 * gy[3]) / sd_odd
+        gy_even = (s.uk - mu4 * gy[1] - l_m3 * gy[2] - e_m2 * gy[3]
+                   - s_odd * gy_odd) / sd_even
+        # the π pair (pallas_fused.py:5819-5827)
+        pibis_even = c1 * s.pibar_even
+        pibis_next_even = s1 * s.pibar_even
+        pi_odd = c2 * s.pibar_odd + s2 * pibis_even
+        pihat_even = s2 * s.pibar_odd - c2 * pibis_even
+        pitmp = c3 * pihat_even + s3 * pibis_next_even
+        pibar_next_even = s3 * pihat_even - c3 * pibis_next_even
+        pi_even = c4 * pitmp
+        pibar_next_odd = s4 * pitmp
+        rnorm = torch.sqrt(pibar_next_odd ** 2 + pibar_next_even ** 2)
+        solved = (rnorm <= eps_lim) | ((rnorm + 1.0) <= 1.0)
+        breakdown = (beta1 <= btol) & (gamma1 <= btol)
+        code = torch.where(solved, SOLVED, torch.where(
+            breakdown, INCONS_TRI, RUNNING))
+        return dict(
+            x=s.x + pi_odd * gx_odd + pi_even * gx_even,
+            y=s.y + pi_odd * gy_odd + pi_even * gy_even,
+            vk=torch.where(beta1 > btol, q / _safe(beta1, one), q),
+            uk=torch.where(gamma1 > btol, p / _safe(gamma1, one), p),
+            vkm1=s.vk, ukm1=s.uk,
+            gx=torch.stack([gx[2], gx[3], gx_odd, gx_even]),
+            gy=torch.stack([gy[2], gy[3], gy_odd, gy_even]),
+            iter=s.iter + 1, beta=beta1, gamma=gamma1, oc1=c1, os1=s1,
+            oc2=c2, os2=s2, oc3=c3, os3=s3, oc4=c4, os4=s4,
+            sbar_m2=sbar_even, ebar_m3=ebar_odd, lbar_m3=lbar_odd,
+            mu_m5=torch.where(ge2, mu_m3, s.mu_m5),
+            mu_m4=torch.where(ge2, mu_m2, s.mu_m4),
+            lam_m4=torch.where(ge2, l_m2, s.lam_m4),
+            pibar_odd=pibar_next_odd, pibar_even=pibar_next_even,
+            rnorm=rnorm, status=code.to(torch.int32))
+
+    s = _drive_ref(st0, step, itmax)
+    return s.x, s.y, s.iter, s.rnorm, s.status
+
+
+# ---------------------------------------------------------------------------
+# GPMR: the plain version
+# ---------------------------------------------------------------------------
+
+def _rotate_quad(col, i0, cs, ss):
+    """Rows 2i0 .. 2i0 + 3 of a column (CPU 0-d tensors) through one stored
+    reflection quadruple (pallas_fused.py:8369-8392)."""
+    c1, c2, c3, c4 = cs
+    s1, s2, s3, s4 = ss
+    r1, r2, r3, r4 = col[2 * i0:2 * i0 + 4]
+    t = c1 * r1 + s1 * r4
+    r4 = s1 * r1 - c1 * r4
+    r1 = t
+    t = c2 * r1 + s2 * r2
+    r2 = s2 * r1 - c2 * r2
+    r1 = t
+    t = c3 * r2 + s3 * r4
+    r4 = s3 * r2 - c3 * r4
+    r2 = t
+    t = c4 * r2 + s4 * r3
+    r3 = s4 * r2 - c4 * r3
+    r2 = t
+    col[2 * i0:2 * i0 + 4] = [r1, r2, r3, r4]
+
+
+def _gp_layout(mem):
+    """(scalars, work rows, partial rows) of the GPMR kernel at this mem
+    (csrc/gpmr_dia.cu, struct Layout): h, f, zt, the quadruples' c and s,
+    R, and the staging copy (rNorm, zt, the quadruple, two columns); the
+    basis V and U (mem + 1 rows each), q, p, x, y; the dots' partials."""
+    r = _GP_H + 2 * mem + (2 * mem + 2) + 8 * mem
+    nsc = r + (2 * mem + 2) * 2 * mem + 1 + 4 + 8 + 2 * (2 * mem + 2)
+    return nsc, 2 * mem + 6, 2 * mem + 2
+
+
+def gpmr_dia_fused_ref(pd_a, pd_b, offsets_a, offsets_b, b, c, lam, mu,
+                       atol, rtol, itmax, mem=20):
+    """Plain PyTorch GPMR of [λI A; B μI][x; y] = [b; c] (pallas_fused.py:
+    8220-8549): A on uₖ, B on vₖ, classical Gram–Schmidt against the basis
+    (every dot first, then the subtraction), the stored reflection
+    quadruples applied one after another to the two new columns, the
+    current four, t̄ and the status (100 when k reaches mem), then the
+    back substitution on the 2k × 2k triangle (a pivot of modulus at most
+    eps^¾ gives 0 and the inconsistent flag) and x = Σ zt₂ᵢ Vᵢ,
+    y = Σ zt₂ᵢ₊₁ Uᵢ.  The vectors stay on b's device and the scalar work
+    runs on the CPU in b's dtype.
+
+    Returns (x, y, niter, rnorm, status, inconsistent) as tensors, as
+    ``gpmr_dia_fused`` does."""
+    dev, T = b.device, b.dtype
+    n = b.shape[0]
+    two = 2 * mem
+
+    def cpu(v):
+        return torch.as_tensor(v, dtype=T)
+
+    one, zero = cpu(1), cpu(0)
+    lam, mu = cpu(lam), cpu(mu)
+    btol = float(torch.finfo(T).eps) ** 0.75
+    V = torch.zeros((mem + 1, n), dtype=T, device=dev)
+    U = torch.zeros((mem + 1, n), dtype=T, device=dev)
+    beta0 = torch.sqrt(torch.sum(b * b))
+    gamma0 = torch.sqrt(torch.sum(c * c))
+    V[0] = torch.where(beta0 != 0, b / _safe(beta0, _scalar(1, b)), 0)
+    U[0] = torch.where(gamma0 != 0, c / _safe(gamma0, _scalar(1, b)), 0)
+    beta0, gamma0 = beta0.cpu(), gamma0.cpu()
+    rnorm = torch.sqrt(beta0 * beta0 + gamma0 * gamma0)
+    eps_lim = cpu(atol) + cpu(rtol) * rnorm
+    zt = [zero] * (two + 2)
+    zt[0], zt[1] = beta0, gamma0
+    gc, gs = [zero] * (4 * mem), [zero] * (4 * mem)
+    R = torch.zeros((two + 2, two), dtype=T)
+    status = (ZERO_RESIDUAL if rnorm == 0 else SOLVED if rnorm <= eps_lim
+              else RUNNING)
+    it = 0
+    while status == RUNNING and it < itmax:
+        k = it + 1
+        q = dia_spmv_aligned_ref(pd_a, offsets_a, U[it])
+        p = dia_spmv_aligned_ref(pd_b, offsets_b, V[it])
+        # CGS: all 2k dots, then the subtraction (pallas_fused.py:8318-8334)
+        hf = torch.stack([torch.stack([torch.sum(V[j] * q),
+                                       torch.sum(U[j] * p)])
+                          for j in range(k)])
+        for j in range(k):
+            q = q - hf[j, 0] * V[j]
+            p = p - hf[j, 1] * U[j]
+        haux = torch.sqrt(torch.sum(q * q)).cpu()
+        faux = torch.sqrt(torch.sum(p * p)).cpu()
+        hf = hf.cpu()
+        # the two new columns (pallas_fused.py:8339-8350)
+        co, ce = [zero] * (two + 2), [zero] * (two + 2)
+        for j in range(k):
+            co[2 * j + 1] = hf[j, 1]
+            ce[2 * j] = hf[j, 0]
+        co[2 * k - 2] = co[2 * k - 2] + lam
+        ce[2 * k - 1] = ce[2 * k - 1] + mu
+        for i0 in range(k - 1):
+            cs = gc[4 * i0:4 * i0 + 4]
+            ss = gs[4 * i0:4 * i0 + 4]
+            _rotate_quad(co, i0, cs, ss)
+            _rotate_quad(ce, i0, cs, ss)
+        # the current reflections (pallas_fused.py:8396-8412)
+        c1, s1, do = sym_givens(co[2 * k - 2], faux)
+        theta = s1 * ce[2 * k - 2]
+        de1 = c1 * ce[2 * k - 2]
+        c2, s2, do = sym_givens(do, co[2 * k - 1])
+        t = c2 * de1 + s2 * ce[2 * k - 1]
+        de2 = s2 * de1 - c2 * ce[2 * k - 1]
+        de1 = t
+        c3, s3, de2 = sym_givens(de2, theta)
+        c4, s4, de2 = sym_givens(de2, haux)
+        co[2 * k - 2], co[2 * k - 1] = do, zero
+        ce[2 * k - 2], ce[2 * k - 1] = de1, de2
+        R[:2 * k, 2 * k - 2] = torch.stack(co[:2 * k])
+        R[:2 * k, 2 * k - 1] = torch.stack(ce[:2 * k])
+        # t̄ₖ (pallas_fused.py:8420-8433)
+        z1, z2 = zt[2 * k - 2], zt[2 * k - 1]
+        tbar_pp = s1 * z1
+        z1 = c1 * z1
+        t = c2 * z1 + s2 * z2
+        z2 = s2 * z1 - c2 * z2
+        z1 = t
+        t = c3 * z2 + s3 * tbar_pp
+        tbar_pp = s3 * z2 - c3 * tbar_pp
+        z2 = t
+        tbar_p = s4 * z2
+        z2 = c4 * z2
+        zt[2 * k - 2], zt[2 * k - 1] = z1, z2
+        gc[4 * k - 4:4 * k] = [c1, c2, c3, c4]
+        gs[4 * k - 4:4 * k] = [s1, s2, s3, s4]
+        rnorm = torch.sqrt(tbar_p * tbar_p + tbar_pp * tbar_pp)
+        if rnorm <= eps_lim or rnorm + 1.0 <= 1.0:
+            status = SOLVED
+        elif faux <= btol and haux <= btol:
+            status = BREAKDOWN
+        elif k >= mem:
+            status = TIRED
+        if status == RUNNING:
+            V[k] = q / haux.to(dev) if haux > btol else 0
+            U[k] = p / faux.to(dev) if faux > btol else 0
+            zt[2 * k], zt[2 * k + 1] = tbar_p, tbar_pp
+        it = k
+    # the back substitution and the solution (pallas_fused.py:8455-8495)
+    y_t, sing = _back_substitute_ref(R, torch.stack(zt), 2 * it, btol)
+    y_t = y_t.to(dev)
+    x = torch.zeros_like(b)
+    y = torch.zeros_like(c)
+    for i in range(it):
+        x = x + y_t[2 * i] * V[i]
+        y = y + y_t[2 * i + 1] * U[i]
+    return (x, y, _i32(it, b), rnorm.to(dev), _i32(status, b),
+            _i32(int(sing), b))
+
+
+# ---------------------------------------------------------------------------
+# block MINRES: the plain version
+# ---------------------------------------------------------------------------
+
+def _cholqr_ref(W, btol):
+    """One CholQR pass of the panel W (p, n) on the card, the TPU kernel's
+    (pallas_fused.py:2713-2748): the Gram matrix, its Cholesky R with a
+    pivot ≤ btol keeping its row of R at 0 off the diagonal and its column
+    undivided, and W ← W R⁻¹ column by column.  Returns (W, R), R a numpy
+    array in W's dtype."""
+    p = W.shape[0]
+    iu = [(a, b) for a in range(p) for b in range(a, p)]
+    gram = torch.stack([torch.sum(W[a] * W[b]) for a, b in iu]).cpu()
+    G = np.zeros((p, p), dtype=_NP[W.dtype])
+    for (a, b), g in zip(iu, gram.numpy()):
+        G[a, b] = g
+    zero, one = G.dtype.type(0), G.dtype.type(1)
+    R = np.zeros_like(G)
+    safe = []
+    for i in range(p):
+        s = G[i, i]
+        for t in range(i):
+            s = s - R[t, i] ** 2
+        di = np.sqrt(max(s, zero))
+        R[i, i] = di
+        safe.append(one if di <= btol else di)
+        for j in range(i + 1, p):
+            s2 = G[i, j]
+            for t in range(i):
+                s2 = s2 - R[t, i] * R[t, j]
+            R[i, j] = zero if di <= btol else s2 / safe[i]
+    cols = []
+    for i in range(p):
+        w = W[i]
+        for t in range(i):
+            w = w - float(R[t, i]) * cols[t]
+        cols.append(w / float(safe[i]))
+    return torch.stack(cols), R
+
+
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _cholqr2_ref(W, btol):
+    """CholQR2 (pallas_fused.py:2750-2762): two passes, and R = R₂R₁
+    (upper triangular), each entry summed from 0 in the order of t."""
+    W, R1 = _cholqr_ref(W, btol)
+    W, R2 = _cholqr_ref(W, btol)
+    p = R1.shape[0]
+    R = np.zeros_like(R1)
+    for i in range(p):
+        for j in range(i, p):
+            s = R1.dtype.type(0)
+            for t in range(i, j + 1):
+                s = s + R2[i, t] * R1[t, j]
+            R[i, j] = s
+    return W, R
+
+
+def _mm_np(A, B):
+    """A @ B for small numpy matrices, each entry summed from 0 in order."""
+    out = np.zeros((A.shape[0], B.shape[1]), dtype=A.dtype)
+    for r in range(A.shape[0]):
+        for c in range(B.shape[1]):
+            s = A.dtype.type(0)
+            for t in range(A.shape[1]):
+                s = s + A[r, t] * B[t, c]
+            out[r, c] = s
+    return out
+
+
+def _bm_layout(p):
+    """(scalars, work rows, partial rows) of the block MINRES kernel
+    (csrc/block_minres.cuh, struct Layout): ATOL, RTOL, EPS_LIM, then
+    the state from RNORM (rNorm, Ψ, Φbar, Θₖ₋₂, Θₖ₋₁: 1 + 10p²) and its
+    staging copy, then Ω and R₁ (p² each); six panels of p rows (V in
+    three slots, W̃ in two, X); the partials of Ω and of two Gram
+    triangles."""
+    state = 1 + 10 * p * p
+    return (_BM_RNORM + 2 * state + 2 * p * p, 6 * p,
+            p * p + p * (p + 1))
+
+
+def block_minres_dia_fused_ref(pd, offsets, B, atol, rtol, itmax):
+    """Plain PyTorch block MINRES of AX = B, A Hermitian (pallas_fused.py:
+    2669-2942): the panels (p columns of n) on B's device, the p × p and
+    2p × 2p scalar work on the CPU in B's dtype, in the TPU kernel's
+    order: CholQR2 of B and of each Lanczos remainder, Θₖ₋₂ and Θₖ₋₁ on
+    [0; Ψₖᵀ] and [Γbar; Ωₖ], the Givens QR of [Λbar; Ψₖ₊₁] accumulated
+    into Θₖ, [Φₖ; Φbarₖ₊₁], the direction panel and X += W̃ₖΦₖ.
+
+    Returns (X (n, p), niter, rnorm, status) as tensors, as
+    ``block_minres_dia_fused`` does."""
+    dev, T = B.device, B.dtype
+    NT = _NP[T]
+    p = B.shape[1]
+    btol = NT(float(torch.finfo(T).eps) ** 0.75)
+    zero, one = NT(0), NT(1)
+    Vk, phib = _cholqr2_ref(B.T.contiguous(), btol)
+    Vkm1 = torch.zeros_like(Vk)
+    wm1 = torch.zeros_like(Vk)
+    wm2 = torch.zeros_like(Vk)
+    X = torch.zeros_like(Vk)
+    psi = np.zeros((p, p), dtype=NT)
+    qt1 = np.eye(2 * p, dtype=NT)
+    qt2 = np.eye(2 * p, dtype=NT)
+    bsq = zero
+    for a in range(p):
+        for b in range(p):
+            bsq = bsq + phib[a, b] ** 2
+    rnorm = np.sqrt(bsq)
+    eps_lim = NT(atol) + NT(rtol) * rnorm
+    status = (ZERO_RESIDUAL if rnorm == 0 else SOLVED if rnorm <= eps_lim
+              else RUNNING)
+    it = 0
+    while status == RUNNING and it < itmax:
+        it += 1
+        # the block Lanczos step (pallas_fused.py:2800-2817)
+        W = torch.stack([dia_spmv_aligned_ref(pd, offsets, Vk[b])
+                         for b in range(p)])
+        om = torch.stack([torch.stack([torch.sum(Vk[a] * W[b])
+                                       for b in range(p)])
+                          for a in range(p)]).cpu().numpy()
+        m2 = one if it >= 2 else zero
+        cols = []
+        for b in range(p):
+            w = W[b]
+            for a in range(p):
+                w = w - float(m2 * psi[b, a]) * Vkm1[a]
+                w = w - float(om[a, b]) * Vk[a]
+            cols.append(w)
+        W = torch.stack(cols)
+        # the reflections of the last two iterations (:2820-2850)
+        m3 = one if it >= 3 else zero
+        sm = _mm_np(qt2[:, p:], psi.T)
+        pi = m3 * sm[:p]
+        stk_top = sm[p:] if it >= 3 else psi.T.copy()
+        sm = np.zeros((2 * p, p), dtype=NT)
+        for r in range(2 * p):
+            for c in range(p):
+                s = zero
+                for t in range(p):
+                    s = s + qt1[r, t] * stk_top[t, c]
+                    s = s + qt1[r, p + t] * om[t, c]
+                sm[r, c] = s
+        gam = m2 * sm[:p]
+        lam = sm[p:] if it >= 2 else om.copy()
+        # Vₖ₊₁ and Ψₖ₊₁ (:2853), Θₖ by Givens rotations (:2856-2882)
+        W, R = _cholqr2_ref(W, btol)
+        stk = np.concatenate([lam, R])
+        qtn = np.eye(2 * p, dtype=NT)
+        for j in range(p):
+            for r in range(2 * p - 1, j, -1):
+                ch, sh, rr = (NT(v.item()) for v in sym_givens(
+                    torch.tensor(stk[r - 1, j]), torch.tensor(stk[r, j])))
+                stk[r - 1, j], stk[r, j] = rr, zero
+                for c in range(j + 1, p):
+                    u, v = stk[r - 1, c], stk[r, c]
+                    stk[r - 1, c] = ch * u + sh * v
+                    stk[r, c] = sh * u - ch * v
+                for c in range(2 * p):
+                    u, v = qtn[r - 1, c], qtn[r, c]
+                    qtn[r - 1, c] = ch * u + sh * v
+                    qtn[r, c] = sh * u - ch * v
+        lam = stk[:p]
+        sm = _mm_np(qtn[:, :p], phib)
+        # the direction panel and X (:2893-2918)
+        wt = []
+        for j in range(p):
+            w = Vk[j]
+            for a in range(p):
+                w = w - float(gam[a, j]) * wm1[a]
+                w = w - float(pi[a, j]) * wm2[a]
+            for t in range(j):
+                w = w - float(lam[t, j]) * wt[t]
+            dj = lam[j, j]
+            wt.append(w / float(one if dj == 0 else dj))
+        wt = torch.stack(wt)
+        xs = []
+        for b in range(p):
+            xb = X[b]
+            for t in range(p):
+                xb = xb + float(sm[t, b]) * wt[t]
+            xs.append(xb)
+        X = torch.stack(xs)
+        phib = sm[p:].copy()
+        psi = R
+        rsq = zero
+        for a in range(p):
+            for b in range(p):
+                rsq = rsq + phib[a, b] ** 2
+        Vkm1, Vk, wm2, wm1 = Vk, W, wm1, wt
+        qt2, qt1 = qt1, qtn
+        rnorm = np.sqrt(rsq)
+        status = (SOLVED if rnorm <= eps_lim or rnorm + one <= one
+                  else RUNNING)
+    return (X.T.contiguous(), _i32(it, B),
+            torch.as_tensor(rnorm, device=dev), _i32(status, B))
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -4320,3 +4844,102 @@ def tricg_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, tau, nu, atol,
 
 
 tricg_dia_fused.launches = 0
+
+
+def trimr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, tau, nu, atol,
+                    rtol, itmax):
+    """Full TriMR solve of [τI A; Aᴴ νI][x; y] = [b; c] for a square DIA
+    matrix.  Returns (x, y, niter, rnorm, status_code) as tensors on b's
+    device; the codes are those of ``tricg_dia_fused``."""
+    _check_pair(pd, offsets, b, c)
+    if b.device.type == "cpu":
+        return trimr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
+                                   tau, nu, atol, rtol, itmax)
+    work, sc, st = _ssy_fused(trimr_dia_fused, "trimr", pd, pd_adj, offsets,
+                              offsets_adj, b, c, atol, rtol, itmax,
+                              _TMR_NROWS, _TMR_NSC, _TMR_NST, 0, False,
+                              scalars={_TMR_TAU: tau, _TMR_TAU + 1: nu})
+    return (work[_SSY_X].clone(), work[_SSY_X + 1].clone(), st[_IT],
+            sc[_TMR_RNORM], st[_STATUS])
+
+
+trimr_dia_fused.launches = 0
+
+
+def gpmr_dia_fused(pd_a, pd_b, offsets_a, offsets_b, b, c, lam, mu, atol,
+                   rtol, itmax, mem=20):
+    """Full GPMR solve of [λI A; B μI][x; y] = [b; c] for two square DIA
+    matrices (A on its aligned diagonals ``pd_a``, B on ``pd_b``), with a
+    basis of mem ≤ 64 slots.  Returns (x, y, niter, rnorm, status_code,
+    inconsistent) as tensors on b's device; the codes are 1 (solved), 2
+    (b = c = 0), 7 (breakdown) and 100 (k reached mem), and the flag is 1
+    where the back substitution met a pivot of modulus at most eps^¾."""
+    _check_pair(pd_a, offsets_a, b, c)
+    _check(pd_b, offsets_b, b, None)
+    if not 2 <= mem <= _GP_MAXMEM:
+        raise ValueError(f"mem must lie in [2, {_GP_MAXMEM}], got {mem}")
+    if b.device.type == "cpu":
+        return gpmr_dia_fused_ref(pd_a, pd_b, offsets_a, offsets_b, b, c,
+                                  lam, mu, atol, rtol, itmax, mem)
+    pair = _pair("GPMR", b, pd_a)
+    if pd_b.dtype != pd_a.dtype:
+        raise ValueError("pd_b must have pd_a's dtype")
+    n, grid = b.shape[0], _grid(b)
+    nsc, nrows, npart = _gp_layout(mem)
+    sc = _host_scalars(nsc, b, {0: atol, 1: rtol, 2: lam, 3: mu})
+    # the init launch writes V₀, U₀ and every state slot; each later row
+    # is written before it is read
+    work = torch.empty((nrows, n), dtype=b.dtype, device=b.device)
+    partial = torch.empty((npart, grid), dtype=b.dtype, device=b.device)
+    st = torch.zeros(_GP_NST, dtype=torch.int32, device=b.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, int(mem))
+    _run(gpmr_dia_fused, b, f"ktt_gpmr_dia_init_{pair[:3]}",
+         (b.data_ptr(), c.data_ptr()) + bufs, f"ktt_gpmr_dia_iterate_{pair}",
+         (pd_a.data_ptr(), offsets_a.data_ptr(), pd_a.shape[0],
+          pd_b.data_ptr(), offsets_b.data_ptr(), pd_b.shape[0]) + bufs,
+         st, itmax)
+    _finish(gpmr_dia_fused, f"ktt_gpmr_dia_finish_{pair[:3]}", b,
+            (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid,
+             int(mem)))
+    return (work[2 * mem + 4].clone(), work[2 * mem + 5].clone(), st[_IT],
+            sc[_GP_RNORM], st[_STATUS], st[_GP_INCON])
+
+
+gpmr_dia_fused.launches = 0
+
+
+def block_minres_dia_fused(pd, offsets, B, atol, rtol, itmax):
+    """Full block-MINRES solve of AX = B for a Hermitian DIA matrix and B
+    of shape (n, p), 1 ≤ p ≤ 8.  Returns (X (n, p), niter, rnorm,
+    status_code) as tensors on B's device; the codes are 1 (solved) and 2
+    (B = 0).  B should have full column rank: a rank-deficient block
+    keeps CholQR's small pivots (the solver's route sends it to the
+    general core)."""
+    if B.dim() != 2 or not 1 <= B.shape[1] <= _BM_MAXP:
+        raise ValueError(f"B must have shape (n, p), 1 <= p <= {_BM_MAXP}; "
+                         f"got {tuple(B.shape)}")
+    # the panels as p rows of n (pallas_fused.py:2695), which the init
+    # launches copy into V's first slot beside the zeroed others
+    Bt = B.T.contiguous()
+    _check(pd, offsets, Bt[0], None)
+    if B.device.type == "cpu":
+        return block_minres_dia_fused_ref(pd, offsets, B, atol, rtol, itmax)
+    pair = _pair("BLOCK-MINRES", B, pd)
+    n, p = B.shape
+    grid = _grid(Bt[0])
+    nsc, nrows, npart = _bm_layout(p)
+    sc = _host_scalars(nsc, B, {0: atol, 1: rtol})
+    work = torch.empty((nrows, n), dtype=B.dtype, device=B.device)
+    partial = torch.empty((npart, grid), dtype=B.dtype, device=B.device)
+    st = torch.zeros(_BM_NST, dtype=torch.int32, device=B.device)
+    bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
+            st.data_ptr(), n, grid, p)
+    _run(block_minres_dia_fused, B, f"ktt_block_minres_dia_init_{pair[:3]}",
+         (Bt.data_ptr(),) + bufs, f"ktt_block_minres_dia_iterate_{pair}",
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0]) + bufs, st, itmax)
+    return (work[5 * p:6 * p].T.contiguous(), st[_IT], sc[_BM_RNORM],
+            st[_STATUS])
+
+
+block_minres_dia_fused.launches = 0

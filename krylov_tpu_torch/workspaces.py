@@ -20,6 +20,7 @@ import torch
 
 from .solvers import bicgstab as _bicgstab
 from .solvers import bilq as _bilq
+from .solvers import block as _block
 from .solvers import cg as _cg
 from .solvers import cg_lanczos as _cg_lanczos
 from .solvers import cgls as _cgls
@@ -27,6 +28,7 @@ from .solvers import cgne as _cgne
 from .solvers import cr as _cr
 from .solvers import craig as _craig
 from .solvers import fom as _fom
+from .solvers import gpmr as _gpmr
 from .solvers import gmres as _gmres
 from .solvers import lslq as _lslq
 from .solvers import lsmr as _lsmr
@@ -124,13 +126,13 @@ _PORTED = {
     "cgls_lanczos_shift": (_cgls._cgls_lanczos_shift_solve,
                            _cgls.cgls_lanczos_shift),
     "tricg": (_tricg._tricg_solve, _tricg.tricg),
+    "trimr": (_tricg._trimr_solve, _tricg.trimr),
+    "gpmr": (_gpmr._gpmr_solve, _gpmr.gpmr),
+    "block_minres": (_block._block_minres_solve, _block.block_minres),
 }
 
 # the ROADMAP.md Queue 1 item that ports each other method
-_QUEUE_ITEM = {
-    **dict.fromkeys(("trimr", "gpmr"), 6),
-    **dict.fromkeys(("block_minres", "block_gmres"), 7),
-}
+_QUEUE_ITEM = {"block_gmres": 7}
 
 
 def _resolve(method):

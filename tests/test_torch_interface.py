@@ -27,12 +27,9 @@ PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
           "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr",
           "usymlq", "usymqr", "trilqr", "usymlqr", "lsqr", "lsmr", "lslq",
           "cgne", "crmr", "craig", "craigmr", "lnlq", "cgls", "crls",
-          "cgls_lanczos_shift", "tricg")
+          "cgls_lanczos_shift", "tricg", "trimr", "gpmr", "block_minres")
 # the ROADMAP.md Queue 1 item that ports each other method
-QUEUE_ITEM = {
-    **dict.fromkeys(("trimr", "gpmr"), 6),
-    **dict.fromkeys(("block_minres", "block_gmres"), 7),
-}
+QUEUE_ITEM = {"block_gmres": 7}
 SHIFTS = [0.0, 1.0]
 N_, NSH, MEM = 10, 2, 5
 # element budgets for the large tensors (size ≥ n) of each state, copied
@@ -77,11 +74,17 @@ BUDGETS = {
     "cgls_lanczos_shift": lambda n: (3 + NSH) * n + 2 * n + 5 * NSH,
     "crls": lambda n: 4 * n + 3 * n,
     "tricg": lambda n: 6 * n + 6 * n,
+    # tests/test_storage.py:78-82 with m = n, GPMR at itmax = 12 and block
+    # MINRES at p = 2
+    "trimr": lambda n: 8 * n + 8 * n,
+    "gpmr": lambda n: (12 + 1) * (n + n) + (2 * 12 + 2) ** 2 + 8 * 12,
+    "block_minres": lambda n: 7 * n * 2 + 12 * 2 * 2,
 }
 # the memory the ring methods' budgets are for (tests/test_storage.py:91-97)
 EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres"),
                             {"memory": MEM, "restart": True}),
-            **dict.fromkeys(("diom", "dqgmres"), {"memory": MEM})}
+            **dict.fromkeys(("diom", "dqgmres"), {"memory": MEM}),
+            "gpmr": {"itmax": 12}}
 
 
 def _rel(a, b):
@@ -95,7 +98,8 @@ def _system(n=20):
 
 
 # the methods that take c after b
-NEEDS_C = ("bilqr", "usymlq", "usymqr", "trilqr", "usymlqr", "tricg")
+NEEDS_C = ("bilqr", "usymlq", "usymqr", "trilqr", "usymlqr", "tricg",
+           "trimr")
 # the methods that take the shifts after b
 SHIFTED = ("cg_lanczos_shift", "cgls_lanczos_shift")
 
@@ -107,6 +111,17 @@ def _extra(method, b=None):
     return (b,) if method in NEEDS_C else ()
 
 
+def _args(method, A, b):
+    """A method's arguments after its name: (A, b, ...) with _extra's
+    tail; GPMR's (A, B, b, c) with B = Aᴴ and c = b; block MINRES's (A, B)
+    with B = [b, 1]."""
+    if method == "gpmr":
+        return (A, A.T, b, b)
+    if method == "block_minres":
+        return (A, np.stack([np.asarray(b), np.ones(len(b))], axis=1))
+    return (A, b) + _extra(method, b)
+
+
 def test_method_table_is_the_reference_table():
     assert kt.METHOD_TABLE == kj.METHOD_TABLE
     assert kt.KRYLOV_METHODS == kj.KRYLOV_METHODS
@@ -116,14 +131,16 @@ def test_method_table_is_the_reference_table():
 @pytest.mark.parametrize("method", PORTED)
 def test_krylov_solve_matches_jax(method):
     A, b = _system()
-    *xj, sj = kj.krylov_solve(method, A, b, *_extra(method, b))
-    *xt, st = kt.krylov_solve(method, torch.as_tensor(A), b,
-                              *_extra(method, b))
+    args = _args(method, A, b)
+    targs = tuple(torch.as_tensor(a) if getattr(a, "ndim", 1) == 2 else a
+                  for a in args)
+    *xj, sj = kj.krylov_solve(method, *args)
+    *xt, st = kt.krylov_solve(method, *targs)
     assert st.status == sj.status and st.niter == sj.niter
     assert st.solved == sj.solved
     for vt, vj in zip(xt, xj):
         assert _rel(vt.numpy(), vj) <= 1e-8
-    *xd, sd = getattr(kt, method)(torch.as_tensor(A), b, *_extra(method, b))
+    *xd, sd = getattr(kt, method)(*targs)
     assert sd.niter == st.niter
     assert all(torch.equal(vd, vt) for vd, vt in zip(xd, xt))
 
@@ -148,8 +165,10 @@ def test_unknown_method_and_workspace_classes():
     ws = kt.KrylovWorkspace("minares", kc)
     assert (ws.m, ws.n, ws.dtype) == (20, 20, torch.float64)
     assert issubclass(tws.BlockMinresWorkspace, kt.BlockKrylovWorkspace)
+    assert (tws.BlockMinresWorkspace(4, 4).m, tws.BlockMinresWorkspace(
+        4, 4).n) == (4, 4)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tws.BlockMinresWorkspace(4, 4)
+        tws.BlockGmresWorkspace(4, 4)
 
 
 @pytest.mark.parametrize("method", ["cg", "minres_qlp", "minares"])
@@ -273,7 +292,12 @@ def test_state_within_storage_budget(method):
     shifts = ([0.0, 1.0],) if method in SHIFTED else ()
     if method in NEEDS_C:
         shifts = (b,)
-    *_, stats, state = solve(A, b, *shifts, **EXTRA_KW.get(method, {}))
+    args = (A, b) + shifts
+    if method == "gpmr":
+        args = (A, A.T, b, b)
+    if method == "block_minres":
+        args = (A, torch.stack([b, torch.ones_like(b)], 1))
+    *_, stats, state = solve(*args, **EXTRA_KW.get(method, {}))
     assert state is not None and stats.niter > 0
     big = sum(t.numel() for _, t in tws.state_tensors(state)
               if t.numel() >= N_)

@@ -306,6 +306,13 @@ def _enum_values_in(source, name, env):
                       "IntSlot": {"NST": cf._TCG_NST},
                       "OwnRow": {"X": cf._SSY_X, "Y": cf._SSY_X + 1,
                                  "NROWS": cf._TCG_NROWS}}),
+    ("trimr_dia.cu", {"ScalarSlot": {"RNORM": cf._TMR_RNORM,
+                                     "TAU": cf._TMR_TAU,
+                                     "NU": cf._TMR_TAU + 1,
+                                     "NSC": cf._TMR_NSC},
+                      "IntSlot": {"NST": cf._TMR_NST},
+                      "OwnRow": {"X": cf._SSY_X, "Y": cf._SSY_X + 1,
+                                 "NROWS": cf._TMR_NROWS}}),
 ])
 def test_ssy_wrapper_slots_match_kernel_enums(source, slots):
     """The slots the SSY wrappers read, the array sizes they allocate (a
@@ -399,6 +406,75 @@ def test_normal_equation_wrapper_slots_match_kernel_enums(source, slots):
     assert f"constexpr int VX = {cf._LZS_X};" in text
 
 
+def _layout_offsets(source, **dims):
+    """name -> value of each one-line method of ``struct Layout`` in a
+    csrc file, evaluated with the file's enums and ``dims`` (mem or p),
+    the methods calling each other as names."""
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / source).read_text()
+    env = dict(dims)
+    for enum in ("ScalarSlot", "IntSlot"):
+        env.update(_enum_values_in(source, enum, {}))
+    body = re.search(r"struct Layout \{(.*?)\n\};", text, re.S).group(1)
+    for name, expr in re.findall(
+            r"int (\w+)\(\) const \{\s*return ([^;]+);", body):
+        env[name] = eval(re.sub(r"(\w+)\(\)", r"\1", expr), {}, env)
+    return env
+
+
+@pytest.mark.parametrize("mem", [2, 48, 64])
+def test_gpmr_wrapper_layout_matches_kernel(mem):
+    """The GPMR wrapper's slots and array sizes (``_gp_layout``) are the
+    kernel's enums and ``struct Layout``: the fixed scalars, the staging
+    copy at the end of the scalars, the rows of x and y, the partial rows
+    and the largest mem."""
+    got = _layout_offsets("gpmr_dia.cu", mem=mem)
+    nsc, nrows, npart = cf._gp_layout(mem)
+    assert (got["RNORM"], got["H"], got["INCON"], got["NST"]) == (
+        cf._GP_RNORM, cf._GP_H, cf._GP_INCON, cf._GP_NST)
+    assert (got["ATOL"], got["RTOL"], got["LAM"], got["MU"]) == (0, 1, 2, 3)
+    assert (got["IT"], got["STATUS"]) == (cf._IT, cf._STATUS)
+    assert got["s_cols"] + 2 * got["col"] == nsc
+    assert (got["x"], got["y"]) == (2 * mem + 4, 2 * mem + 5)
+    assert got["y"] + 1 == nrows and got["ppp"] + 1 == npart
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / "gpmr_dia.cu").read_text()
+    assert f"kMaxMem = {cf._GP_MAXMEM};" in text
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_block_minres_wrapper_layout_matches_kernel(p):
+    """The block MINRES wrapper's slots and sizes (``_bm_layout``) are the
+    kernel's enums and ``struct Layout``; the largest p is the header's."""
+    # ntri as csrc/block.cuh has it
+    got = _layout_offsets("block_minres.cuh", p=p,
+                          ntri=lambda k: k * (k + 1) // 2)
+    nsc, nrows, npart = cf._bm_layout(p)
+    assert (got["RNORM"], got["PSI"], got["NST"]) == (cf._BM_RNORM,
+                                                      cf._BM_PSI, cf._BM_NST)
+    assert (got["ATOL"], got["RTOL"], got["IT"], got["STATUS"]) == (
+        0, 1, cf._IT, cf._STATUS)
+    # the staging copy of RNORM .. state_end, then Ω and R₁
+    om = got["state_end"] + got["state_end"] - got["RNORM"]
+    assert om + 2 * p * p == nsc
+    assert nrows == 6 * p and got["p_g2"] + p * (p + 1) // 2 == npart
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / "block.cuh").read_text()
+    assert f"kMaxP = {cf._BM_MAXP};" in text
+
+
+def test_matmat_takes_strided_columns():
+    """A DIA operator on the SpMV kernel's route applies ``matmat`` to a
+    row-major panel: its columns are strided, and the kernel takes only
+    contiguous vectors (it raised before; the block MINRES general core
+    and the warm start of its kernel route pass such panels)."""
+    A = kt.DIAOperator(kt.poisson_dia(4, dtype=torch.float64, device="cpu"),
+                       use_kernel=True)
+    X = torch.as_tensor(np.random.default_rng(0).standard_normal((64, 3)))
+    assert not X[:, 0].is_contiguous()
+    Y = A.matmat(X)
+    for j in range(3):
+        assert torch.equal(Y[:, j], A.matvec(X[:, j].contiguous()))
+    assert torch.equal(A.H.matmat(X), A.rmatmat(X))
+
+
 def test_build_key_tracks_sources():
     assert _build._key() == _build._key()
     assert len(_build._key()) == 64
@@ -417,7 +493,8 @@ def test_kernel_launches_and_exports():
                         "usymlqr_dia", "lsqr_dia", "lsmr_dia", "lslq_dia",
                         "craig_dia", "craigmr_dia", "lnlq_dia",
                         "cgne_crmr_dia", "cgls_dia", "crls_dia",
-                        "cgls_lanczos_shift_dia", "tricg_dia"}
+                        "cgls_lanczos_shift_dia", "tricg_dia", "trimr_dia",
+                        "gpmr_dia", "block_minres_dia"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -429,7 +506,8 @@ def test_kernel_launches_and_exports():
                  "trilqr_dia", "usymlqr_dia", "lsqr_dia", "lsmr_dia",
                  "lslq_dia", "craig_dia", "craigmr_dia", "lnlq_dia",
                  "cgne_crmr_dia", "cgls_dia", "crls_dia",
-                 "cgls_lanczos_shift_dia", "tricg_dia"):
+                 "cgls_lanczos_shift_dia", "tricg_dia", "trimr_dia",
+                 "gpmr_dia", "block_minres_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
@@ -437,7 +515,9 @@ def test_kernel_launches_and_exports():
                  "dqgmres", "bilq", "qmr", "bilqr", "usymlq", "usymqr",
                  "trilqr", "usymlqr", "lsqr", "lsmr", "lslq", "craig",
                  "craigmr", "lnlq", "cgne", "crmr", "cgls", "crls",
-                 "cgls_lanczos_shift", "tricg", "CglsWorkspace",
+                 "cgls_lanczos_shift", "tricg", "trimr", "gpmr",
+                 "block_minres", "TrimrWorkspace", "GpmrWorkspace",
+                 "BlockMinresWorkspace", "CglsWorkspace",
                  "TricgWorkspace", "LNLQStats",
                  "AdjointStats", "LsmrStats", "LSLQStats", "kdot", "kdotr",
                  "kdotr2", "knorm", "roots_quadratic", "to_boundary",
@@ -1462,3 +1542,196 @@ def test_nq_and_tricg_solvers_on_card_take_their_kernels():
             assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
             assert st.solved
             assert kt.kernel_launches()[used] > n0
+
+
+def _scaled_poisson_pair(N, dtype):
+    """K = 0.1 (P + I) on the card (tools/exp_fused_all_tpu.py:72-85) and
+    Kᴴ from ``adjoint_dia()``, both DIA operators, with their aligned
+    diagonals and offsets."""
+    P = kt.poisson_dia(N, dtype=dtype)
+    P.data[P.offsets.index(0)] += 1.0
+    K = kt.DIAOperator(kt.DIAMatrix(0.1 * P.data, P.offsets, P.shape))
+    data, offs = K.adjoint_dia()
+    KH = kt.DIAOperator(kt.DIAMatrix(data, offs, P.shape))
+    return K, KH
+
+
+def _shifted_poisson(N, dtype, shift):
+    P = kt.poisson_dia(N, dtype=dtype)
+    P.data[P.offsets.index(0)] += shift
+    return kt.DIAOperator(P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype", [(64, torch.float64),
+                                     (128, torch.float32)],
+                         ids=["64-f64", "128-f32"])
+@pytest.mark.parametrize("rhs", ["b", "zero_b"])
+@pytest.mark.parametrize("tau,nu", [(1.0, -1.0), (-1.0, 1.0)],
+                         ids=["default", "flip"])
+def test_trimr_kernel_matches_plain_on_card(tau, nu, rhs, N, dtype):
+    """The TriMR kernel against its plain version on the Poisson stencil at
+    64^3 f64 and 128^3 f32, at the default tolerances, under the default
+    and flip (τ, ν), and with b = c = 0: the same status, niter within
+    ±max(3, 10%) (tests/test_fused.py:1145-1149); in f64 x and y within
+    1e-6 of max(|v|, |b|); in f32 the true block residual (f64, the plain
+    SpMV) no worse than 1.5 times the plain version's."""
+    _card()
+    pd, pda, ot, ota, b, c = _card_system(N, dtype, poisson=True)
+    if rhs == "zero_b":
+        b, c = torch.zeros_like(b), torch.zeros_like(c)
+    tol = _tol(dtype)
+    args = (tau, nu, tol, tol, 2 * b.shape[0])
+    before = cf.trimr_dia_fused.launches
+    k = cf.trimr_dia_fused(pd, pda, ot, ota, b, c, *args)
+    assert cf.trimr_dia_fused.launches > before
+    r = cf.trimr_dia_fused_ref(pd, pda, ot, ota, b, c, *args)
+    assert int(k[4]) == int(r[4])
+    assert abs(int(k[2]) - int(r[2])) <= max(3, 0.1 * int(r[2]))
+    if rhs == "zero_b":
+        assert int(k[2]) == 0 and int(k[4]) == rt.ZERO_RESIDUAL
+        assert not bool(k[0].any()) and not bool(k[1].any())
+        return
+    if dtype == torch.float64:
+        for v, w in zip(k[:2], r[:2]):
+            scale = max(float(w.abs().max()), float(b.abs().max()))
+            assert float((v - w).abs().max()) <= 1e-6 * scale
+        return
+
+    def block_res(x, y):
+        x, y = x.double(), y.double()
+        top = b.double() - (tau * x + dia_spmv_aligned_ref(pd.double(), ot,
+                                                           y))
+        bot = c.double() - (dia_spmv_aligned_ref(pda.double(), ota, x)
+                            + nu * y)
+        return float(torch.sqrt(top.norm() ** 2 + bot.norm() ** 2))
+
+    assert block_res(k[0], k[1]) <= 1.5 * block_res(r[0], r[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype", [(64, torch.float64),
+                                     (128, torch.float32)],
+                         ids=["64-f64", "128-f32"])
+@pytest.mark.parametrize("rhs", ["b", "zero_b"])
+def test_gpmr_kernel_matches_plain_on_card(rhs, N, dtype):
+    """The GPMR kernel against its plain version on K = 0.1 (P + I) and
+    Kᴴ (the JAX package's cell) at 64^3 f64 and 128^3 f32, λ = 1, μ = −1,
+    memory 48, at the default tolerances, and with b = c = 0: the same
+    status and flag, niter within ±1 (tests/test_fused.py:1514); in f64 x
+    and y within 1e-6 of max(|v|, |b|); in f32 the true stacked residual
+    no worse than 1.5 times the plain version's."""
+    _card()
+    K, KH = _scaled_poisson_pair(N, dtype)
+    rng = np.random.default_rng(22)
+    n = K.shape[0]
+    b = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    c = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    if rhs == "zero_b":
+        b, c = torch.zeros_like(b), torch.zeros_like(c)
+    tol = _tol(dtype)
+    args = (K._pd, KH._pd, K._offsets, KH._offsets, b, c, 1.0, -1.0, tol,
+            tol, 48)
+    before = cf.gpmr_dia_fused.launches
+    k = cf.gpmr_dia_fused(*args, mem=48)
+    assert cf.gpmr_dia_fused.launches > before
+    r = cf.gpmr_dia_fused_ref(*args, mem=48)
+    assert (int(k[4]), int(k[5])) == (int(r[4]), int(r[5]))
+    assert abs(int(k[2]) - int(r[2])) <= 1
+    if rhs == "zero_b":
+        assert int(k[2]) == 0 and int(k[4]) == rt.ZERO_RESIDUAL
+        assert not bool(k[0].any()) and not bool(k[1].any())
+        return
+    if dtype == torch.float64:
+        for v, w in zip(k[:2], r[:2]):
+            scale = max(float(w.abs().max()), float(b.abs().max()))
+            assert float((v - w).abs().max()) <= 1e-6 * scale
+        return
+
+    def stacked(x, y):
+        x, y = x.double(), y.double()
+        top = b.double() - (x + dia_spmv_aligned_ref(K._pd.double(),
+                                                     K._offsets, y))
+        bot = c.double() - (dia_spmv_aligned_ref(KH._pd.double(),
+                                                 KH._offsets, x) - y)
+        return float(torch.sqrt(top.norm() ** 2 + bot.norm() ** 2))
+
+    assert stacked(k[0], k[1]) <= 1.5 * stacked(r[0], r[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype,shift", [(64, torch.float64, 0.5),
+                                           (64, torch.float64, -1.5),
+                                           (128, torch.float32, 0.5)],
+                         ids=["64-f64", "64-f64-indefinite", "128-f32"])
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_block_minres_kernel_matches_plain_on_card(p, N, dtype, shift):
+    """The block MINRES kernel against its plain version on P + 0.5 I
+    (bench.py:485-497) at 64^3 f64 and 128^3 f32, and on the indefinite
+    P − 1.5 I at 64^3 f64 (tests/test_fused.py:335-348), B seeded normal
+    with p columns, at the default tolerances: the same status, niter
+    within ±2 (tests/test_fused.py:345); in f64 X within 1e-6 of
+    max(|X|, |B|); in f32 ‖B − AX‖_F (f64, the plain SpMV) no worse than
+    1.5 times the plain version's.  The indefinite system converges
+    slowly at 64^3 (the plain version's ‖Φbar‖ is still 1.2e-2 ‖B‖ after
+    3000 iterations with p = 4), so it runs 200 iterations and is held to
+    that trajectory, as TriCG's indefinite preset is."""
+    _card()
+    A = _shifted_poisson(N, dtype, shift)
+    n = A.shape[0]
+    B = torch.as_tensor(np.random.default_rng(24).standard_normal(
+        (n, p))).to("cuda", dtype)
+    tol = _tol(dtype)
+    itmax = 200 if shift < 0 else 2 * (n // p)
+    args = (A._pd, A._offsets, B, tol, tol, itmax)
+    before = cf.block_minres_dia_fused.launches
+    k = cf.block_minres_dia_fused(*args)
+    assert cf.block_minres_dia_fused.launches > before
+    r = cf.block_minres_dia_fused_ref(*args)
+    want = rt.RUNNING if shift < 0 else rt.SOLVED
+    assert int(k[3]) == int(r[3]) == want
+    assert abs(int(k[1]) - int(r[1])) <= 2
+    if dtype == torch.float64:
+        scale = max(float(r[0].abs().max()), float(B.abs().max()))
+        assert float((k[0] - r[0]).abs().max()) <= 1e-6 * scale
+        return
+
+    def res(X):
+        X = X.double()
+        AX = torch.stack([dia_spmv_aligned_ref(A._pd.double(), A._offsets,
+                                               X[:, j].contiguous())
+                          for j in range(p)], 1)
+        return float((B.double() - AX).norm())
+
+    assert res(k[0]) <= 1.5 * res(r[0])
+
+
+@pytest.mark.cuda
+def test_slice11_solvers_on_card_take_their_kernels():
+    """trimr, gpmr (K and Kᴴ, memory 48) and block_minres on card
+    operators run their kernels; with history they take the general route
+    through the SpMV kernel; a rank-1 block takes block MINRES's general
+    route."""
+    _card()
+    P = kt.DIAOperator(kt.poisson_dia(16))
+    K, KH = _scaled_poisson_pair(16, torch.float32)
+    Ps = _shifted_poisson(16, torch.float32, 0.5)
+    rng = np.random.default_rng(23)
+    b = rng.standard_normal(16 ** 3).astype(np.float32)
+    c = rng.standard_normal(16 ** 3).astype(np.float32)
+    B = rng.standard_normal((16 ** 3, 4)).astype(np.float32)
+    runs = {"trimr": ((P, b, c), {}, "trimr_dia"),
+            "gpmr": ((K, KH, b, c), {"lam": 1.0, "mu": -1.0, "memory": 48,
+                                     "itmax": 48}, "gpmr_dia"),
+            "block_minres": ((Ps, B), {}, "block_minres_dia")}
+    for method, (args, kw, kernel) in runs.items():
+        for extra, used in (({}, kernel), ({"history": True}, "dia_spmv")):
+            n0 = kt.kernel_launches()[used]
+            *xs, st = getattr(kt, method)(*args, **kw, **extra)
+            assert all(x.is_cuda and x.dtype == torch.float32 for x in xs)
+            assert st.solved
+            assert kt.kernel_launches()[used] > n0
+    n0 = kt.kernel_launches()["block_minres_dia"]
+    B1 = np.tile(B[:, :1], (1, 4))
+    assert kt.block_minres(Ps, B1)[1].solved
+    assert kt.kernel_launches()["block_minres_dia"] == n0
