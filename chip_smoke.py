@@ -19,9 +19,11 @@ solvers ``lsqr``, ``lsmr`` and ``lslq`` and the least-norm solvers
 unshifted stencils the normal-equation solvers ``cgls``, ``crls`` and
 ``cgls_lanczos_shift`` (convection-diffusion, lambda = 0.1),
 ``tricg`` and ``trimr`` (Poisson), ``gpmr`` (K = 0.1 (P + I) and its
-transpose) and ``block_minres`` (Poisson + 0.5 I, four columns), each
-by its whole-solve kernel and by the general route with its DIA SpMV
-kernel,
+transpose), ``block_minres`` and ``block_gmres`` (Poisson + 0.5 I, four
+columns), each by its whole-solve kernel and by the general route with
+its DIA SpMV kernel, and ``cg``, ``block_gmres`` and ``block_minres`` on
+a block-tridiagonal block-ELL operator through the BELL SpMV and SpMM
+kernels,
 chains the
 padded-layout SpMV, solves the systems whose dtypes once had no SpMV
 kernel, drives every ported method through ``krylov_solve`` and a
@@ -1588,6 +1590,189 @@ def main():
                     bound_ms=bound_ms, bound_by="bytes", library_ms=None)
             del k, r, head
 
+    from krylov_tpu_torch.ops import cuda_spmv as cspmv
+
+    def bg_bound_bytes(A, n, p, mem, niter, dt):
+        """Block GMRES's least bytes (csrc/block_gmres.cuh's header) for a
+        solve of niter iterations whose passes end at k = mem - 1: at
+        iteration k the diagonals, V_k, three sweeps over the (k+1)p
+        basis vectors, W and V_{k+1}; at a pass end the kk p basis
+        vectors and X read and written, and at a restart B and X read,
+        V_0 written and the diagonals; at the start B read and V_0
+        written."""
+        s = dt.itemsize
+        diag = A._pd.numel() * A._pd.element_size()
+        total = 2 * p * n * s
+        for j in range(niter):
+            k = j % mem
+            total += diag + n * p * s * (3 * (k + 1) + 3)
+            if k == mem - 1 or j == niter - 1:
+                total += n * p * s * (k + 1 + 2)
+                if j < niter - 1:
+                    total += diag + 3 * n * p * s
+        return total
+
+    def bell_tridiagonal(nb, dt, seed):
+        """The SPD block-tridiagonal BELL of tests/test_pallas_spmv.py:
+        184-203 (nb block rows of 128: M M^T / 128^2 + 2 I on the
+        diagonal, a seeded off-diagonal block and its transpose beside
+        it, clamped at the edges), built on the card."""
+        bs = 128
+        g = np.random.default_rng(seed)
+        M = torch.as_tensor(g.standard_normal((nb, bs, bs)) / bs,
+                            device=dev)
+        diag = M @ M.transpose(1, 2) + 2 * torch.eye(bs, dtype=M.dtype,
+                                                     device=dev)
+        off = torch.as_tensor(g.standard_normal((bs, bs)) / (4 * bs),
+                              device=dev)
+        i = torch.arange(nb, device=dev)
+        idx = torch.stack([(i - 1).clamp(min=0), i,
+                           (i + 1).clamp(max=nb - 1)], 1)
+        data = torch.zeros((nb, 3, bs, bs), dtype=torch.float64, device=dev)
+        for k in range(3):
+            j = idx[:, k]
+            data[:, k] += torch.where((j == i)[:, None, None], diag, 0.0)
+            data[:, k] += torch.where((j == i - 1)[:, None, None], off, 0.0)
+            data[:, k] += torch.where((j == i + 1)[:, None, None], off.T,
+                                      0.0)
+        del M, diag
+        return kt.BELLMatrix(data.to(dt), idx.to(torch.int32),
+                             (nb * bs, nb * bs), bs)
+
+    def bsr_of(A):
+        """torch.sparse_bsr_tensor of a BELL's blocks, the duplicate block
+        columns of a row summed (the library yardstick's operand)."""
+        nbr, mbpr, bs, _ = A.data.shape
+        rows = torch.arange(nbr, device=dev).repeat_interleave(mbpr)
+        key = rows * nbr + A.indices.reshape(-1).long()
+        uniq, inv = torch.unique(key, return_inverse=True)
+        vals = torch.zeros((uniq.numel(), bs, bs), dtype=A.dtype,
+                           device=dev).index_add_(
+            0, inv, A.data.reshape(-1, bs, bs))
+        crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(uniq // nbr, minlength=nbr),
+                                0)
+        return torch.sparse_bsr_tensor(crow, uniq % nbr, vals, A.shape)
+
+
+    with Phase("3l block GMRES and block-ELL kernels vs plain", 240):
+        # Block GMRES on the 128^3 Poisson stencil + 0.5 I, B seeded
+        # normal with 4 columns, memory 32 with restarts (bench.py:
+        # 483-497's block_gmres_shifted_poisson cell at the flagship
+        # size), at the default tolerances in f32, in f64 and in f32 with
+        # a bf16 basis, and at memory 8 with rtol 1e-8 in f64 (restarts);
+        # the kernel against its plain version on the same inputs: the
+        # same status and inconsistent flag, niter and the pass count
+        # within ±2 (the dots and the back substitution summed in other
+        # orders), in f64 with an f64 basis X within 1e-6 of max(|X|,
+        # |B|), ‖B − AX‖_F (f64, the plain SpMV) no worse than 1.5 times
+        # the plain version's; the f64 restart run passes a restart.
+        # Then bell_spmv and bell_spmm (p = 4 and 8) on the SPD
+        # block-tridiagonal BELL at nb = 1024 block rows of 128 (201.3 MB
+        # of f32 blocks, four times the L2) and at bench.py:714-728's
+        # nb = 96, in f32 and f64: max |Δ| ≤ 1e-5 max|y| (f32), 1e-12
+        # max|y| (f64); ms by CUDA events, the plain version's, and the
+        # library yardstick's (a BSR product of the same blocks).  Bounds
+        # count bytes: the blocks, their indices, x and y once.
+        gen = np.random.default_rng(SEED + 30)
+        n = 128 ** 3
+        for dt, mem, basis, rtol in ((torch.float32, 32, None, None),
+                                     (torch.float64, 32, None, None),
+                                     (torch.float32, 32, torch.bfloat16,
+                                      None),
+                                     (torch.float64, 8, None, 1e-8)):
+            A = shifted_poisson(128, dt, 0.5)
+            B = torch.as_tensor(gen.standard_normal((n, 4))).to(dev, dt)
+            tol = rt.default_tol(None, dt)
+            args = (A._pd, A._offsets, B, tol, tol if rtol is None else rtol,
+                    2 * (n // 4), mem, basis)
+            k = cf.block_gmres_dia_fused(*args)
+            r = cf.block_gmres_dia_fused_ref(*args)
+            torch.cuda.synchronize()
+            it_k, code_k, inc_k, np_k = (int(v) for v in (k[1], k[3], k[4],
+                                                          k[5]))
+            it_r, code_r, inc_r, np_r = (int(v) for v in (r[1], r[3], r[4],
+                                                          r[5]))
+            err = float((k[0] - r[0]).abs().max())
+            scale = max(float(r[0].abs().max()), float(B.abs().max()))
+            res_k = block_rel_residual(A, B, k[0])
+            res_p = block_rel_residual(A, B, r[0])
+            f32 = dt == torch.float32
+            label = (f"block_gmres {'f32' if f32 else 'f64'} memory {mem}"
+                     f"{' bf16 basis' if basis else ''}"
+                     f"{f' rtol {rtol}' if rtol else ''}")
+            line = (f"  {label}: kernel niter={it_k} status={code_k} "
+                    f"incons={inc_k} npass={np_k}; plain niter={it_r} "
+                    f"status={code_r} incons={inc_r} npass={np_r}; "
+                    f"max_abs_err={err:.3e} rel={err / scale:.3e}; true_res"
+                    f" kernel {res_k:.3e} plain {res_p:.3e}")
+            timed = f32 and basis is None
+            if timed:
+                ms = event_ms(lambda: cf.block_gmres_dia_fused(*args), reps=3,
+                              warmup=1)
+                plain_ms = event_ms(lambda: cf.block_gmres_dia_fused_ref(
+                    *args), reps=1, warmup=0)
+                bound_bytes = bg_bound_bytes(A, n, 4, mem, it_k, dt)
+                bound_ms = bound_bytes / bw * 1e3
+                line += (f"; ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms="
+                         f"{bound_ms:.3f} ({bound_bytes / 1e6:.1f} MB; "
+                         f"{1e3 * ms / max(it_k, 1):.1f} us/iter)")
+                report["block_gmres_dia"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+            print(line, flush=True)
+            check([code_k, inc_k] == [code_r, inc_r],
+                  f"{label}: the plain version's status and flag")
+            check(abs(it_k - it_r) <= 2 and abs(np_k - np_r) <= 2,
+                  f"{label}: niter {it_k} and passes {np_k} within ±2 of "
+                  f"{it_r} and {np_r}")
+            check(res_k <= 1.5 * res_p,
+                  f"{label}: true residual {res_k:.2e} no worse than 1.5 x "
+                  f"the plain version's {res_p:.2e}")
+            if not f32 and basis is None:
+                check(err <= 1e-6 * scale,
+                      f"{label}: X agrees ({err / scale:.2e} <= 1e-6)")
+            if mem == 8:
+                check(np_k >= 2, f"{label}: restarted ({np_k} passes)")
+            del A, B, k, r
+        for nb, dt in ((1024, torch.float32), (1024, torch.float64),
+                       (96, torch.float32), (96, torch.float64)):
+            Ab = bell_tridiagonal(nb, dt, SEED + 31)
+            nB = nb * 128
+            tol = 1e-5 if dt == torch.float32 else 1e-12
+            blocks = Ab.data.numel() * Ab.data.element_size() \
+                + Ab.indices.numel() * 4
+            for p in (1, 4, 8):
+                S = torch.as_tensor(gen.standard_normal(
+                    (nB, p) if p > 1 else nB)).to(dev, dt)
+                name = "bell_spmv" if p == 1 else "bell_spmm"
+                kern = getattr(kt, name)
+                plain = getattr(cspmv, name + "_ref")
+                y, y_r = kern(Ab, S), plain(Ab, S)
+                torch.cuda.synchronize()
+                err = float((y - y_r).abs().max())
+                ymax = float(y_r.abs().max())
+                ms = event_ms(lambda: kern(Ab, S))
+                plain_ms = event_ms(lambda: plain(Ab, S), reps=5)
+                bsr, S2 = bsr_of(Ab), (S if p > 1 else S[:, None])
+                library_ms = event_ms(lambda: bsr @ S2, reps=5)
+                bound_ms = (blocks + 2 * S.numel() * S.element_size()) \
+                    / bw * 1e3
+                label = f"{name} p={p} nb={nb} {str(dt)[6:]}"
+                print(f"  {label}: max_abs_err={err:.3e} (max|y| "
+                      f"{ymax:.3e}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms={library_ms:.4f} (BSR @) bound_ms="
+                      f"{bound_ms:.4f} ({blocks / 1e6:.1f} MB of blocks)",
+                      flush=True)
+                check(err <= tol * ymax, f"{label}: agrees with the plain "
+                      f"version ({err / ymax:.2e} <= {tol})")
+                if nb == 1024 and dt == torch.float32 and p in (1, 4):
+                    report[name] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by="bytes",
+                        library_ms=library_ms)
+            del Ab
+
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
         rtol = float(np.sqrt(np.finfo(np.float32).eps))
@@ -2614,6 +2799,154 @@ def main():
                           top=6)
     del sl_ops
 
+    with Phase("5w block_gmres end to end; BELL solves", 240):
+        # The main path of the twelfth slice: block_gmres(P + 0.5 I, B,
+        # memory=32, restart=True) at 128^3, B seeded normal with four
+        # columns, in f32 and f64, by its whole-solve kernel (the default
+        # options) and by the general core with history=True; a rank-1 B
+        # (the full-rank probe sends it to the general core); then on the
+        # block-tridiagonal BELL operator at nb = 1024 (131,072 unknowns,
+        # f32) cg (bell_spmv on every product) and block_gmres and
+        # block_minres with four columns (bell_spmm through matmat).  Each
+        # solve's launch counts are set to 0 just before it and read
+        # after; its true relative residual (f64, the plain products) is
+        # held to 1.5 times the plain version's: the kernel's plain
+        # version for block_gmres on DIA, the same solve on a matrix-free
+        # operator through the plain BELL products for the BELL solves.
+        # The kernels line takes the launches of the f32 default solve
+        # and of the BELL solves.
+        bg_ops = {}
+        n = 128 ** 3
+        for dt in (torch.float32, torch.float64):
+            gen = np.random.default_rng(SEED + 32)
+            A = shifted_poisson(128, dt, 0.5)
+            B = torch.as_tensor(gen.standard_normal((n, 4))).to(dev, dt)
+            tol = rt.default_tol(None, dt)
+            f32 = dt == torch.float32
+            label = f"block_gmres {'f32' if f32 else 'f64'}"
+
+            def solve(A=A, B=B, **extra):
+                return kt.block_gmres(A, B, memory=32, restart=True, **extra)
+
+            bg_ops[f32] = solve
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            X, stats = solve()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts_fused = kt.kernel_launches()
+            reset_counts()
+            t = time.perf_counter()
+            Xh, sh = solve(history=True)
+            torch.cuda.synchronize()
+            ms_h = (time.perf_counter() - t) * 1e3
+            counts = kt.kernel_launches()
+            ref = cf.block_gmres_dia_fused_ref(A._pd, A._offsets, B, tol,
+                                               tol, 2 * (n // 4), 32)
+            want = rt.decode_status(rt.final_status_code(int(ref[3]), 0, 1,
+                                                         False))
+            res, res_p, res_h = (block_rel_residual(A, B, v)
+                                 for v in (X, ref[0], Xh))
+            print(f"  {label}: niter={stats.niter} status='{stats.status}' "
+                  f"true_res={res:.3e} ms/solve={ms:.2f} us/iter="
+                  f"{1e3 * ms / max(stats.niter, 1):.2f}; plain version: "
+                  f"niter={int(ref[1])} status='{want}' true_res="
+                  f"{res_p:.3e}; history=True: niter={sh.niter} status="
+                  f"'{sh.status}' true_res={res_h:.3e} ms={ms_h:.1f}; "
+                  f"launches {counts_fused['block_gmres_dia']} "
+                  f"(block_gmres_dia), {counts['dia_spmv']} (dia_spmv, "
+                  f"history)", flush=True)
+            check(stats.solved and sh.solved,
+                  f"{label} stopped solved (both routes)")
+            check(stats.status == want, f"{label}: the plain version's "
+                  "status")
+            check(abs(stats.niter - int(ref[1])) <= 2,
+                  f"{label}: niter {stats.niter} within ±2 of the plain "
+                  f"version's {int(ref[1])}")
+            check(bool(torch.isfinite(X).all()) and X.dtype == dt
+                  and tuple(X.shape) == (n, 4),
+                  f"{label}: a finite X of shape ({n}, 4)")
+            check(res <= 1.5 * res_p and res_h <= 1.5 * res_p,
+                  f"{label}: true residuals {res:.3e}, {res_h:.3e} "
+                  f"(history) <= 1.5 x the plain version's")
+            check(counts_fused["block_gmres_dia"] > 0
+                  and counts_fused["dia_spmv"] == 0,
+                  f"{label} launched block_gmres_dia "
+                  f"({counts_fused['block_gmres_dia']} times) and not the "
+                  "general core")
+            check(counts["dia_spmv"] > 0 and counts["block_gmres_dia"] == 0
+                  and len(sh.residuals) == sh.niter + 1,
+                  f"{label} (history=True) launched dia_spmv "
+                  f"({counts['dia_spmv']} times), not block_gmres_dia, and "
+                  "kept its history")
+            if f32:
+                launches["block_gmres_dia"] = counts_fused["block_gmres_dia"]
+                B1 = B[:, :1].repeat(1, 4).contiguous()
+                reset_counts()
+                X1, s1 = solve(B=B1)
+                counts = kt.kernel_launches()
+                res1 = block_rel_residual(A, B1, X1)
+                print(f"  block_gmres f32, rank-1 B: niter={s1.niter} status="
+                      f"'{s1.status}' true_res={res1:.3e}; launches "
+                      f"{counts['block_gmres_dia']} (block_gmres_dia), "
+                      f"{counts['dia_spmv']} (dia_spmv)", flush=True)
+                check(s1.solved and counts["block_gmres_dia"] == 0
+                      and counts["dia_spmv"] > 0 and res1 <= 1.5 * tol,
+                      "a rank-1 B took the general core and solved")
+            del A, B, X, Xh, ref
+        Ab = bell_tridiagonal(1024, torch.float32, SEED + 33)
+        Ab64 = kt.BELLMatrix(Ab.data.double(), Ab.indices, Ab.shape, 128)
+        nB = Ab.shape[0]
+        op = kt.BELLOperator(Ab)
+        plain_op = kt.FunctionOperator(
+            lambda v: cspmv.bell_spmv_ref(Ab, v), Ab.shape, torch.float32)
+        gen = np.random.default_rng(SEED + 34)
+        b = torch.as_tensor(gen.standard_normal(nB)).to(dev, torch.float32)
+        B = torch.as_tensor(gen.standard_normal((nB, 4))).to(
+            dev, torch.float32)
+
+        def bell_res(S, Y):
+            S2, Y2 = (S, Y) if S.dim() == 2 else (S[:, None], Y[:, None])
+            R = S2.double() - cspmv.bell_spmm_ref(Ab64, Y2.double())
+            return float(R.norm() / S2.double().norm())
+
+        launches["bell_spmm"] = 0
+        for method, rhs_, name in (("cg", b, "bell_spmv"),
+                                   ("block_gmres", B, "bell_spmm"),
+                                   ("block_minres", B, "bell_spmm")):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            Y, st = getattr(kt, method)(op, rhs_)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts = kt.kernel_launches()
+            Yp, sp = getattr(kt, method)(plain_op, rhs_)
+            res, res_p = bell_res(rhs_, Y), bell_res(rhs_, Yp)
+            print(f"  {method} on BELL nb=1024 f32: niter={st.niter} status="
+                  f"'{st.status}' true_res={res:.3e} ms={ms:.2f}; plain "
+                  f"products: niter={sp.niter} true_res={res_p:.3e}; "
+                  f"launches {counts[name]} ({name})", flush=True)
+            check(st.solved and st.status == sp.status
+                  and abs(st.niter - sp.niter) <= 2,
+                  f"{method} on BELL solved as with the plain products")
+            check(res <= 1.5 * res_p, f"{method} on BELL: true residual "
+                  f"{res:.3e} <= 1.5 x the plain products' {res_p:.3e}")
+            check(counts[name] > 0, f"{method} on BELL launched {name} "
+                  f"({counts[name]} times)")
+            if name == "bell_spmv":
+                launches[name] = counts[name]
+            else:
+                launches[name] += counts[name]
+        del Ab, Ab64, op, plain_op
+
+    with Phase("5x profiles of the 128^3 block GMRES solves", 60):
+        for f32 in (True, False):
+            print(f"  block_gmres {'f32' if f32 else 'f64'}:", flush=True)
+            profile_solve(lambda f32=f32: bg_ops[f32](), top=12)
+    del bg_ops
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -2656,13 +2989,14 @@ def main():
         del A32, A64, pd64
 
     with Phase("5h krylov_solve and workspaces on the card (64^3)", 90):
-        # Each of the thirty-eight ported methods through krylov_solve (the
+        # Each of the thirty-nine methods through krylov_solve (the
         # non-symmetric ten, CGLS, CRLS and CGLS-Lanczos-shift on the
         # convection-diffusion stencil, CGS and BiLQR in f64, the four SSY
         # methods, LSQR, LSMR, LSLQ, CRAIG, CRAIGMR, LNLQ, CGNE and CRMR on
         # the stencil with 0.5 on its main diagonal, TriCG and TriMR on the
         # Poisson stencil, GPMR on K = 0.1 (P + I) and K^H, block MINRES on
-        # the Poisson stencil with two columns), against a direct
+        # the Poisson stencil with two columns, block GMRES (memory 32,
+        # restart) on the shifted stencil with two columns), against a direct
         # call of its solver on the same inputs: the same status, niter and
         # x (and y) (bit for bit: the kernels sum in a fixed order); then a
         # BiLQR and a TriLQR workspace, and one workspace round trip
@@ -2684,7 +3018,7 @@ def main():
                        "usymlqr", "lsqr", "lsmr", "lslq", "craig", "craigmr",
                        "lnlq", "cgne", "crmr", "cgls", "crls",
                        "cgls_lanczos_shift", "tricg", "trimr", "gpmr",
-                       "block_minres"):
+                       "block_minres", "block_gmres"):
             extra = ([0.0, 1.0],) if method == "cg_lanczos_shift" else ()
             op, bm = (Acd if method in ("gmres", "fgmres", "fom",
                                         "bicgstab", "diom", "dqgmres",
@@ -2696,8 +3030,10 @@ def main():
                 extra = (c32,)
             if method == "gpmr":
                 op, bm, extra = K64, KH64, (b, c32)
-            if method == "block_minres":
+            if method in ("block_minres", "block_gmres"):
                 bm = torch.stack([b, c32], 1)
+            if method == "block_gmres":
+                op = Ash
             if method in ("cgs", "bilqr"):   # in f64, as phase 3e says
                 op, bm = Acd64, b.double()
             if method == "bilqr":
@@ -2708,7 +3044,8 @@ def main():
                           "cgne", "crmr"):
                 op = Ash
             kw = ({"lam": 1.0, "mu": -1.0, "memory": 48, "itmax": 48}
-                  if method == "gpmr" else {})
+                  if method == "gpmr" else {"memory": 32, "restart": True}
+                  if method == "block_gmres" else {})
             *xs, st = kt.krylov_solve(method, op, bm, *extra, **kw)
             *xd, sd = getattr(kt, method)(op, bm, *extra, **kw)
             torch.cuda.synchronize()
@@ -2826,7 +3163,14 @@ def main():
                             "krylov_tpu/ops/pallas_fused.py:8220"),
                "block_minres_dia": (
                    "krylov_tpu_torch/csrc/block_minres_dia.cu",
-                   "krylov_tpu/ops/pallas_fused.py:2669")}
+                   "krylov_tpu/ops/pallas_fused.py:2669"),
+               "block_gmres_dia": (
+                   "krylov_tpu_torch/csrc/block_gmres_dia.cu",
+                   "krylov_tpu/ops/pallas_fused.py:2221"),
+               "bell_spmv": ("krylov_tpu_torch/csrc/bell_spmv.cu",
+                             "krylov_tpu/ops/pallas_spmv.py:172"),
+               "bell_spmm": ("krylov_tpu_torch/csrc/bell_spmv.cu",
+                             "krylov_tpu/ops/pallas_spmv.py:236")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

@@ -15,12 +15,14 @@ and ``cgls``, ``crls`` and ``cgls_lanczos_shift`` (CG and CR on AᴴA)
 for min ‖b − Ax‖² + λ‖x‖², ``tricg`` and ``trimr`` for the symmetric
 quasi-definite [τI A; Aᴴ νI][x; y] = [b; c], ``gpmr`` for the
 partitioned [λI A; B μI][x; y] = [b; c] with two operators, and
-``block_minres`` for AX = B with several right-hand sides,
-on DIA stencil, CSR, dense and matrix-free operators (with their
-adjoints), through hand-written CUDA kernels for Hopper (``csrc/``): a
-DIA SpMV (plain and in a padded, chainable layout) and a whole-solve
-kernel for each solver, each with a plain PyTorch version used on the
-CPU; and the generic
+``block_minres`` and ``block_gmres`` for AX = B with several right-hand
+sides, on DIA stencil, block-ELL (``BELLOperator``), CSR, dense and
+matrix-free operators (with their adjoints), through hand-written CUDA
+kernels for Hopper (``csrc/``): a DIA SpMV (plain and in a padded,
+chainable layout), the block-ELL SpMV and SpMM, and a whole-solve kernel
+for each solver, each with a plain PyTorch version used on the CPU; the
+twelve Krylov processes (``arnoldi``, ``golub_kahan``, ...,
+``block_montoison_orban``); and the generic
 ``krylov_solve`` / ``krylov_workspace`` interface over those methods.
 Constructors put data on the card unless the caller passes
 ``device="cpu"``; solvers run on the device of their inputs, and put
@@ -30,6 +32,7 @@ inputs that are not tensors on the card.
 from .operators import (
     AbstractLinearOperator,
     AdjointOperator,
+    BELLOperator,
     CSROperator,
     DIAOperator,
     DiagonalOperator,
@@ -43,7 +46,8 @@ from .ops.cuda_dia import (dia_align_adjoint, dia_pad_layout,
                            dia_spmv_aligned, dia_spmv_padded,
                            dia_unpad_layout)
 from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
-                             bilqr_dia_fused, block_minres_dia_fused,
+                             bilqr_dia_fused, block_gmres_dia_fused,
+                             block_minres_dia_fused,
                              car_dia_fused,
                              cg_cheby_dia_fused, cg_dia_fused,
                              cg_lanczos_dia_fused,
@@ -62,14 +66,23 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
                              trunc_dia_fused,
                              usymlq_dia_fused, usymlqr_dia_fused,
                              usymqr_dia_fused)
-from .ops.dia import DIAMatrix, convdiff_dia, dia_from_scipy, poisson_dia
+from .ops.cuda_spmv import (BELLMatrix, ELLMatrix, bell_from_csr,
+                            bell_from_dense_blocks, bell_spmm, bell_spmv,
+                            ell_from_csr, ell_spmv)
+from .ops.dia import (DIAMatrix, convdiff_dia, dia_from_scipy, dia_spmm,
+                      poisson_dia)
 from .ops.kops import (kdot, kdotr, kdotr2, knorm, knorm_elliptic,
                        roots_quadratic, sym_givens, to_boundary)
 from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
 from .precond import ChebyshevPreconditioner, power_bound
+from .processes import (arnoldi, block_arnoldi, block_golub_kahan,
+                        block_hermitian_lanczos, block_montoison_orban,
+                        block_nonhermitian_lanczos, block_saunders_simon_yip,
+                        golub_kahan, hermitian_lanczos, montoison_orban,
+                        nonhermitian_lanczos, saunders_simon_yip)
 from .solvers.bicgstab import bicgstab, cgs
 from .solvers.bilq import bilq, bilqr, qmr
-from .solvers.block import block_minres
+from .solvers.block import block_gmres, block_minres
 from .solvers.cg import cg
 from .solvers.cg_lanczos import cg_lanczos, cg_lanczos_shift
 from .solvers.cgls import cgls, cgls_lanczos_shift, crls
@@ -141,7 +154,10 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "tricg_dia": tricg_dia_fused,
            "trimr_dia": trimr_dia_fused,
            "gpmr_dia": gpmr_dia_fused,
-           "block_minres_dia": block_minres_dia_fused}
+           "block_minres_dia": block_minres_dia_fused,
+           "block_gmres_dia": block_gmres_dia_fused,
+           "bell_spmv": bell_spmv,
+           "bell_spmm": bell_spmm}
 
 
 def kernel_launches():

@@ -33,6 +33,8 @@ _PAIRS = ("f32_f32", "f32_bf16", "f32_f16", "f64_f64")
 # the further pairs of the DIA SpMV kernels (ops/cuda_dia.py)
 _SPMV_PAIRS = _PAIRS + ("f64_f32", "bf16_bf16", "f16_f16", "c64_f32",
                         "c64_c64", "c128_f64", "c128_c128")
+# the element types of the block-ELL kernels
+_BELL = ("f32", "f64", "bf16", "f16", "c64", "c128")
 # the kernels on the Saunders-Simon-Yip launches of csrc/ssy.cuh
 _SSY = ("usymlq", "usymqr", "trilqr", "usymlqr", "tricg", "trimr")
 # the kernels on the Golub-Kahan launches of csrc/gk.cuh
@@ -206,6 +208,20 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"ktt_block_minres_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
        + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
+    # block GMRES (csrc/block_gmres_dia.cu, block_gmres_dia_bf16.cu,
+    # block_gmres_dia_f64.cu; the names end in the basis type): (pd,
+    # offsets, nd, Bt, V, W, X, partial, sc, st, n, grid, p, mem, itmax,
+    # stream) and (..., grid, p, mem, confirm, iters, cap, stream)
+    **{f"ktt_block_gmres_dia_{k}_{t}_{v}": (_P, _P, _I) + (_P,) * 7
+       + (_L,) + (_I,) * (4 if k == "init" else 6) + (_P,)
+       for k in ("init", "iterate") for t in _PAIRS
+       for v in (t[:3], "bf16")},
+    # the block-ELL products (csrc/bell_spmv.cu): (data, idx, x, y, nbr,
+    # mbpr, bs, m, n[, p], stream)
+    **{f"ktt_bell_spmv_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L, _P)
+       for t in _BELL},
+    **{f"ktt_bell_spmm_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L, _I, _P)
+       for t in _BELL},
 }
 
 

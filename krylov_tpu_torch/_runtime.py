@@ -267,3 +267,12 @@ def debug_row(verbose, iter_, fmt, *values):
     if verbose > 0 and int(iter_) % verbose == 0:
         print(fmt.format(int(iter_), *(float(v) for v in values)),
               flush=True)
+
+
+def debug_row_vals(verbose, gate_iter, fmt, *values):
+    """Like ``debug_row``, but the cadence gate and the printed values are
+    independent: for tables whose leading column is not the iteration
+    count (block GMRES prints the pass first, reference
+    src/block_gmres.jl:181).  The values are Python numbers."""
+    if verbose > 0 and int(gate_iter) % verbose == 0:
+        print(fmt.format(*values), flush=True)

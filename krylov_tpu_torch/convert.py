@@ -6,12 +6,15 @@ The port never imports ``krylov_tpu``; a caller holding a
 packages then solve the same system.  A ``krylov_tpu`` ``CSRMatrix`` C
 goes across likewise: ``csr_from_numpy(np.asarray(C.data),
 np.asarray(C.indices), np.asarray(C.indptr), np.asarray(C.rows),
-C.shape)``.
+C.shape)``; its ``BELLMatrix`` B as ``bell_from_numpy(np.asarray(B.data),
+np.asarray(B.indices), B.shape, B.bs)`` and its ``ELLMatrix`` E as
+``ell_from_numpy(np.asarray(E.data), np.asarray(E.indices), E.shape)``.
 """
 
 import numpy as np
 import torch
 
+from .ops.cuda_spmv import BELLMatrix, ELLMatrix
 from .ops.dia import DIAMatrix, resolve_device
 from .ops.sparse import CSRMatrix
 
@@ -32,3 +35,20 @@ def csr_from_numpy(data, indices, indptr, rows, shape, device="cuda"):
 
     return CSRMatrix(t(data), t(indices, np.int64), t(indptr, np.int64),
                      t(rows, np.int64), shape)
+
+
+def bell_from_numpy(data, indices, shape, bs, device="cuda"):
+    """The port's BELLMatrix with the same blocks and int32 block column
+    indices."""
+    device = resolve_device(device)
+    return BELLMatrix(torch.as_tensor(np.array(data), device=device),
+                      torch.as_tensor(np.array(indices, dtype=np.int32),
+                                      device=device), shape, bs)
+
+
+def ell_from_numpy(data, indices, shape, device="cuda"):
+    """The port's ELLMatrix with the same padded rows."""
+    device = resolve_device(device)
+    return ELLMatrix(torch.as_tensor(np.array(data), device=device),
+                     torch.as_tensor(np.array(indices, dtype=np.int32),
+                                     device=device), shape)

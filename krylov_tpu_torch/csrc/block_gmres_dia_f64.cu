@@ -1,0 +1,11 @@
+// Block GMRES's whole-solve kernel (block_gmres.cuh) for f64 vectors and
+// diagonals, with an f64 or a compressed bf16 basis; replaces the TPU
+// kernel krylov_tpu/ops/pallas_fused.py:2221 block_gmres_dia_fused.
+#include "block_gmres.cuh"
+
+KTT_BG_ENTRIES(ktt_block_gmres_dia_init_f64_f64_f64,
+               ktt_block_gmres_dia_iterate_f64_f64_f64, double, double,
+               double)
+KTT_BG_ENTRIES(ktt_block_gmres_dia_init_f64_f64_bf16,
+               ktt_block_gmres_dia_iterate_f64_f64_bf16, double, double,
+               __nv_bfloat16)

@@ -13,7 +13,8 @@ import torch
 from ._runtime import as_device_tensor, full_fp32
 from .ops.cuda_dia import (dia_align, dia_align_adjoint, dia_spmv_aligned,
                            offsets_tensor)
-from .ops.dia import DIAMatrix, dia_spmv, resolve_device
+from .ops.cuda_spmv import bell_spmm, bell_spmv
+from .ops.dia import DIAMatrix, dia_spmm, dia_spmv, resolve_device
 from .ops.sparse import CSRMatrix, spmm, spmv
 
 
@@ -285,6 +286,14 @@ class DIAOperator(AbstractLinearOperator):
             return dia_spmv_aligned(self._pd, self._offsets, x)
         return dia_spmv(self.dia.data, self.dia.offsets, x)
 
+    def matmat(self, X):
+        """A X: on the card the SpMV kernel once per column (the JAX
+        package's ``dia_spmm`` runs outside any kernel); elsewhere the
+        plain ``dia_spmm``."""
+        if self.use_kernel and X.is_cuda:
+            return super().matmat(X)
+        return dia_spmm(self.dia.data, self.dia.offsets, X)
+
     def adjoint_dia(self):
         """(data, offsets) of Aᴴ in DIA layout: conjugate data, negate
         offsets, shift the stored diagonals.  A[i, i+k] = data[d, i+k] ⇒
@@ -317,6 +326,39 @@ class DIAOperator(AbstractLinearOperator):
             return dia_spmv_aligned(*self.aligned_adjoint_kernel_args(), x)
         data, offs = self.adjoint_dia()
         return dia_spmv(data, offs, x)
+
+
+class BELLOperator(AbstractLinearOperator):
+    """Block-ELL operator on the BELL kernels (ops/cuda_spmv.py): matvec
+    through ``bell_spmv``, matmat (the block solvers') through
+    ``bell_spmm``.  Hermitian systems need only A's storage; the
+    unsymmetric methods take the adjoint's, built by the caller:
+    ``BELLOperator(bell, bell_h)``."""
+
+    def __init__(self, bell, bell_h=None):
+        self.bell = bell
+        self.bell_h = bell_h
+        self.shape = bell.shape
+        self.dtype = bell.dtype
+        self.device = bell.device
+
+    def _adjoint(self):
+        if self.bell_h is None:
+            raise ValueError(
+                "BELLOperator needs adjoint storage: pass bell_h")
+        return self.bell_h
+
+    def matvec(self, x):
+        return bell_spmv(self.bell, x)
+
+    def rmatvec(self, x):
+        return bell_spmv(self._adjoint(), x)
+
+    def matmat(self, X):
+        return bell_spmm(self.bell, X)
+
+    def rmatmat(self, X):
+        return bell_spmm(self._adjoint(), X)
 
 
 def as_operator(A, device=None):

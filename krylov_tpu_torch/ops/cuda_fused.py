@@ -72,6 +72,12 @@ same chunked, masked semantics, so that niter is exact across chunks.
   columns, with CholQR2 panels (``csrc/block_minres.cuh`` on
   ``csrc/block.cuh``, instantiated in ``csrc/block_minres_dia.cu`` and
   ``csrc/block_minres_dia_f64.cu``).
+* ``block_gmres_dia_fused``: restarted block GMRES(mem) for AX = B, B of
+  1 to 8 columns, mem·p ≤ 128: block CGS2, CholQR2 panels, the banded
+  block Hessenberg's Givens QR in one block, restarts decided on the
+  card, optionally a bf16 basis (``csrc/block_gmres.cuh`` on
+  ``csrc/block.cuh``, instantiated in ``csrc/block_gmres_dia.cu``,
+  ``csrc/block_gmres_dia_bf16.cu`` and ``csrc/block_gmres_dia_f64.cu``).
 """
 
 import math
@@ -84,7 +90,8 @@ from .. import _build
 from .._runtime import (BREAKDOWN, COND_EXCEEDED, FWD_ERR, ILL_COND_MACH,
                         INCONSISTENT, MIN_LSQ_X, RUNNING, SOLVED, SOLVED_LSQ,
                         SOLVED_PRIMAL_DUAL, SOLVED_ZERO, TIRED,
-                        ZERO_CURVATURE, ZERO_RESIDUAL, drive)
+                        ZERO_CURVATURE, ZERO_RESIDUAL, drive,
+                        full_fp32)
 from .cuda_dia import _check as _check_spmv
 from .cuda_dia import dia_spmv_aligned_ref
 from .kops import sym_givens
@@ -220,6 +227,13 @@ _GP_RNORM, _GP_H, _GP_INCON, _GP_NST, _GP_MAXMEM = 5, 6, 4, 5, 64
 # slot and the first state slot (Ψ), the int array's size, the largest p;
 # the arrays are sized by p (``_bm_layout``)
 _BM_RNORM, _BM_PSI, _BM_NST, _BM_MAXP = 3, 4, 4, 8
+# block GMRES (csrc/block_gmres.cuh): the fixed scalar slots (ATOL, RTOL,
+# BTOL, ..., RNORM), then arrays sized by mem and p (``_bg_layout``); the
+# int slots of the inconsistent flag and the pass count, the int array's
+# size, the largest mem * p, and the rows per thread of its row launches
+_BG_RNORM, _BG_NSC = 4, 8
+_BG_INCONS, _BG_NPASS, _BG_NST = 5, 6, 13
+_BG_MAXMP, _BG_ROWS = 128, 4
 
 
 def cg_dia_fused_supported(offsets, n, dtype, stencil_dtype=None):
@@ -274,6 +288,16 @@ def block_minres_dia_fused_supported(offsets, n, p, dtype,
     TPU kernel's gate, pallas_fused.py:2999)."""
     return (cg_dia_fused_supported(offsets, n, dtype, stencil_dtype)
             and 1 <= p <= _BM_MAXP)
+
+
+def block_gmres_dia_fused_supported(offsets, n, p, dtype, mem,
+                                    stencil_dtype=None, basis_dtype=None):
+    """The dtype gate of ``cg_dia_fused_supported``, the TPU kernel's
+    limits 1 ≤ p ≤ 8, mem ≥ 2 and mem·p ≤ 128 (pallas_fused.py:
+    2655-2665), and a basis type the kernel stores: B's own or bf16."""
+    return (cg_dia_fused_supported(offsets, n, dtype, stencil_dtype)
+            and 1 <= p <= _BM_MAXP and mem >= 2 and mem * p <= _BG_MAXMP
+            and basis_dtype in (None, dtype, torch.bfloat16))
 
 
 def gpmr_dia_fused_supported(offsets_a, offsets_b, n, dtype, mem,
@@ -3486,6 +3510,173 @@ def gpmr_dia_fused_ref(pd_a, pd_b, offsets_a, offsets_b, b, c, lam, mu,
 
 
 # ---------------------------------------------------------------------------
+# block GMRES: the plain version
+# ---------------------------------------------------------------------------
+
+def _fro_np(G):
+    """‖G‖_F of a small numpy matrix, the squares summed from 0 by rows."""
+    s = G.dtype.type(0)
+    for v in G.reshape(-1):
+        s = s + v * v
+    return np.sqrt(s)
+
+
+def _bg_layout(mem, p):
+    """(scalars, partial rows) of the block GMRES kernel
+    (csrc/block_gmres.cuh, struct Layout): NSC fixed slots, H1 and H2
+    (mem p × p each), R₁ with its pivots and R₂ with its pivots (p² + p
+    each), the rotations c and s (mem p × p each), Z ((mem+1) p × p), Y
+    (mem p × p) and the triangle ((mem p)²); the partial rows of H (mem p
+    × p entries), which the Gram triangles' reuse."""
+    mp = mem * p
+    return (_BG_NSC + 5 * mp * p + 2 * (p * p + p) + (mp + p) * p + mp * mp,
+            mp * p)
+
+
+def block_gmres_dia_fused_ref(pd, offsets, B, atol, rtol, itmax, mem=16,
+                              basis_dtype=None):
+    """Plain PyTorch restarted block GMRES(mem) of AX = B (pallas_fused.py:
+    2221-2597): the panels (p columns of n) on B's device, block CGS2
+    against the panels 0..k, CholQR2, and on the host in B's dtype the
+    banded block Hessenberg's Givens QR (every earlier rotation replayed,
+    p new ones per column), Z, the mass stranded on singular pivots, the
+    back substitution and its inconsistent flag; X += V Y, one basis
+    vector after another, and the reseed from B − AX, in the TPU kernel's
+    order.  With ``basis_dtype`` the basis is stored in that type, every
+    pass end reseeds, and a stop on the residual estimate holds only where
+    the true residual confirms it or the pass stagnated.
+
+    Returns (X (n, p), niter, rnorm, status, inconsistent, npass) as
+    tensors, as ``block_gmres_dia_fused`` does."""
+    dev, T = B.device, B.dtype
+    NT = _NP[T]
+    n, p = B.shape
+    BT = T if basis_dtype is None else basis_dtype
+    confirm = basis_dtype is not None
+    btol = NT(float(torch.finfo(T).eps) ** 0.75)
+    zero, one = NT(0), NT(1)
+    mp, mp1 = mem * p, (mem + 1) * p
+    Bt = B.T.contiguous()
+    V = torch.zeros((mp1, n), dtype=BT, device=dev)
+    X = torch.zeros((p, n), dtype=T, device=dev)
+    cs = np.zeros((mp, p), dtype=NT)
+    sn = np.zeros((mp, p), dtype=NT)
+    Rt = np.zeros((mp, mp), dtype=NT)
+    zz = np.zeros((mp1, p), dtype=NT)
+    strand = [zero]
+
+    def reseed():
+        W = Bt - torch.stack([dia_spmv_aligned_ref(pd, offsets, X[b])
+                              for b in range(p)])
+        W, G = _cholqr2_ref(W, btol)
+        V[:p] = W.to(BT)
+        zz[:] = zero
+        zz[:p] = G
+        strand[0] = zero
+        return _fro_np(G)
+
+    beta0 = reseed()
+    eps_lim = NT(atol) + NT(rtol) * beta0
+    status = (ZERO_RESIDUAL if beta0 == 0 else SOLVED if beta0 <= eps_lim
+              else RUNNING)
+    it, k, rnorm, incons, npass = 0, 0, beta0, False, 1
+    prev_tr = NT(np.inf)
+    while status == RUNNING and it < itmax:
+        # W = A V_k, CGS2 against the panels 0..k (pallas_fused.py:
+        # 2396-2432)
+        W = torch.stack([dia_spmv_aligned_ref(pd, offsets,
+                                              V[k * p + b].to(T))
+                         for b in range(p)])
+        Vk = V[:(k + 1) * p].to(T)
+        with full_fp32():
+            H1 = Vk @ W.T
+            W = W - H1.T @ Vk
+            H2 = Vk @ W.T
+            W = W - H2.T @ Vk
+        H = (H1 + H2).cpu().numpy()
+        # CholQR2 into V_{k+1}, H_{k+1,k} = R (:2435-2439)
+        W, R = _cholqr2_ref(W, btol)
+        hbis = _fro_np(R)
+        V[(k + 1) * p:(k + 2) * p] = W.to(BT)
+        # the p new columns of the banded Hessenberg (:2441-2511)
+        for l in range(p):
+            c = k * p + l
+            col = np.zeros(mp1, dtype=NT)
+            col[:(k + 1) * p] = H[:, l]
+            col[(k + 1) * p:(k + 2) * p] = R[:, l]
+            for c2 in range(c):
+                for j in range(p):
+                    r = c2 + p - j
+                    u, v = col[r - 1], col[r]
+                    col[r - 1] = cs[c2, j] * u + sn[c2, j] * v
+                    col[r] = sn[c2, j] * u - cs[c2, j] * v
+            for j in range(p):
+                r = c + p - j
+                ch, sh, rr = (NT(v.item()) for v in sym_givens(
+                    torch.tensor(col[r - 1]), torch.tensor(col[r])))
+                cs[c, j], sn[c, j], col[r - 1] = ch, sh, rr
+                for b in range(p):
+                    u, v = zz[r - 1, b], zz[r, b]
+                    zz[r - 1, b] = ch * u + sh * v
+                    zz[r, b] = sh * u - ch * v
+            Rt[:c + 1, c] = col[:c + 1]
+            sm = zero
+            for b in range(p):
+                sm = sm + zz[c, b] ** 2
+            strand[0] = strand[0] + (sm if abs(col[c]) <= btol else zero)
+        ss = strand[0]
+        for a in range(p):
+            for b in range(p):
+                ss = ss + zz[(k + 1) * p + a, b] ** 2
+        rnorm_n = np.sqrt(ss)
+        it, kk = it + 1, k + 1
+        resid = bool(rnorm_n <= eps_lim or rnorm_n + one <= one)
+        brk = bool(hbis <= btol)
+        tired = it >= itmax
+        inner_done = resid or brk or tired or kk >= mem
+        tmp0, sing, confirmed = rnorm_n, False, False
+        if inner_done:
+            # the back substitution and X += V Y (:2515-2546)
+            cols = kk * p
+            Y = np.zeros((cols, p), dtype=NT)
+            for i in reversed(range(cols)):
+                acc = zz[i].copy()
+                for j in range(i + 1, cols):
+                    acc = acc - Rt[i, j] * Y[j]
+                if abs(Rt[i, i]) <= btol:
+                    sing = True
+                else:
+                    Y[i] = acc / Rt[i, i]
+            Yt = torch.as_tensor(Y, device=dev)
+            for j in range(cols):
+                X = X + Yt[j][:, None] * V[j].to(T)[None, :]
+            if confirm or not (resid or brk or tired):
+                tmp0 = reseed()
+                confirmed = bool(tmp0 <= eps_lim or tmp0 + one <= one)
+        if confirm:
+            final = resid and (confirmed or bool(tmp0 > NT(0.5) * prev_tr))
+            if inner_done and resid and not final:
+                prev_tr = tmp0
+        else:
+            final = resid
+        glob_final = final or brk or tired
+        incons = incons or (inner_done and sing)
+        code = BREAKDOWN
+        code = TIRED if tired else code
+        code = SOLVED if final else code
+        status = (RUNNING if not glob_final else code) if inner_done \
+            else RUNNING
+        k = 0 if inner_done else kk
+        if inner_done and not glob_final:
+            npass += 1
+            rnorm = tmp0
+        else:
+            rnorm = rnorm_n
+    return (X.T.contiguous(), _i32(it, B), torch.as_tensor(rnorm, device=dev),
+            _i32(status, B), _i32(int(incons), B), _i32(npass, B))
+
+
+# ---------------------------------------------------------------------------
 # block MINRES: the plain version
 # ---------------------------------------------------------------------------
 
@@ -4943,3 +5134,52 @@ def block_minres_dia_fused(pd, offsets, B, atol, rtol, itmax):
 
 
 block_minres_dia_fused.launches = 0
+
+
+def block_gmres_dia_fused(pd, offsets, B, atol, rtol, itmax, mem=16,
+                          basis_dtype=None):
+    """Full restarted block-GMRES(mem) solve of AX = B for a DIA matrix and
+    B of shape (n, p), 1 ≤ p ≤ 8, mem ≥ 2, mem·p ≤ 128.  ``basis_dtype``
+    (bf16, or B's own) stores the basis in that type and confirms every
+    stop on the true residual.  Returns (X (n, p), niter, rnorm,
+    status_code, inconsistent, npass) as tensors on B's device; the codes
+    are 1 (solved), 2 (B = 0), 7 (breakdown) and 100 (itmax).  B should
+    have full column rank (the solver's route sends a rank-deficient
+    block to the general core)."""
+    if B.dim() != 2 or not 1 <= B.shape[1] <= _BM_MAXP:
+        raise ValueError(f"B must have shape (n, p), 1 <= p <= {_BM_MAXP}; "
+                         f"got {tuple(B.shape)}")
+    n, p = B.shape
+    if mem < 2 or mem * p > _BG_MAXMP:
+        raise ValueError(f"need mem >= 2 and mem * p <= {_BG_MAXMP}; got "
+                         f"mem={mem}, p={p}")
+    Bt = B.T.contiguous()
+    _check(pd, offsets, Bt[0], None)
+    if B.device.type == "cpu":
+        return block_gmres_dia_fused_ref(pd, offsets, B, atol, rtol, itmax,
+                                         mem, basis_dtype)
+    pair = _pair("BLOCK-GMRES", B, pd)
+    BT = B.dtype if basis_dtype is None else basis_dtype
+    if BT not in (B.dtype, torch.bfloat16):
+        raise ValueError(f"no BLOCK-GMRES kernel for a {BT} basis")
+    suffix = f"{pair}_{_BASIS[BT]}"
+    grid = max(1, -(-n // (_THREADS * _BG_ROWS)))
+    nsc, npart = _bg_layout(mem, p)
+    btol = float(torch.finfo(B.dtype).eps) ** 0.75
+    sc = _host_scalars(nsc, B, {0: atol, 1: rtol, 2: btol})
+    V = torch.zeros(((mem + 1) * p, n), dtype=BT, device=B.device)
+    W = torch.zeros((p, n), dtype=B.dtype, device=B.device)
+    X = torch.zeros((p, n), dtype=B.dtype, device=B.device)
+    partial = torch.zeros((npart, grid), dtype=B.dtype, device=B.device)
+    st = torch.zeros(_BG_NST, dtype=torch.int32, device=B.device)
+    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], Bt.data_ptr(),
+            V.data_ptr(), W.data_ptr(), X.data_ptr(), partial.data_ptr(),
+            sc.data_ptr(), st.data_ptr(), n, grid, p, mem)
+    _run(block_gmres_dia_fused, B, f"ktt_block_gmres_dia_init_{suffix}",
+         head + (itmax,), f"ktt_block_gmres_dia_iterate_{suffix}",
+         head + (int(basis_dtype is not None),), st, itmax)
+    return (X.T.contiguous(), st[_IT], sc[_BG_RNORM], st[_STATUS],
+            st[_BG_INCONS], st[_BG_NPASS])
+
+
+block_gmres_dia_fused.launches = 0

@@ -89,6 +89,24 @@ def dia_spmv(data, offsets, x):
     return y
 
 
+def dia_spmm(data, offsets, X):
+    """Y = A X for a block of column vectors (n, p): ``dia_spmv`` on every
+    column at once, in the same order of terms."""
+    n = X.shape[0]
+    Y = torch.zeros_like(X)
+    for d, k in enumerate(offsets):
+        if abs(k) >= n:
+            continue
+        prod = data[d][:, None] * X
+        if k == 0:
+            Y = Y + prod
+        elif k > 0:
+            Y[: n - k] += prod[k:]
+        else:
+            Y[-k:] += prod[: n + k]
+    return Y
+
+
 def dia_from_scipy(A_scipy, dtype=None, device="cuda"):
     """Build a DIAMatrix from any scipy.sparse matrix (host-side)."""
     import scipy.sparse as sp

@@ -8,10 +8,10 @@ internals such as ``npc_dir`` stay reachable, like the reference's
 workspace fields), the last stats object and a pending warm-start guess
 set by ``warm_start(ws, x0[, y0])``.  ``METHOD_TABLE`` is the reference's
 per-method (nsol, nA, nAt, warm) table (src/workspace_accessors.jl:
-101-139) for all 39 methods.  The methods the port has are resolved to
-their solvers; building a workspace for any other raises
-``NotImplementedError`` naming the item of ROADMAP.md Queue 1 that
-ports it.
+101-139) for all 39 methods, each resolved to its solver; a method
+missing from the port would raise ``NotImplementedError`` naming the
+item of ROADMAP.md Queue 1 that ports it (``_QUEUE_ITEM``, empty now
+that all 39 are ported).
 """
 
 import functools
@@ -129,10 +129,11 @@ _PORTED = {
     "trimr": (_tricg._trimr_solve, _tricg.trimr),
     "gpmr": (_gpmr._gpmr_solve, _gpmr.gpmr),
     "block_minres": (_block._block_minres_solve, _block.block_minres),
+    "block_gmres": (_block._block_gmres_solve, _block.block_gmres),
 }
 
-# the ROADMAP.md Queue 1 item that ports each other method
-_QUEUE_ITEM = {"block_gmres": 7}
+# the ROADMAP.md Queue 1 item that ports each other method (none left)
+_QUEUE_ITEM = {}
 
 
 def _resolve(method):

@@ -13,13 +13,8 @@ import krylov_tpu_torch as kt
 
 # the open ROADMAP.md Queue 1 item that brings each name still missing
 QUEUED = {
-    7: ("block_gmres", "hermitian_lanczos",
-        "nonhermitian_lanczos", "arnoldi", "golub_kahan",
-        "saunders_simon_yip", "montoison_orban", "block_hermitian_lanczos",
-        "block_nonhermitian_lanczos", "block_arnoldi", "block_golub_kahan",
-        "block_saunders_simon_yip", "block_montoison_orban"),
     8: ("knorm2",),
-    9: ("BELLOperator", "HybridOperator", "HybridMatrix", "hybrid_from_csr",
+    9: ("HybridOperator", "HybridMatrix", "hybrid_from_csr",
         "split_diagonals", "SELLMatrix", "SELLBucketed", "sell_from_csr",
         "sell_bucketed_from_csr", "sell_spmv"),
     10: ("pipelined_cg",),
@@ -44,10 +39,10 @@ def test_every_jax_name_is_exported_or_queued():
 
 def test_queue_map_names_each_missing_name_once():
     """Each queued name is a JAX name the port lacks, named under one
-    open item (7 to 11)."""
+    open item (8 to 11)."""
     names = [n for item in QUEUED.values() for n in item]
     assert len(names) == len(set(names))
-    assert set(QUEUED) <= set(range(7, 12))
+    assert set(QUEUED) <= set(range(8, 12))
     jax_names = set(_jax_public_names())
     for n in names:
         assert n in jax_names and not hasattr(kt, n), n

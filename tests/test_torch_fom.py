@@ -116,8 +116,13 @@ def test_callback_timemax_and_options(capsys):
     assert "FOM: system of size 512" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         kt.fom(port(A), torch.as_tensor(b), precision="double_word")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        kt.krylov_solve("block_gmres", port(A), torch.as_tensor(b))
+    B = torch.stack([torch.as_tensor(b), torch.ones(len(b),
+                                                    dtype=torch.float64)], 1)
+    X, sb = kt.krylov_solve("block_gmres", port(A), B, memory=5,
+                            restart=True)
+    Xd, sd = kt.block_gmres(port(A), B, memory=5, restart=True)
+    assert (sb.status, sb.niter) == (sd.status, sd.niter)
+    assert torch.equal(X, Xd)
 
 
 @pytest.fixture

@@ -5,9 +5,9 @@ tests/test_stats_show.py for the methods the port has).
 Inputs are made with numpy from a seed (or the fixture generators) and
 given to both packages.  Tolerances: in f64 the status string and niter
 are equal and x agrees to 1e-8 relative (reductions are summed in
-another order).  Every method the port does not have yet raises
-``NotImplementedError`` naming its item of ROADMAP.md Queue 1 when its
-workspace is built.
+another order).  All 39 methods are ported; a method the port lacked
+would raise ``NotImplementedError`` naming its item of ROADMAP.md Queue
+1 when its workspace is built.
 """
 
 import dataclasses
@@ -27,9 +27,10 @@ PORTED = ("cg", "cr", "car", "cg_lanczos", "cg_lanczos_shift", "symmlq",
           "bicgstab", "cgs", "diom", "dqgmres", "bilq", "qmr", "bilqr",
           "usymlq", "usymqr", "trilqr", "usymlqr", "lsqr", "lsmr", "lslq",
           "cgne", "crmr", "craig", "craigmr", "lnlq", "cgls", "crls",
-          "cgls_lanczos_shift", "tricg", "trimr", "gpmr", "block_minres")
-# the ROADMAP.md Queue 1 item that ports each other method
-QUEUE_ITEM = {"block_gmres": 7}
+          "cgls_lanczos_shift", "tricg", "trimr", "gpmr", "block_minres",
+          "block_gmres")
+# the ROADMAP.md Queue 1 item that ports each other method: none is left
+QUEUE_ITEM = {}
 SHIFTS = [0.0, 1.0]
 N_, NSH, MEM = 10, 2, 5
 # element budgets for the large tensors (size ≥ n) of each state, copied
@@ -79,9 +80,13 @@ BUDGETS = {
     "trimr": lambda n: 8 * n + 8 * n,
     "gpmr": lambda n: (12 + 1) * (n + n) + (2 * 12 + 2) ** 2 + 8 * 12,
     "block_minres": lambda n: 7 * n * 2 + 12 * 2 * 2,
+    # tests/test_storage.py:83-90 with p = 2: the basis and X, the
+    # transformed Hessenberg and the accumulated QR factor, the rhs
+    "block_gmres": lambda n: (MEM + 2) * n * 2 + 2 * ((MEM + 1) * 2) ** 2
+    + (MEM + 1) * 2 * 2,
 }
 # the memory the ring methods' budgets are for (tests/test_storage.py:91-97)
-EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres"),
+EXTRA_KW = {**dict.fromkeys(("fom", "gmres", "fgmres", "block_gmres"),
                             {"memory": MEM, "restart": True}),
             **dict.fromkeys(("diom", "dqgmres"), {"memory": MEM}),
             "gpmr": {"itmax": 12}}
@@ -113,11 +118,11 @@ def _extra(method, b=None):
 
 def _args(method, A, b):
     """A method's arguments after its name: (A, b, ...) with _extra's
-    tail; GPMR's (A, B, b, c) with B = Aᴴ and c = b; block MINRES's (A, B)
-    with B = [b, 1]."""
+    tail; GPMR's (A, B, b, c) with B = Aᴴ and c = b; block MINRES's and
+    block GMRES's (A, B) with B = [b, 1]."""
     if method == "gpmr":
         return (A, A.T, b, b)
-    if method == "block_minres":
+    if method in ("block_minres", "block_gmres"):
         return (A, np.stack([np.asarray(b), np.ones(len(b))], axis=1))
     return (A, b) + _extra(method, b)
 
@@ -145,14 +150,19 @@ def test_krylov_solve_matches_jax(method):
     assert all(torch.equal(vd, vt) for vd, vt in zip(xd, xt))
 
 
-@pytest.mark.parametrize("method", sorted(QUEUE_ITEM))
+@pytest.mark.parametrize("method", ["block_gmres"])
 def test_unported_method_raises_naming_its_queue_item(method):
+    """The last method of Queue 1 (item 7b) is ported: its workspace
+    builds, and krylov_solve through it equals the direct call; no method
+    is left to raise."""
     A, b = _system()
-    match = f"Queue 1 item {QUEUE_ITEM[method]}"
-    with pytest.raises(NotImplementedError, match=match):
-        kt.krylov_workspace(method)
-    with pytest.raises(NotImplementedError, match=match):
-        kt.krylov_solve(method, torch.as_tensor(A), b)
+    B = np.stack([b, np.ones(len(b))], axis=1)
+    assert kt.krylov_workspace(method).method == method
+    X, st = kt.krylov_solve(method, torch.as_tensor(A), B)
+    Xd, sd = getattr(kt, method)(torch.as_tensor(A), B)
+    assert (st.status, st.niter) == (sd.status, sd.niter) and st.solved
+    assert torch.equal(X, Xd)
+    assert QUEUE_ITEM == tws._QUEUE_ITEM == {}
 
 
 def test_unknown_method_and_workspace_classes():
@@ -167,8 +177,9 @@ def test_unknown_method_and_workspace_classes():
     assert issubclass(tws.BlockMinresWorkspace, kt.BlockKrylovWorkspace)
     assert (tws.BlockMinresWorkspace(4, 4).m, tws.BlockMinresWorkspace(
         4, 4).n) == (4, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tws.BlockGmresWorkspace(4, 4)
+    assert issubclass(tws.BlockGmresWorkspace, kt.BlockKrylovWorkspace)
+    assert (tws.BlockGmresWorkspace(4, 4).m, tws.BlockGmresWorkspace(
+        4, 4).n) == (4, 4)
 
 
 @pytest.mark.parametrize("method", ["cg", "minres_qlp", "minares"])
@@ -295,7 +306,7 @@ def test_state_within_storage_budget(method):
     args = (A, b) + shifts
     if method == "gpmr":
         args = (A, A.T, b, b)
-    if method == "block_minres":
+    if method in ("block_minres", "block_gmres"):
         args = (A, torch.stack([b, torch.ones_like(b)], 1))
     *_, stats, state = solve(*args, **EXTRA_KW.get(method, {}))
     assert state is not None and stats.niter > 0

@@ -24,6 +24,7 @@ from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
                                            dia_spmv_aligned_ref,
                                            offsets_tensor)
 from krylov_tpu_torch.ops import cuda_fused as cf
+from krylov_tpu_torch.ops import cuda_spmv as cspmv
 from krylov_tpu_torch.ops.cuda_fused import cg_dia_fused, cg_dia_fused_ref
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -416,7 +417,9 @@ def _layout_offsets(source, **dims):
         env.update(_enum_values_in(source, enum, {}))
     body = re.search(r"struct Layout \{(.*?)\n\};", text, re.S).group(1)
     for name, expr in re.findall(
-            r"int (\w+)\(\) const \{\s*return ([^;]+);", body):
+            r"(?:int|long long) (\w+)\(\) const \{\s*return ([^;]+);",
+            body):
+        expr = re.sub(r"static_cast<long long>\((\w+\(\))\)", r"\1", expr)
         env[name] = eval(re.sub(r"(\w+)\(\)", r"\1", expr), {}, env)
     return env
 
@@ -494,7 +497,8 @@ def test_kernel_launches_and_exports():
                         "craig_dia", "craigmr_dia", "lnlq_dia",
                         "cgne_crmr_dia", "cgls_dia", "crls_dia",
                         "cgls_lanczos_shift_dia", "tricg_dia", "trimr_dia",
-                        "gpmr_dia", "block_minres_dia"}
+                        "gpmr_dia", "block_minres_dia", "block_gmres_dia",
+                        "bell_spmv", "bell_spmm"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -507,8 +511,10 @@ def test_kernel_launches_and_exports():
                  "lslq_dia", "craig_dia", "craigmr_dia", "lnlq_dia",
                  "cgne_crmr_dia", "cgls_dia", "crls_dia",
                  "cgls_lanczos_shift_dia", "tricg_dia", "trimr_dia",
-                 "gpmr_dia", "block_minres_dia"):
+                 "gpmr_dia", "block_minres_dia", "block_gmres_dia"):
         assert got[name] == getattr(kt, name + "_fused").launches
+    assert got["bell_spmv"] == kt.bell_spmv.launches
+    assert got["bell_spmm"] == kt.bell_spmm.launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
                  "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
@@ -516,7 +522,9 @@ def test_kernel_launches_and_exports():
                  "trilqr", "usymlqr", "lsqr", "lsmr", "lslq", "craig",
                  "craigmr", "lnlq", "cgne", "crmr", "cgls", "crls",
                  "cgls_lanczos_shift", "tricg", "trimr", "gpmr",
-                 "block_minres", "TrimrWorkspace", "GpmrWorkspace",
+                 "block_minres", "block_gmres", "BELLOperator",
+                 "hermitian_lanczos", "block_montoison_orban",
+                 "TrimrWorkspace", "GpmrWorkspace",
                  "BlockMinresWorkspace", "CglsWorkspace",
                  "TricgWorkspace", "LNLQStats",
                  "AdjointStats", "LsmrStats", "LSLQStats", "kdot", "kdotr",
@@ -1735,3 +1743,187 @@ def test_slice11_solvers_on_card_take_their_kernels():
     B1 = np.tile(B[:, :1], (1, 4))
     assert kt.block_minres(Ps, B1)[1].solved
     assert kt.kernel_launches()["block_minres_dia"] == n0
+
+
+@pytest.mark.parametrize("mem,p", [(2, 1), (32, 4), (16, 8)])
+def test_block_gmres_wrapper_layout_matches_kernel(mem, p):
+    """The block GMRES wrapper's slots and sizes (``_bg_layout``) are the
+    kernel's enums and ``struct Layout``; the largest mem·p and the rows
+    per thread are the header's."""
+    got = _layout_offsets("block_gmres.cuh", mem=mem, p=p)
+    nsc, npart = cf._bg_layout(mem, p)
+    assert got["size"] == nsc and got["NSC"] == cf._BG_NSC
+    assert (got["RNORM"], got["INCONS"], got["NPASS"], got["NST"]) == (
+        cf._BG_RNORM, cf._BG_INCONS, cf._BG_NPASS, cf._BG_NST)
+    assert (got["ATOL"], got["RTOL"], got["BTOL"], got["IT"],
+            got["STATUS"]) == (0, 1, 2, cf._IT, cf._STATUS)
+    assert npart == mem * p * p
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / "block_gmres.cuh"
+            ).read_text()
+    assert f"kMaxMP = {cf._BG_MAXMP};" in text
+    assert f"kRows = {cf._BG_ROWS};" in text
+
+
+# block GMRES on P + 0.5 I (bench.py:483-497): (N, dtype, p, memory,
+# basis type, rtol); None is the default tolerance
+BG_CARD_CASES = [
+    (32, torch.float64, 4, 8, None, 1e-8),
+    (32, torch.float64, 1, 16, None, None),
+    (32, torch.float64, 8, 16, None, None),
+    (32, torch.float32, 4, 32, None, None),
+    (32, torch.float32, 3, 12, torch.bfloat16, 1e-5),
+    (32, torch.float64, 4, 8, torch.bfloat16, 1e-6),
+    (128, torch.float32, 4, 32, None, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype,p,mem,basis,rtol", BG_CARD_CASES,
+                         ids=[f"{c[0]}-{str(c[1])[6:]}-p{c[2]}-m{c[3]}"
+                              f"{'-bf16' if c[4] else ''}"
+                              for c in BG_CARD_CASES])
+def test_block_gmres_kernel_matches_plain_on_card(N, dtype, p, mem, basis,
+                                                  rtol):
+    """The block GMRES kernel against its plain version, B seeded normal:
+    the same status and inconsistent flag, niter and the pass count
+    within ±2 (the two sum the CGS dots and the back substitution in
+    other orders; tests/test_fused.py:220); in f64 with an f64 basis X
+    within 1e-6 of max(|X|, |B|); otherwise ‖B − AX‖_F (f64, the plain
+    SpMV) no worse than 1.5 times the plain version's."""
+    _card()
+    A = _shifted_poisson(N, dtype, 0.5)
+    n = A.shape[0]
+    B = torch.as_tensor(np.random.default_rng(25).standard_normal(
+        (n, p))).to("cuda", dtype)
+    tol = _tol(dtype)
+    args = (A._pd, A._offsets, B, tol, tol if rtol is None else rtol,
+            2 * (n // p), mem, basis)
+    before = cf.block_gmres_dia_fused.launches
+    k = cf.block_gmres_dia_fused(*args)
+    assert cf.block_gmres_dia_fused.launches > before
+    r = cf.block_gmres_dia_fused_ref(*args)
+    assert int(k[3]) == int(r[3]) == rt.SOLVED
+    assert int(k[4]) == int(r[4])
+    assert abs(int(k[1]) - int(r[1])) <= 2
+    assert abs(int(k[5]) - int(r[5])) <= 2
+    if dtype == torch.float64 and basis is None:
+        scale = max(float(r[0].abs().max()), float(B.abs().max()))
+        assert float((k[0] - r[0]).abs().max()) <= 1e-6 * scale
+        return
+
+    def res(X):
+        X = X.double()
+        AX = torch.stack([dia_spmv_aligned_ref(A._pd.double(), A._offsets,
+                                               X[:, j].contiguous())
+                          for j in range(p)], 1)
+        return float((B.double() - AX).norm())
+
+    assert res(k[0]) <= 1.5 * res(r[0])
+
+
+def _bell_operands(dtype, bs, nb, m, n, seed=26):
+    """A random BELL of nb block rows (2 slots, the second a padding slot
+    in the last row) and its dense copy, m × n (ragged edges)."""
+    rng = np.random.default_rng(seed)
+    nbc = -(-n // bs)
+    data = rng.standard_normal((nb, 2, bs, bs)) / bs
+    idx = np.stack([np.arange(nb) % nbc, (np.arange(nb) + 1) % nbc], 1)
+    data[-1, 1] = 0.0
+    idx[-1, 1] = 0
+    if dtype.is_complex:
+        data = data * (1.0 + 0.5j)
+    A = kt.BELLMatrix(torch.as_tensor(data).to("cuda", dtype),
+                      torch.as_tensor(idx.astype(np.int32), device="cuda"),
+                      (m, n), bs)
+    return A, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-5), (torch.float64, 1e-12), (torch.bfloat16, 2e-2),
+    (torch.float16, 2e-3), (torch.complex64, 1e-5),
+    (torch.complex128, 1e-12)], ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("bs,nb,m,n", [(8, 7, 53, 50), (128, 5, 640, 600)])
+def test_bell_kernels_match_plain_on_card(dtype, tol, bs, nb, m, n):
+    """bell_spmv and bell_spmm (p = 1, 4, 8, 130) against their plain
+    versions on the same blocks: max |Δ| ≤ tol · max|y|, tol a few ulps
+    of the accumulation type summed over a block row (f32 for f32, bf16
+    and f16, whose outputs round to one ulp of the narrow type)."""
+    _card()
+    A, rng = _bell_operands(dtype, bs, nb, m, n)
+    x = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    n0 = kt.bell_spmv.launches
+    y = kt.bell_spmv(A, x)
+    assert kt.bell_spmv.launches == n0 + 1 and y.shape == (m,)
+    assert _rel(y, cspmv.bell_spmv_ref(A, x)) <= tol
+    for p in (1, 4, 8, 130):
+        X = torch.as_tensor(rng.standard_normal((n, p))).to("cuda", dtype)
+        n0 = kt.bell_spmm.launches
+        Y = kt.bell_spmm(A, X)
+        assert kt.bell_spmm.launches == n0 + 1 and Y.shape == (m, p)
+        assert _rel(Y, cspmv.bell_spmm_ref(A, X)) <= tol
+
+
+@pytest.mark.cuda
+def test_bell_kernels_raise_for_other_pairs():
+    _card()
+    A, rng = _bell_operands(torch.float32, 8, 3, 24, 24)
+    with pytest.raises(ValueError, match="no BELL spmv kernel"):
+        kt.bell_spmv(A, torch.ones(24, dtype=torch.float64, device="cuda"))
+    with pytest.raises(ValueError, match="no BELL spmm kernel"):
+        kt.bell_spmm(A, torch.ones((24, 2), dtype=torch.float64,
+                                   device="cuda"))
+
+
+def _bell_tridiagonal(nb, bs, dtype, seed):
+    """The SPD block-tridiagonal BELL of tests/test_pallas_spmv.py:184-203
+    (nb block rows of bs), built on the card."""
+    rng = np.random.default_rng(seed)
+    M = torch.as_tensor(rng.standard_normal((nb, bs, bs)) / bs)
+    diag = M @ M.transpose(1, 2) + 2 * torch.eye(bs, dtype=M.dtype)
+    off = torch.as_tensor(rng.standard_normal((bs, bs)) / (4 * bs))
+    i = np.arange(nb)
+    idx = np.stack([np.maximum(i - 1, 0), i, np.minimum(i + 1, nb - 1)], 1)
+    data = torch.zeros((nb, 3, bs, bs), dtype=torch.float64)
+    for k in range(3):
+        j = torch.as_tensor(idx[:, k])
+        it = torch.as_tensor(i)
+        data[:, k] += torch.where((j == it)[:, None, None], diag, 0.0)
+        data[:, k] += torch.where((j == it - 1)[:, None, None], off, 0.0)
+        data[:, k] += torch.where((j == it + 1)[:, None, None], off.T, 0.0)
+    return kt.BELLMatrix(data.to("cuda", dtype),
+                         torch.as_tensor(idx.astype(np.int32),
+                                         device="cuda"),
+                         (nb * bs, nb * bs), bs)
+
+
+@pytest.mark.cuda
+def test_slice12_solvers_on_card_take_their_kernels():
+    """block_gmres on a card DIA operator runs its kernel (restarting at
+    memory 8), with history the general route through the SpMV kernel,
+    and a rank-1 block the general route; on the block-tridiagonal BELL
+    operator cg runs bell_spmv, block_gmres and block_minres bell_spmm
+    through matmat."""
+    _card()
+    Ps = _shifted_poisson(16, torch.float32, 0.5)
+    rng = np.random.default_rng(27)
+    B = rng.standard_normal((16 ** 3, 4)).astype(np.float32)
+    for extra, used in (({}, "block_gmres_dia"),
+                        ({"history": True}, "dia_spmv")):
+        n0 = kt.kernel_launches()[used]
+        X, st = kt.block_gmres(Ps, B, memory=8, restart=True, **extra)
+        assert X.is_cuda and X.dtype == torch.float32 and st.solved
+        assert kt.kernel_launches()[used] > n0
+    n0 = kt.kernel_launches()["block_gmres_dia"]
+    assert kt.block_gmres(Ps, np.tile(B[:, :1], (1, 4)))[1].solved
+    assert kt.kernel_launches()["block_gmres_dia"] == n0
+    op = kt.BELLOperator(_bell_tridiagonal(8, 128, torch.float32, 28))
+    b = torch.as_tensor(rng.standard_normal(1024)).to("cuda", torch.float32)
+    B = torch.as_tensor(rng.standard_normal((1024, 4))).to("cuda",
+                                                          torch.float32)
+    for call, name in ((lambda: kt.cg(op, b), "bell_spmv"),
+                       (lambda: kt.block_gmres(op, B), "bell_spmm"),
+                       (lambda: kt.block_minres(op, B), "bell_spmm")):
+        n0 = kt.kernel_launches()[name]
+        assert call()[-1].solved
+        assert kt.kernel_launches()[name] > n0
