@@ -23,8 +23,10 @@ transpose), ``block_minres`` and ``block_gmres`` (Poisson + 0.5 I, four
 columns), each by its whole-solve kernel and by the general route with
 its DIA SpMV kernel, and ``cg``, ``block_gmres`` and ``block_minres`` on
 a block-tridiagonal block-ELL operator through the BELL SpMV and SpMM
-kernels,
-chains the
+kernels, and
+``cg``, ``bicgstab`` and ``lsqr`` on a general sparse FEM band matrix
+handed over as CSR (analysed once into a DIA part and a SELL-C-128
+remainder, through the DIA SpMV and SELL SpMV kernels), chains the
 padded-layout SpMV, solves the systems whose dtypes once had no SpMV
 kernel, drives every ported method through ``krylov_solve`` and a
 workspace round trip, and checks that each path launched its kernels.
@@ -384,6 +386,206 @@ def main():
               f"the chained path launched dia_spmv_padded "
               f"({launches_padded} times)")
         del A, pd, x, xw, y2w, y2, ref, yw, vw, v
+
+    from krylov_tpu_torch.ops import cuda_sell as csell
+    from krylov_tpu_torch.ops.hybrid import split_diagonals
+
+    def fem_band(nf, seed=0):
+        """bench.py:698-704's FEM band: nf rows of 12 nonzeros at column
+        offsets uniform in ±300 (clipped to the matrix), normal values
+        (float64; the bench's float32 values are these rounded), seed 0;
+        as (rows, cols, vals) on the host."""
+        gen = np.random.default_rng(seed)
+        fr = np.repeat(np.arange(nf, dtype=np.int64), 12)
+        fc = np.clip(fr + gen.integers(-300, 301, size=fr.size), 0, nf - 1)
+        return fr, fc, gen.standard_normal(fr.size)
+
+    def dominant(rows, cols, vals, nf, symmetric):
+        """The band's off-diagonal entries (with their transposes where
+        ``symmetric``: S + S^T) and the diagonal 1 + the sum of the moduli
+        of each row's off-diagonal entries: SPD where symmetric, strictly
+        diagonally dominant in every case."""
+        keep = rows != cols
+        r, c, v = rows[keep], cols[keep], vals[keep]
+        if symmetric:
+            r, c, v = np.r_[r, c], np.r_[c, r], np.r_[v, v]
+        d = 1.0 + np.bincount(r, np.abs(v), nf)
+        i = np.arange(nf)
+        return np.r_[r, i], np.r_[c, i], np.r_[v, d]
+
+    def torch_csr(csr, dtype=None):
+        """torch.sparse CSR copy of a CSRMatrix (yardstick only)."""
+        return torch.sparse_csr_tensor(
+            csr.indptr, csr.indices,
+            csr.data if dtype is None else csr.data.to(dtype),
+            csr.shape)
+
+    def sell_bytes(S, x):
+        """Bytes a SELL product must move: every stored slot (its element
+        and its 4-byte index), x and y once."""
+        parts = getattr(S, "parts", (S,))
+        slots = sum(p.data.numel() for p in parts)
+        return slots * (parts[0].data.element_size() + 4) \
+            + (S.shape[0] + S.shape[1]) * x.element_size()
+
+    def hybrid_vs_plain(label, op, csr, x, tol):
+        """A HybridOperator's products on the card against plain versions
+        on the same inputs: the DIA half (dia_spmv_aligned on the
+        diagonals the analysis aligned) against dia_spmv_aligned_ref, and
+        the whole DIA + SELL sum against the plain CSR product of the
+        source matrix; with adjoint storage, both again for A^H (rmatvec
+        against CSROperator.with_adjoint()).  max |dy| <= tol max|y|."""
+        from krylov_tpu_torch.ops.sparse import spmv as csr_spmv
+        sides = [("A", op.hyb, op.matvec, lambda v: csr_spmv(csr, v))]
+        if op.hyb_h is not None:
+            sides.append(("A^H", op.hyb_h, op.rmatvec,
+                          kt.CSROperator(csr).with_adjoint().rmatvec))
+        for side, hyb, run, plain in sides:
+            check(hyb.dia_pd is not None and hyb.sell is not None,
+                  f"{label} {side}: a DIA part on the card and a remainder")
+            yd = dia_spmv_aligned(hyb.dia_pd, hyb._offsets, x)
+            yd_ref = dia_spmv_aligned_ref(hyb.dia_pd, hyb._offsets, x)
+            y, y_ref = run(x), plain(x)
+            torch.cuda.synchronize()
+            rd = float((yd - yd_ref).abs().max() / yd_ref.abs().max())
+            rh = float((y - y_ref).abs().max() / y_ref.abs().max())
+            print(f"  {label} {side}: DIA half ({len(hyb.dia.offsets)} "
+                  f"diagonals) rel={rd:.3e}; DIA + SELL against the plain "
+                  f"CSR product rel={rh:.3e} (tol {tol:g})", flush=True)
+            check(yd.dtype == x.dtype and rd <= tol
+                  and bool(torch.isfinite(yd).all()),
+                  f"{label} {side}: dia_spmv on the analysed diagonals "
+                  f"agrees with its plain version ({rd:.2e} <= {tol:g})")
+            check(y.dtype == x.dtype and y.shape == y_ref.shape
+                  and rh <= tol and bool(torch.isfinite(y).all()),
+                  f"{label} {side}: hybrid_spmv agrees with the plain CSR "
+                  f"product ({rh:.2e} <= {tol:g})")
+            del yd, yd_ref, y, y_ref
+
+    with Phase("2c sell_spmv kernel vs plain", 150):
+        # The SELL kernel against its plain version on bench.py:698-704's
+        # FEM band at n = 2^17 (1.56 M nonzeros), bucketed as the JAX
+        # package packs it (5 parts, uncovered ones among them) in f32,
+        # in f64 (the same parts, data widened) and with f64 x on the f32
+        # data; a sigma-sorted plan (the band with n/256 heavy constraint
+        # rows spread over every slice, each coupled to the first 1280
+        # columns: row_pos un-permutes on the card); a single covered
+        # sell_from_csr of the band; and the SELL remainder of the main
+        # path's matrix (the band made SPD: S + S^T with a dominant
+        # diagonal; phase 5y solves it), analysed once through
+        # as_operator and cached on the matrix.  Tolerances: max |dy| <=
+        # 1e-5 max|y| with f32 accumulation, 1e-12 in f64 (the same
+        # products summed in another order).  Times by CUDA events
+        # (median of 20); the bound counts every stored slot (element
+        # and 4-byte index), x and y once, over the HBM rate; Gnnz/s on
+        # the true nonzeros (bench.py:709); the library yardstick is
+        # torch.sparse CSR @ x on the same matrix.
+        nf = 1 << 17
+        fr, fc, fv = fem_band(nf)
+        t = time.perf_counter()
+        fem32 = kt.csr_from_coo(fr, fc, fv.astype(np.float32), (nf, nf))
+        SB = kt.sell_bucketed_from_csr(fem32)
+        t_pack = time.perf_counter() - t
+        check(isinstance(SB, kt.SELLBucketed) and len(SB.parts) >= 2
+              and any(not p.covered for p in SB.parts),
+              f"the FEM band packs into {len(SB.parts)} depth parts, "
+              "uncovered ones among them")
+        print(f"  FEM band n={nf} nnz={SB.nnz}: host packing {t_pack:.2f} s; "
+              f"parts (pairs, Kmax, covered): "
+              f"{[(p.data.shape[0], p.kmax, p.covered) for p in SB.parts]}"
+              f"; fill {SB.fill:.3f}; {sell_bytes(SB, fem32.data) / 1e6:.1f}"
+              " MB", flush=True)
+        SB64 = kt.SELLBucketed(
+            [csell.SELLMatrix(p.data.double(), p.idx, p.slice_of,
+                              p.chunk_of, p.shape, p.nnz, p.covered,
+                              p.slice_ptr) for p in SB.parts],
+            SB.shape, SB.nnz, SB.row_pos)
+        gen = np.random.default_rng(SEED + 40)
+        x64 = torch.as_tensor(gen.standard_normal(nf), device=dev)
+        x32 = x64.float()
+        hr, hc = fr.copy(), fc.copy()
+        heavy = np.sort(gen.choice(nf, nf // 256, replace=False))
+        hr = np.r_[hr, np.repeat(heavy, 1280)]
+        hc = np.r_[hc, np.tile(np.arange(1280), len(heavy))]
+        sorted_csr = kt.csr_from_coo(hr, hc, gen.standard_normal(hr.size),
+                                     (nf, nf), dtype=np.float32)
+        SS = kt.sell_bucketed_from_csr(sorted_csr)
+        check(isinstance(SS, kt.SELLBucketed) and SS.row_pos is not None,
+              f"the spread heavy rows take the sigma-sorted plan "
+              f"({len(SS.parts)} parts)")
+        S1 = kt.sell_from_csr(fem32)
+        sr, sc, sv = dominant(fr, fc, fv, nf, True)
+        fem_spd = kt.csr_from_coo(sr, sc, sv.astype(np.float32), (nf, nf))
+        t = time.perf_counter()
+        spd_op = kt.as_operator(fem_spd)
+        t_spd = time.perf_counter() - t
+        spd_rem = split_diagonals(fem_spd)[1]
+        SR = spd_op.hyb.sell
+        print(f"  SPD band nnz={fem_spd.nnz}: host analysis {t_spd:.2f} s "
+              f"(DIA offsets {spd_op.hyb.dia.offsets}; remainder "
+              f"{type(SR).__name__}, "
+              f"{len(getattr(SR, 'parts', (SR,)))} parts, fill "
+              f"{SR.fill:.3f})", flush=True)
+        check(isinstance(spd_op, kt.HybridOperator)
+              and fem_spd._hybrid_op is spd_op
+              and spd_op.hyb.dia_pd is not None
+              and isinstance(SR, (kt.SELLMatrix, kt.SELLBucketed)),
+              "the SPD band analyses to a DIA part on the card and a SELL "
+              "remainder, cached on the matrix")
+        hybrid_vs_plain("SPD band f32 (main path)", spd_op, fem_spd, x32,
+                        1e-5)
+        cases = [("FEM band bucketed f32", SB, x32, fem32, 1e-5),
+                 ("FEM band bucketed f64", SB64, x64, None, 1e-12),
+                 ("FEM band bucketed f64 x, f32 data", SB, x64, None, 1e-12),
+                 ("sigma-sorted f32", SS, x32, sorted_csr, 1e-5),
+                 ("FEM band single covered f32", S1, x32, None, 1e-5),
+                 ("SPD band remainder f32 (main path)", SR, x32, spd_rem,
+                  1e-5)]
+        for label, S, x, lib_csr, tol in cases:
+            bucketed = isinstance(S, kt.SELLBucketed)
+            run = (lambda S=S, x=x: csell.sell_bucketed_spmv(S, x)) \
+                if bucketed else (lambda S=S, x=x: kt.sell_spmv(S, x))
+            plain = (lambda S=S, x=x: csell.sell_bucketed_spmv_ref(S, x)) \
+                if bucketed else (lambda S=S, x=x: csell.sell_spmv_ref(S, x))
+            n0 = kt.sell_spmv.launches
+            y = run()
+            nl = kt.sell_spmv.launches - n0
+            y_ref = plain()
+            torch.cuda.synchronize()
+            err = float((y - y_ref).abs().max())
+            rel = err / float(y_ref.abs().max())
+            ms = event_ms(run)
+            plain_ms = event_ms(plain, reps=5)
+            lib_ms = None
+            if lib_csr is not None:
+                tc = torch_csr(lib_csr, x.dtype)
+                lib_ms = event_ms(lambda tc=tc, x=x: tc @ x)
+                del tc
+            nbytes = sell_bytes(S, x)
+            bound_ms = nbytes / bw * 1e3
+            print(f"  {label}: launches={nl} max_abs_err={err:.3e} rel="
+                  f"{rel:.3e} (tol {tol:g}) ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} csr_ms="
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
+                  f"bound_ms={bound_ms:.4f} ({nbytes / 1e6:.1f} MB) "
+                  f"{S.nnz / ms / 1e6:.2f} Gnnz/s", flush=True)
+            check(y.dtype == x.dtype and y.shape == (nf,) and rel <= tol
+                  and bool(torch.isfinite(y).all()),
+                  f"sell_spmv {label} agrees with its plain version "
+                  f"({rel:.2e} <= {tol:g})")
+            if label.endswith("(main path)"):
+                report["sell_spmv"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by="bytes",
+                                           library_ms=lib_ms)
+            del y, y_ref
+        one = SB.parts[0]
+        ms = event_ms(lambda: kt.sell_spmv(one, x32))
+        print(f"  one part alone (pairs {one.data.shape[0]}, Kmax "
+              f"{one.kmax}): ms={ms:.4f} bound_ms="
+              f"{sell_bytes(one, x32) / bw * 1e3:.4f}", flush=True)
+        del SB, SB64, SS, S1, sorted_csr, fem32, spd_rem, SR, x32, x64
 
     with Phase("3 cg_dia kernel vs plain", 90):
         A = kt.poisson_dia(128)
@@ -2947,6 +3149,139 @@ def main():
             profile_solve(lambda f32=f32: bg_ops[f32](), top=12)
     del bg_ops
 
+    with Phase("5y general-sparse solves through the CSR routing", 240):
+        # The main path of the thirteenth slice: kt.cg(csr, b) with the
+        # default options on the SPD FEM band of phase 2c (n = 2^17, f32):
+        # solve_inputs -> as_operator -> the HybridOperator analysed in
+        # 2c and cached on the matrix -> the general CG core ->
+        # hybrid_spmv -> dia_spmv on the diagonal and sell_spmv on the
+        # rest.  Held against the same solve through CSROperator (gather
+        # and index_add_): the same status, niter within ±max(2, 10%),
+        # a true relative residual (f64, the plain CSR product) no worse
+        # than 1.5 times its.  Then bicgstab on the unsymmetric band with
+        # its dominant diagonal (f32), lsqr on it in f64 (the adjoint's
+        # analysis replaces the cached operator; sell_spmv runs on A^H's
+        # SELL), and the 3-D Poisson stencil at 64^3 handed over as CSR
+        # (pure DIA: dia_spmv, no sell_spmv, the niter of
+        # cg(DIAOperator, history=True)).  Each solve's counts are set to
+        # 0 just before it and read just after; host analysis times on
+        # their own lines (not part of the solve times).
+        from krylov_tpu_torch.ops.sparse import CSRMatrix, spmv as csr_spmv
+
+        def csr_rel_residual(csr, b, x):
+            c64 = CSRMatrix(csr.data.double(), csr.indices, csr.indptr,
+                            csr.rows, csr.shape)
+            r = b.double() - csr_spmv(c64, x.double())
+            return float(r.norm() / b.double().norm())
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3, kt.kernel_launches()
+
+        gen = np.random.default_rng(SEED + 41)
+        b32 = torch.as_tensor(gen.standard_normal(nf)).to(dev, torch.float32)
+        ur, uc, uv = dominant(fr, fc, fv, nf, False)
+        t = time.perf_counter()
+        fem_u = kt.csr_from_coo(ur, uc, uv.astype(np.float32), (nf, nf))
+        kt.as_operator(fem_u)
+        t_u = time.perf_counter() - t
+        def spd_solve():
+            return kt.cg(fem_spd, b32)
+
+        solves = [("cg SPD band f32", spd_solve,
+                   lambda: kt.cg(kt.CSROperator(fem_spd), b32), fem_spd,
+                   b32),
+                  ("bicgstab unsymmetric band f32",
+                   lambda: kt.bicgstab(fem_u, b32),
+                   lambda: kt.bicgstab(kt.CSROperator(fem_u), b32), fem_u,
+                   b32)]
+        t = time.perf_counter()
+        fem_u64 = kt.csr_from_coo(ur, uc, uv, (nf, nf))
+        b64 = b32.double()
+        u64_op = kt.as_operator(fem_u64).with_adjoint()
+        t_u64 = time.perf_counter() - t
+        print(f"  host analysis: SPD band {t_spd:.2f} s (phase 2c); "
+              f"unsymmetric band {t_u:.2f} s; in f64 with its adjoint "
+              f"{t_u64:.2f} s", flush=True)
+        check(fem_u64._hybrid_op is u64_op and u64_op.hyb_h is not None
+              and u64_op.hyb_h.sell is not None,
+              "the adjoint-capable operator replaced the cached one")
+        hybrid_vs_plain("unsymmetric band f32", fem_u._hybrid_op, fem_u, b32,
+                        1e-5)
+        hybrid_vs_plain("unsymmetric band f64", u64_op, fem_u64, b64, 1e-12)
+        solves.append(("lsqr unsymmetric band f64",
+                       lambda: kt.lsqr(fem_u64, b64),
+                       lambda: kt.lsqr(kt.CSROperator(fem_u64), b64),
+                       fem_u64, b64))
+        for label, solve, plain, csr, b in solves:
+            (x, st), ms, counts = timed(solve)
+            (xc, sc), ms_c, _ = timed(plain)
+            res, res_c = csr_rel_residual(csr, b, x), csr_rel_residual(
+                csr, b, xc)
+            print(f"  {label}: niter={st.niter} status='{st.status}' "
+                  f"true_res={res:.3e} ms/solve={ms:.2f} us/iter="
+                  f"{1e3 * ms / max(st.niter, 1):.2f} launches dia_spmv="
+                  f"{counts['dia_spmv']} sell_spmv={counts['sell_spmv']}; "
+                  f"CSROperator: niter={sc.niter} status='{sc.status}' "
+                  f"true_res={res_c:.3e} ms/solve={ms_c:.2f}", flush=True)
+            check(st.status == sc.status and abs(st.niter - sc.niter)
+                  <= max(2, 0.1 * sc.niter),
+                  f"{label}: CSROperator's status, niter {st.niter} within "
+                  f"±max(2, 10%) of {sc.niter}")
+            check(bool(torch.isfinite(x).all()) and x.shape == b.shape
+                  and res <= 1.5 * res_c,
+                  f"{label}: true residual {res:.3e} <= 1.5 x "
+                  f"CSROperator's {res_c:.3e}")
+            check(counts["dia_spmv"] > 0 and counts["sell_spmv"] > 0,
+                  f"{label} launched dia_spmv ({counts['dia_spmv']}) and "
+                  f"sell_spmv ({counts['sell_spmv']})")
+            if label.startswith("cg"):
+                launches["sell_spmv"] = counts["sell_spmv"]
+        check(fem_u64._hybrid_op is u64_op,
+              "lsqr ran on the cached adjoint-capable operator")
+        del fem_u, fem_u64, u64_op, b64
+        P = kt.poisson_dia(64)
+        n64 = P.shape[0]
+        pdata = P.data.cpu().numpy()
+        pr, pc, pv = [], [], []
+        for d, k in enumerate(P.offsets):
+            i = np.arange(max(0, -k), min(n64, n64 - k))
+            v = pdata[d, i + k]
+            pr.append(i[v != 0])
+            pc.append(i[v != 0] + k)
+            pv.append(v[v != 0])
+        p_csr = kt.csr_from_coo(np.concatenate(pr), np.concatenate(pc),
+                                np.concatenate(pv), (n64, n64))
+        t = time.perf_counter()
+        p_op = kt.as_operator(p_csr)
+        print(f"  host analysis: 64^3 Poisson as CSR "
+              f"({p_csr.nnz} nonzeros) {time.perf_counter() - t:.2f} s",
+              flush=True)
+        check(p_op.hyb.sell is None and p_op.hyb.dia.offsets == P.offsets,
+              "the 64^3 Poisson CSR analyses to pure DIA with the "
+              "stencil's offsets")
+        bp = torch.as_tensor(gen.standard_normal(n64)).to(dev,
+                                                          torch.float32)
+        (xp, sp_), ms, counts = timed(lambda: kt.cg(p_csr, bp))
+        (_, sd), _, _ = timed(lambda: kt.cg(P, bp, history=True))
+        print(f"  cg 64^3 Poisson as CSR: niter={sp_.niter} status="
+              f"'{sp_.status}' ms/solve={ms:.2f} launches dia_spmv="
+              f"{counts['dia_spmv']} sell_spmv={counts['sell_spmv']}; "
+              f"cg(DIAOperator, history=True): niter={sd.niter}",
+              flush=True)
+        check(sp_.solved and sp_.niter == sd.niter
+              and counts["dia_spmv"] > 0 and counts["sell_spmv"] == 0,
+              "cg on the Poisson CSR solved in the niter of the DIA "
+              "operator's general route, through dia_spmv and no sell_spmv")
+        del P, p_csr, p_op, xp, bp
+        print("  profile of the SPD band cg solve:", flush=True)
+        profile_solve(spd_solve)
+    del fem_spd, spd_op, b32
+
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
         # An f64 numpy b on f32 diagonals (the general route, through the
         # (f64, f32) SpMV), a complex128 cr (through the (c128, f64)
@@ -3170,7 +3505,9 @@ def main():
                "bell_spmv": ("krylov_tpu_torch/csrc/bell_spmv.cu",
                              "krylov_tpu/ops/pallas_spmv.py:172"),
                "bell_spmm": ("krylov_tpu_torch/csrc/bell_spmv.cu",
-                             "krylov_tpu/ops/pallas_spmv.py:236")}
+                             "krylov_tpu/ops/pallas_spmv.py:236"),
+               "sell_spmv": ("krylov_tpu_torch/csrc/sell_spmv.cu",
+                             "krylov_tpu/ops/pallas_sell.py:335")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]

@@ -17,10 +17,13 @@ quasi-definite [τI A; Aᴴ νI][x; y] = [b; c], ``gpmr`` for the
 partitioned [λI A; B μI][x; y] = [b; c] with two operators, and
 ``block_minres`` and ``block_gmres`` for AX = B with several right-hand
 sides, on DIA stencil, block-ELL (``BELLOperator``), CSR, dense and
-matrix-free operators (with their adjoints), through hand-written CUDA
-kernels for Hopper (``csrc/``): a DIA SpMV (plain and in a padded,
-chainable layout), the block-ELL SpMV and SpMM, and a whole-solve kernel
-for each solver, each with a plain PyTorch version used on the CPU; the
+matrix-free operators (with their adjoints), and on general sparse
+matrices through ``HybridOperator`` (a CSRMatrix on the card is analysed
+once into dense diagonals and a SELL-C-128 remainder), through
+hand-written CUDA kernels for Hopper (``csrc/``): a DIA SpMV (plain and
+in a padded, chainable layout), the block-ELL SpMV and SpMM, the SELL
+SpMV, and a whole-solve kernel for each solver, each with a plain
+PyTorch version used on the CPU; the
 twelve Krylov processes (``arnoldi``, ``golub_kahan``, ...,
 ``block_montoison_orban``); and the generic
 ``krylov_solve`` / ``krylov_workspace`` interface over those methods.
@@ -37,6 +40,7 @@ from .operators import (
     DIAOperator,
     DiagonalOperator,
     FunctionOperator,
+    HybridOperator,
     IdentityOperator,
     MatrixOperator,
     as_operator,
@@ -69,8 +73,11 @@ from .ops.cuda_fused import (bicgstab_dia_fused, bilq_dia_fused,
 from .ops.cuda_spmv import (BELLMatrix, ELLMatrix, bell_from_csr,
                             bell_from_dense_blocks, bell_spmm, bell_spmv,
                             ell_from_csr, ell_spmv)
+from .ops.cuda_sell import (SELLBucketed, SELLMatrix, sell_bucketed_from_csr,
+                            sell_from_csr, sell_spmv)
 from .ops.dia import (DIAMatrix, convdiff_dia, dia_from_scipy, dia_spmm,
                       poisson_dia)
+from .ops.hybrid import HybridMatrix, hybrid_from_csr, split_diagonals
 from .ops.kops import (kdot, kdotr, kdotr2, knorm, knorm_elliptic,
                        roots_quadratic, sym_givens, to_boundary)
 from .ops.sparse import CSRMatrix, csr_from_coo, csr_from_dense, spmm, spmv
@@ -157,7 +164,8 @@ KERNELS = {"dia_spmv": dia_spmv_aligned,
            "block_minres_dia": block_minres_dia_fused,
            "block_gmres_dia": block_gmres_dia_fused,
            "bell_spmv": bell_spmv,
-           "bell_spmm": bell_spmm}
+           "bell_spmm": bell_spmm,
+           "sell_spmv": sell_spmv}
 
 
 def kernel_launches():

@@ -222,6 +222,10 @@ _SIGNATURES = {
        for t in _BELL},
     **{f"ktt_bell_spmm_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L, _I, _P)
        for t in _BELL},
+    # the SELL-C-128 product (csrc/sell_spmv.cu): (data, idx, chunk_of,
+    # slice_ptr, x, y, kmax, nsl, m, n, stream)
+    **{f"ktt_sell_spmv_{t}": (_P,) * 6 + (_I, _I, _L, _L, _P)
+       for t in _SPMV_PAIRS},
 }
 
 

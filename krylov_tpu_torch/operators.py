@@ -15,6 +15,7 @@ from .ops.cuda_dia import (dia_align, dia_align_adjoint, dia_spmv_aligned,
                            offsets_tensor)
 from .ops.cuda_spmv import bell_spmm, bell_spmv
 from .ops.dia import DIAMatrix, dia_spmm, dia_spmv, resolve_device
+from .ops.hybrid import hybrid_from_csr, hybrid_spmv
 from .ops.sparse import CSRMatrix, spmm, spmv
 
 
@@ -361,11 +362,98 @@ class BELLOperator(AbstractLinearOperator):
         return bell_spmm(self._adjoint(), X)
 
 
+class HybridOperator(AbstractLinearOperator):
+    """General-sparse operator: the DIA + SELL-C-128 decomposition of a
+    CSRMatrix (``ops/hybrid.hybrid_from_csr``).
+
+    Dense diagonals go through the DIA SpMV kernel, the remainder through
+    the SELL kernel (on the card; their plain versions on the CPU).  The
+    adjoint is a second analysed decomposition, of Aᴴ, built by
+    ``with_adjoint()``.
+    """
+
+    def __init__(self, hyb, hyb_h=None, _csr=None):
+        self.hyb = hyb
+        self.hyb_h = hyb_h
+        self._csr = _csr            # kept for the adjoint's analysis
+        # the source's arrays as analysed: ``as_operator`` analyses again
+        # when they have changed since (torch tensors are mutable)
+        self._stamp = None if _csr is None else _stamp(_csr)
+        self.shape = hyb.shape
+        self.dtype = hyb.dtype
+        self.device = hyb.device
+
+    @classmethod
+    def analyze(cls, csr, diag_fill=0.5, max_diags=256):
+        return cls(hybrid_from_csr(csr, diag_fill, max_diags), _csr=csr)
+
+    def with_adjoint(self):
+        """This operator with the analysis of Aᴴ beside it.  Where the
+        source matrix caches this operator (``as_operator``), the new one
+        replaces it."""
+        if self.hyb_h is not None:
+            return self
+        if self._csr is None:
+            raise ValueError("HybridOperator needs the source CSRMatrix "
+                             "to build adjoint storage")
+        # a source changed since this analysis is analysed anew, so that
+        # A's and Aᴴ's storage hold the same matrix
+        hyb = self.hyb if self._stamp == _stamp(self._csr) \
+            else hybrid_from_csr(self._csr)
+        op = HybridOperator(hyb, hybrid_from_csr(self._csr.transpose_conj()),
+                            self._csr)
+        if getattr(self._csr, "_hybrid_op", None) is self:
+            self._csr._hybrid_op = op
+        return op
+
+    def matvec(self, x):
+        return hybrid_spmv(self.hyb, x)
+
+    def rmatvec(self, x):
+        if self.hyb_h is None:
+            raise ValueError(
+                "HybridOperator needs adjoint storage: build with "
+                ".with_adjoint()")
+        return hybrid_spmv(self.hyb_h, x)
+
+
+def _stamp(csr):
+    """What an in-place update of a CSRMatrix's tensors changes: each one's
+    version counter (None for an inference tensor, which keeps none) and
+    storage address; an array's identity."""
+    return tuple((None if t.is_inference() else t._version, t.data_ptr())
+                 if isinstance(t, torch.Tensor) else id(t)
+                 for t in (csr.data, csr.indices, csr.indptr, csr.rows))
+
+
+def _cached_hybrid(A):
+    """The HybridOperator cached on CSRMatrix ``A``, analysed anew when
+    there is none or ``A``'s tensors have changed since its analysis."""
+    op = getattr(A, "_hybrid_op", None)
+    if op is None or op._stamp != _stamp(A):
+        op = HybridOperator.analyze(A)
+        A._hybrid_op = op
+    return op
+
+
+def with_adjoint(A):
+    """A CSR-backed operator with the storage of Aᴴ (the JAX package's
+    ``as_operator(A, need_adjoint=True)``); any other operator as it is."""
+    if isinstance(A, (CSROperator, HybridOperator)):
+        return A.with_adjoint()
+    return A
+
+
 def as_operator(A, device=None):
     """Coerce A (operator | DIAMatrix | CSRMatrix | dense tensor or array)
     to the operator protocol.  A tensor stays where it is; a numpy array
     goes to ``device``, by default the card (raising when there is none,
-    as the constructors do)."""
+    as the constructors do).
+
+    A CSRMatrix on the card is analysed once into a ``HybridOperator``,
+    cached on the matrix (``A._hybrid_op``), so that repeated solves pay
+    the analysis once, and analysed again after an in-place change of its
+    tensors; on the CPU it stays a ``CSROperator``."""
     if A is None:
         return None
     if isinstance(A, AbstractLinearOperator):
@@ -373,6 +461,8 @@ def as_operator(A, device=None):
     if isinstance(A, DIAMatrix):
         return DIAOperator(A)
     if isinstance(A, CSRMatrix):
+        if A.data.is_cuda:
+            return _cached_hybrid(A)
         return CSROperator(A)
     if isinstance(A, (torch.Tensor, np.ndarray)):
         if A.ndim != 2:

@@ -29,16 +29,25 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 
 
 def _host(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    """A tensor's or array's values as numpy; bf16, which numpy lacks,
+    widened to f32 (exactly)."""
+    if isinstance(a, torch.Tensor):
+        return (a.float() if a.dtype == torch.bfloat16 else a).cpu().numpy()
+    return np.asarray(a)
 
 
 def _placed(a, like, device):
     """numpy ``a`` on ``device``, else on ``like``'s device (a tensor's),
-    else on the card."""
+    else on the card; floating values narrowed back to bf16 where ``like``
+    holds bf16 (``_host`` widened them)."""
     if device is None:
         device = like.device if hasattr(like, "device") and isinstance(
             like.device, torch.device) else "cuda"
-    return torch.as_tensor(a, device=resolve_device(device))
+    t = torch.as_tensor(a, device=resolve_device(device))
+    if t.is_floating_point() and getattr(like, "dtype",
+                                         None) == torch.bfloat16:
+        t = t.to(torch.bfloat16)
+    return t
 
 
 # ---------------------------------------------------------------------------

@@ -46,9 +46,11 @@ class CSRMatrix:
         m, n = self.shape
         rows = self.rows.cpu().numpy()
         cols = self.indices.cpu().numpy()
-        data = np.conj(self.data.cpu().numpy())
         order = np.lexsort((rows, cols))
-        return _csr_arrays(data[order], cols[order], rows[order], (n, m),
+        # the values reordered where they lie (numpy holds no bf16)
+        data = self.data.conj().resolve_conj()[
+            torch.as_tensor(order, device=self.device)]
+        return _csr_arrays(data, cols[order], rows[order], (n, m),
                            self.device)
 
     def __matmul__(self, x):

@@ -18,7 +18,7 @@ import torch
 
 from ._dtypes import real_dtype
 from ._runtime import as_device_tensor, full_fp32
-from .operators import CSROperator, as_operator
+from .operators import as_operator, with_adjoint
 from .ops.kops import kdot, kdotr, knorm
 
 
@@ -42,8 +42,8 @@ def _inputs(A, b, *more, adjoint=False):
     dtype."""
     A = as_operator(A, device=b.device if isinstance(b, torch.Tensor)
                     else None)
-    if adjoint and isinstance(A, CSROperator):
-        A = A.with_adjoint()
+    if adjoint:
+        A = with_adjoint(A)
     b = as_device_tensor(b, A)
     return (A, b) + tuple(as_device_tensor(v, b).to(b.dtype) for v in more)
 

@@ -22,7 +22,7 @@ import torch
 
 from .. import _runtime as rt
 from .._dtypes import real_dtype
-from ..operators import CSROperator, solve_inputs
+from ..operators import solve_inputs, with_adjoint as _with_adjoint
 from ..ops.cuda_fused import (BC_BREAKDOWN, SOLVED_CG_PT, SOLVED_LQ,
                               UV_BREAKDOWN, bilq_dia_fused,
                               bilq_dia_fused_supported, bilqr_dia_fused,
@@ -65,12 +65,6 @@ def _bi_lanczos_step(A, vk, uk, vkm1, ukm1, beta_k, gamma_k, FC):
     beta_kp1 = torch.sqrt(torch.abs(pHq))
     gamma_kp1 = pHq / _safe(beta_kp1).to(FC)
     return q, p, alpha, pHq, beta_kp1, gamma_kp1
-
-
-def _with_adjoint(A):
-    """A CSR operator with the storage of Aᴴ (the JAX package's
-    ``as_operator(A, need_adjoint=True)``)."""
-    return A.with_adjoint() if isinstance(A, CSROperator) else A
 
 
 def _start(A, b, c, x0, atol, rtol):

@@ -365,13 +365,11 @@ def _crls_solve(
     return state.x, stats, state
 
 
-def crls(A, b, *, precision=None, **kwargs):
+def crls(A, b, **kwargs):
     """x, stats = crls(A, b; λ, radius, M, ...) — min ‖b − Ax‖² + λ‖x‖².
 
-    ``precision="double_word"`` raises NotImplementedError until the
-    iterative refinement (solvers/_refine.py, ROADMAP.md Queue 1 item 8)
-    is ported."""
-    _no_double_word("CRLS", precision)
+    CRLS takes no ``precision`` keyword, as in the JAX package: passing
+    one raises ``TypeError``."""
     x, stats, _ = _crls_solve(A, b, **kwargs)
     return x, stats
 
@@ -536,9 +534,12 @@ def cgls_lanczos_shift(A, b, shifts, *, precision=None, **kwargs):
     """X, stats = cgls_lanczos_shift(A, b, shifts) — X has shape
     (nshifts, n): row i solves min ‖b − Ax‖² + shifts[i]‖x‖².
 
-    ``precision="double_word"`` raises NotImplementedError until the
-    iterative refinement (solvers/_refine.py, ROADMAP.md Queue 1 item 8)
-    is ported."""
-    _no_double_word("CGLS-LANCZOS-SHIFT", precision)
+    ``precision`` may be None or "working"; CGLS-Lanczos-shift has no
+    double-word path, so any other value raises ``ValueError`` (the JAX
+    package ignores the keyword and solves in working precision)."""
+    if precision not in (None, "working"):
+        raise ValueError(
+            f"precision={precision!r}: CGLS-LANCZOS-SHIFT has no "
+            "double-word path; precision must be None or 'working'")
     X, stats, _ = _cgls_lanczos_shift_solve(A, b, shifts, **kwargs)
     return X, stats

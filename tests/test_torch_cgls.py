@@ -221,15 +221,32 @@ def test_callback_itmax_timemax_and_verbose(method, capsys):
 
 
 def test_double_word_and_bad_inputs_raise():
+    """CGLS waits for the double-word port; CRLS takes no ``precision``
+    (the JAX package's TypeError, for any value); CGLS-Lanczos-shift
+    takes None and "working" and refuses the rest with a ValueError."""
     A, b = _gen_lsq()
     for method in METHODS + ("cgls_lanczos_shift",):
         args = (SHIFTS,) if method == "cgls_lanczos_shift" else ()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            getattr(kt, method)(_t(A), _t(b), *args,
-                                precision="double_word")
-        with pytest.raises(ValueError, match="precision"):
-            getattr(kt, method)(_t(A), _t(b), *args,
-                                precision="compensated")
+        if method == "cgls":
+            raised = {"double_word": (NotImplementedError, "Queue 1 item 8"),
+                      "compensated": (ValueError, "precision")}
+        elif method == "crls":
+            raised = {p: (TypeError, "precision")
+                      for p in ("double_word", "compensated", "working",
+                                None)}
+            for p in raised:
+                with pytest.raises(TypeError, match="precision"):
+                    kj.crls(A, b, precision=p)
+        else:
+            raised = {p: (ValueError, "no double-word path")
+                      for p in ("double_word", "compensated")}
+            for p in (None, "working"):
+                X, st = kt.cgls_lanczos_shift(_t(A), _t(b), SHIFTS,
+                                              precision=p)
+                assert st.solved and X.shape == (len(SHIFTS), A.shape[1])
+        for p, (exc, msg) in raised.items():
+            with pytest.raises(exc, match=msg):
+                getattr(kt, method)(_t(A), _t(b), *args, precision=p)
         with pytest.raises(ValueError, match="Inconsistent problem size"):
             getattr(kt, method)(_t(A), _t(b[:10]), *args)
     with pytest.raises(TypeError):
@@ -453,9 +470,16 @@ def test_krylov_solve_and_workspace():
     assert isinstance(kt.CglsWorkspace(_t(A), _t(b)), kt.KrylovWorkspace)
     with pytest.raises(ValueError, match="does not support warm starts"):
         kt.warm_start(wt, kt.solution(wt))
-    ws = kt.krylov_workspace("crls", precision="double_word")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        kt.krylov_solve_inplace(ws, _t(A), _t(b))
+    for p in ("double_word", "working"):
+        wj = kj.krylov_workspace("crls", precision=p)
+        with pytest.raises(TypeError, match="precision"):
+            kj.krylov_solve_inplace(wj, A, b)
+        ws = kt.krylov_workspace("crls", precision=p)
+        with pytest.raises(TypeError, match="precision"):
+            kt.krylov_solve_inplace(ws, _t(A), _t(b))
+    ws = kt.krylov_workspace("cgls_lanczos_shift", precision="double_word")
+    with pytest.raises(ValueError, match="no double-word path"):
+        kt.krylov_solve_inplace(ws, _t(A), _t(b), SHIFTS)
 
 
 # element budgets of the large tensors (size ≥ n) of each state, copied

@@ -14,9 +14,6 @@ import krylov_tpu_torch as kt
 # the open ROADMAP.md Queue 1 item that brings each name still missing
 QUEUED = {
     8: ("knorm2",),
-    9: ("HybridOperator", "HybridMatrix", "hybrid_from_csr",
-        "split_diagonals", "SELLMatrix", "SELLBucketed", "sell_from_csr",
-        "sell_bucketed_from_csr", "sell_spmv"),
     10: ("pipelined_cg",),
     11: ("batched_solve", "batched_solve_xy", "BatchedStats",
          "export_solver", "export_solver_xy", "load_solver"),
@@ -39,10 +36,10 @@ def test_every_jax_name_is_exported_or_queued():
 
 def test_queue_map_names_each_missing_name_once():
     """Each queued name is a JAX name the port lacks, named under one
-    open item (8 to 11)."""
+    open item (8, 10 and 11)."""
     names = [n for item in QUEUED.values() for n in item]
     assert len(names) == len(set(names))
-    assert set(QUEUED) <= set(range(8, 12))
+    assert set(QUEUED) <= {8, 10, 11}
     jax_names = set(_jax_public_names())
     for n in names:
         assert n in jax_names and not hasattr(kt, n), n
@@ -74,3 +71,15 @@ def test_kops_workspaces_and_version_exported():
         assert getattr(kt, cname).__name__ == getattr(kj, cname).__name__
         assert issubclass(getattr(kt, cname), kt.KrylovWorkspace)
     assert kt.__version__ == kj.__version__
+
+
+def test_sell_and_hybrid_names_exported():
+    """The nine names of the SELL and hybrid slice are on the port's top
+    level, as on the JAX package's, and the SELL kernel counts its
+    launches under ``sell_spmv``."""
+    for name in ("HybridOperator", "HybridMatrix", "hybrid_from_csr",
+                 "split_diagonals", "SELLMatrix", "SELLBucketed",
+                 "sell_from_csr", "sell_bucketed_from_csr", "sell_spmv"):
+        assert hasattr(kj, name) and hasattr(kt, name), name
+    assert kt.KERNELS["sell_spmv"] is kt.sell_spmv
+    assert "sell_spmv" in kt.kernel_launches()

@@ -498,7 +498,7 @@ def test_kernel_launches_and_exports():
                         "cgne_crmr_dia", "cgls_dia", "crls_dia",
                         "cgls_lanczos_shift_dia", "tricg_dia", "trimr_dia",
                         "gpmr_dia", "block_minres_dia", "block_gmres_dia",
-                        "bell_spmv", "bell_spmm"}
+                        "bell_spmv", "bell_spmm", "sell_spmv"}
     assert got["dia_spmv"] == dia_spmv_aligned.launches
     assert got["dia_spmv_padded"] == kt.dia_spmv_padded.launches
     assert got["cg_dia"] == cg_dia_fused.launches
@@ -515,6 +515,7 @@ def test_kernel_launches_and_exports():
         assert got[name] == getattr(kt, name + "_fused").launches
     assert got["bell_spmv"] == kt.bell_spmv.launches
     assert got["bell_spmm"] == kt.bell_spmm.launches
+    assert got["sell_spmv"] == kt.sell_spmv.launches
     for name in ("cg", "cr", "car", "minres", "cg_lanczos",
                  "cg_lanczos_shift", "symmlq", "minres_qlp", "minares",
                  "gmres", "fgmres", "fom", "bicgstab", "cgs", "diom",
@@ -523,6 +524,9 @@ def test_kernel_launches_and_exports():
                  "craigmr", "lnlq", "cgne", "crmr", "cgls", "crls",
                  "cgls_lanczos_shift", "tricg", "trimr", "gpmr",
                  "block_minres", "block_gmres", "BELLOperator",
+                 "HybridOperator", "HybridMatrix", "hybrid_from_csr",
+                 "split_diagonals", "SELLMatrix", "SELLBucketed",
+                 "sell_from_csr", "sell_bucketed_from_csr", "sell_spmv",
                  "hermitian_lanczos", "block_montoison_orban",
                  "TrimrWorkspace", "GpmrWorkspace",
                  "BlockMinresWorkspace", "CglsWorkspace",
@@ -1927,3 +1931,206 @@ def test_slice12_solvers_on_card_take_their_kernels():
         n0 = kt.kernel_launches()[name]
         assert call()[-1].solved
         assert kt.kernel_launches()[name] > n0
+
+
+def _sell_csr(m, n, dtype, seed=29):
+    """A seeded sparse m × n CSR matrix on the card with empty rows, an
+    empty slice and one row of 100 nonzeros in one chunk (a deep pair),
+    and the generator that made it."""
+    rng = np.random.default_rng(seed)
+    A = np.where(rng.random((m, n)) < 0.004, rng.standard_normal((m, n)),
+                 0.0)
+    A[1024:2048] = 0.0
+    A[3, :100] = np.arange(1.0, 101.0) / 100
+    if dtype.is_complex:
+        A = A * (1.0 + 0.5j)
+    rows, cols = np.nonzero(A)
+    return kt.csr_from_coo(rows, cols, A[rows, cols], (m, n)), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", _build._SPMV_PAIRS)
+def test_sell_kernel_matches_plain_on_card(pair):
+    """sell_spmv against its plain version on the same SELL arrays, for
+    every (x, data) pair of the DIA SpMV, covered and uncovered, single
+    and bucketed: max |Δ| ≤ tol · max|y|, tol a few ulps of the
+    accumulation type over a row (f32 for f32, bf16 and f16, whose
+    outputs round to one ulp of the narrow type); the rows of a slice
+    with no pair read exactly 0."""
+    _card()
+    from krylov_tpu_torch.ops import cuda_sell as cs
+    names = {"f32": torch.float32, "f64": torch.float64,
+             "bf16": torch.bfloat16, "f16": torch.float16,
+             "c64": torch.complex64, "c128": torch.complex128}
+    xdt, ddt = (names[t] for t in pair.split("_"))
+    tol = {torch.float32: 1e-5, torch.complex64: 1e-5, torch.float64: 1e-12,
+           torch.complex128: 1e-12, torch.bfloat16: 2e-2,
+           torch.float16: 2e-3}[xdt]
+    wide = torch.complex128 if ddt.is_complex else torch.float64
+    csr, rng = _sell_csr(3000, 2600, wide)
+    x = torch.as_tensor(rng.standard_normal(2600)).to("cuda", xdt)
+    if xdt.is_complex:
+        x = x * (0.5 - 1.0j)
+    for S in (kt.sell_from_csr(csr), kt.sell_from_csr(csr, cover=False),
+              kt.sell_bucketed_from_csr(csr)):
+        # the arrays built in the wide type, the data then narrowed (numpy
+        # holds no bf16)
+        for part in getattr(S, "parts", (S,)):
+            part.data = part.data.to(ddt)
+        n0 = kt.sell_spmv.launches
+        y = S @ x
+        nparts = len(S.parts) if isinstance(S, kt.SELLBucketed) else 1
+        assert kt.sell_spmv.launches == n0 + nparts
+        ref = (cs.sell_bucketed_spmv_ref(S, x)
+               if isinstance(S, kt.SELLBucketed) else cs.sell_spmv_ref(S, x))
+        assert y.dtype == xdt and y.shape == (3000,)
+        assert _rel(y, ref) <= tol
+        assert bool((y[1024:2048] == 0).all())
+
+
+@pytest.mark.cuda
+def test_sell_sorted_and_uncovered_on_card():
+    """A σ-sorted plan (heavy constraint rows spread over every slice)
+    un-permutes on the card as its plain version does, and an uncovered
+    single SELL matrix writes zeros for its empty slices even where the
+    output buffer held NaN before."""
+    _card()
+    from krylov_tpu_torch.ops import cuda_sell as cs
+    rng = np.random.default_rng(30)
+    n = 1 << 14
+    r = np.repeat(np.arange(n, dtype=np.int64), 7)
+    c = np.clip(r + rng.integers(-300, 301, size=r.size), 0, n - 1)
+    heavy = np.sort(rng.choice(n, n // 256, replace=False))
+    r = np.r_[r, np.repeat(heavy, 1280)]
+    c = np.r_[c, np.tile(np.arange(1280), len(heavy))]
+    csr = kt.csr_from_coo(r, c, rng.standard_normal(r.size), (n, n),
+                          dtype=np.float32)
+    S = kt.sell_bucketed_from_csr(csr)
+    assert isinstance(S, kt.SELLBucketed) and S.row_pos is not None
+    x = torch.as_tensor(rng.standard_normal(n)).to("cuda", torch.float32)
+    assert _rel(S @ x, cs.sell_bucketed_spmv_ref(S, x)) <= 1e-5
+    csr2, _ = _sell_csr(4096, 4096, torch.float64)
+    U = kt.sell_from_csr(csr2, cover=False)
+    assert not U.covered
+    # a freed block full of NaN, which the allocator may hand to y
+    torch.full((4096,), float("nan"), device="cuda")
+    y = U @ torch.ones(4096, dtype=torch.float64, device="cuda")
+    assert bool(torch.isfinite(y).all()) and bool((y[1024:2048] == 0).all())
+    assert _rel(y, cs.sell_spmv_ref(U, torch.ones_like(y))) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_sell_kernel_raises_for_other_pairs():
+    _card()
+    csr, _ = _sell_csr(600, 600, torch.float64)
+    S = kt.sell_from_csr(csr)
+    for xdt in (torch.float32, torch.float16):
+        with pytest.raises(ValueError, match="no SELL SpMV kernel"):
+            kt.sell_spmv(S, torch.ones(600, dtype=xdt, device="cuda"))
+
+
+def _spd_band_csr(rng, n, dtype, w=300):
+    """An SPD band on the card: 12 entries a row at offsets uniform in ±w,
+    symmetrised, with the diagonal 1 + the sum of its row's moduli."""
+    rows = np.repeat(np.arange(n, dtype=np.int64), 12)
+    cols = np.clip(rows + rng.integers(-w, w + 1, size=rows.size), 0, n - 1)
+    vals = rng.standard_normal(rows.size)
+    keep = rows != cols
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    d = 1.0 + np.bincount(rows, np.abs(vals), n) + np.bincount(
+        cols, np.abs(vals), n)
+    R = np.r_[rows, cols, np.arange(n)]
+    C = np.r_[cols, rows, np.arange(n)]
+    V = np.r_[vals, vals, d]
+    return kt.csr_from_coo(R, C, V, (n, n), dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_csr_on_card_routes_through_cached_hybrid_operator():
+    """as_operator(csr on the card) analyses once into a HybridOperator
+    cached on the matrix; cg on it launches dia_spmv for the dense
+    diagonal and sell_spmv for the rest and solves as CSROperator does;
+    lsqr, which needs Aᴴ, replaces the cache with the adjoint-capable
+    operator, whose rmatvec runs sell_spmv on Aᴴ's SELL."""
+    _card()
+    rng = np.random.default_rng(31)
+    n = 1 << 13
+    csr = _spd_band_csr(rng, n, np.float64)
+    op = kt.as_operator(csr)
+    assert isinstance(op, kt.HybridOperator) and csr._hybrid_op is op
+    assert kt.as_operator(csr) is op
+    assert op.hyb.dia is not None and op.hyb.dia_pd is not None
+    assert isinstance(op.hyb.sell, (kt.SELLMatrix, kt.SELLBucketed))
+    b = torch.as_tensor(rng.standard_normal(n), device="cuda")
+    n0 = kt.kernel_launches()
+    x, st = kt.cg(csr, b)
+    n1 = kt.kernel_launches()
+    assert st.solved and x.is_cuda
+    assert n1["dia_spmv"] > n0["dia_spmv"] and \
+        n1["sell_spmv"] > n0["sell_spmv"]
+    xc, sc = kt.cg(kt.CSROperator(csr), b)
+    assert st.status == sc.status and abs(st.niter - sc.niter) <= 2
+    assert _rel(x, xc) <= 1e-8
+    m0 = kt.sell_spmv.launches
+    xl, sl = kt.lsqr(csr, b)
+    assert sl.solved and csr._hybrid_op is not op
+    assert csr._hybrid_op.hyb is op.hyb and csr._hybrid_op.hyb_h is not None
+    assert kt.sell_spmv.launches > m0
+    assert _rel(csr._hybrid_op.rmatvec(b),
+                kt.CSROperator(csr).with_adjoint().rmatvec(b)) <= 1e-12
+
+
+
+@pytest.mark.cuda
+def test_csr_on_card_reanalyses_after_in_place_change():
+    """Scaling a card CSRMatrix's data in place (and then replacing it)
+    makes as_operator analyse it again: the next cg solves the new
+    matrix, x halved for A doubled, through dia_spmv and sell_spmv."""
+    _card()
+    rng = np.random.default_rng(32)
+    n = 1 << 13
+    csr = _spd_band_csr(rng, n, np.float64)
+    b = torch.as_tensor(rng.standard_normal(n), device="cuda")
+    x1, s1 = kt.cg(csr, b, atol=0.0, rtol=1e-10)
+    op = csr._hybrid_op
+    csr.data.mul_(2.0)
+    n0 = kt.kernel_launches()
+    x2, s2 = kt.cg(csr, b, atol=0.0, rtol=1e-10)
+    n1 = kt.kernel_launches()
+    assert s1.solved and s2.solved and csr._hybrid_op is not op
+    assert n1["dia_spmv"] > n0["dia_spmv"] and \
+        n1["sell_spmv"] > n0["sell_spmv"]
+    assert _rel(x2, 0.5 * x1) <= 1e-8
+    assert _rel(csr._hybrid_op.matvec(b), kt.spmv(csr, b)) <= 1e-12
+    csr.data = csr.data * 0.25
+    x3, s3 = kt.cg(csr, b, atol=0.0, rtol=1e-10)
+    assert s3.solved and _rel(x3, 2.0 * x1) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_bf16_csr_on_card_routes_through_hybrid_operator():
+    """A bf16 CSRMatrix on the card analyses into bf16 DIA and SELL parts
+    (the host works on f32 copies of its values); the product of f32 x
+    runs the (f32, bf16) kernels within 1e-5 of the plain CSR product,
+    and cg with an f32 b solves as CSROperator does."""
+    _card()
+    rng = np.random.default_rng(33)
+    n = 1 << 13
+    c64 = _spd_band_csr(rng, n, np.float64)
+    csr = kt.CSRMatrix(c64.data.to(torch.bfloat16), c64.indices,
+                       c64.indptr, c64.rows, c64.shape)
+    op = kt.as_operator(csr)
+    assert isinstance(op, kt.HybridOperator) and op.dtype == torch.bfloat16
+    assert op.hyb.dia_pd.dtype == torch.bfloat16
+    x = torch.as_tensor(rng.standard_normal(n), device="cuda",
+                        dtype=torch.float32)
+    n0 = kt.kernel_launches()
+    y = op.matvec(x)
+    n1 = kt.kernel_launches()
+    assert n1["dia_spmv"] > n0["dia_spmv"] and \
+        n1["sell_spmv"] > n0["sell_spmv"]
+    assert y.dtype == torch.float32 and _rel(y, kt.spmv(csr, x)) <= 1e-5
+    xs, st = kt.cg(csr, x)
+    xc, sc = kt.cg(kt.CSROperator(csr), x)
+    assert st.solved and st.status == sc.status
+    assert abs(st.niter - sc.niter) <= 2
