@@ -108,6 +108,50 @@ def event_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def host_us(fn, calls=100, batches=10):
+    """Host time per call of fn in microseconds: a host clock around
+    batches of ``calls`` calls with no synchronise inside a batch (the
+    card drains its queue between batches, so a batch never waits on a
+    full launch queue), summed and divided by the calls."""
+    fn()
+    total = 0.0
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        total += time.perf_counter() - t
+    torch.cuda.synchronize()
+    return total / (calls * batches) * 1e6
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of fn: the time of the kernels that the
+    profiler (CUPTI) records over ``reps`` calls, divided by reps; None
+    where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if not e.key.startswith("aten::"))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def on_device(bound_ms, dev_ms):
+    """The share of the bound that the device time reaches, for a print."""
+    return "" if dev_ms is None else f", {bound_ms / dev_ms:.3f} on the " \
+        "device"
+
+
 def csr_of(pd, offsets, dtype):
     """torch.sparse CSR copy of the aligned DIA matrix (yardstick only)."""
     nd, n = pd.shape
@@ -123,6 +167,39 @@ def csr_of(pd, offsets, dtype):
                                                torch.cat(cols)]),
                                   torch.cat(vals), (n, n))
     return coo.coalesce().to_sparse_csr()
+
+
+def fem_band(nf, seed=0):
+    """bench.py:698-704's FEM band: nf rows of 12 nonzeros at column
+    offsets uniform in ±300 (clipped to the matrix), normal values
+    (float64; the bench's float32 values are these rounded), seed 0;
+    as (rows, cols, vals) on the host."""
+    gen = np.random.default_rng(seed)
+    fr = np.repeat(np.arange(nf, dtype=np.int64), 12)
+    fc = np.clip(fr + gen.integers(-300, 301, size=fr.size), 0, nf - 1)
+    return fr, fc, gen.standard_normal(fr.size)
+
+
+def dominant(rows, cols, vals, nf, symmetric):
+    """The band's off-diagonal entries (with their transposes where
+    ``symmetric``: S + S^T) and the diagonal 1 + the sum of the moduli
+    of each row's off-diagonal entries: SPD where symmetric, strictly
+    diagonally dominant in every case."""
+    keep = rows != cols
+    r, c, v = rows[keep], cols[keep], vals[keep]
+    if symmetric:
+        r, c, v = np.r_[r, c], np.r_[c, r], np.r_[v, v]
+    d = 1.0 + np.bincount(r, np.abs(v), nf)
+    i = np.arange(nf)
+    return np.r_[r, i], np.r_[c, i], np.r_[v, d]
+
+
+def torch_csr(csr, dtype=None):
+    """torch.sparse CSR copy of a CSRMatrix (yardstick only)."""
+    return torch.sparse_csr_tensor(
+        csr.indptr, csr.indices,
+        csr.data if dtype is None else csr.data.to(dtype),
+        csr.shape)
 
 
 def profile_solve(solve, top=10):
@@ -178,7 +255,8 @@ def main():
 
     import krylov_tpu_torch as kt
     from krylov_tpu_torch import _build
-    from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
+    from krylov_tpu_torch.ops.cuda_dia import (DIASpMV, dia_align,
+                                               dia_spmv_aligned,
                                                dia_spmv_aligned_ref,
                                                offsets_tensor)
     from krylov_tpu_torch import _runtime as rt
@@ -279,11 +357,17 @@ def main():
             torch.cuda.synchronize()
             err = float((y - y_ref).abs().max())
             rel = err / float(y_ref.abs().max())
+            plan = DIASpMV(pd, ot, A.offsets)
+            same = torch.equal(plan(x), y)
             ms = event_ms(lambda: dia_spmv_aligned(pd, ot, x))
+            plan_ms = event_ms(lambda: plan(x))
             plain_ms = event_ms(lambda: dia_spmv_aligned_ref(pd, ot, x))
             csr = csr_of(pd, A.offsets, xdt)
             lib_ms = event_ms(lambda: torch.mv(csr, x))
             del csr
+            us_pub = host_us(lambda: dia_spmv_aligned(pd, ot, x))
+            us_plan = host_us(lambda: plan(x))
+            dev_ms = device_ms(lambda: plan(x))
             nbytes = pd.numel() * pd.element_size() + 2 * n * x.element_size() \
                 + ot.numel() * 8
             flops = 2 * pd.numel()
@@ -291,18 +375,26 @@ def main():
             bound_by = "bytes" if nbytes / bw >= flops / peak \
                 else "operations"
             print(f"  {label}: n={n} max_abs_err={err:.3e} max_rel_err="
-                  f"{rel:.3e} (tol {tol:g}) ms={ms:.4f} plain_ms="
+                  f"{rel:.3e} (tol {tol:g}) ms={ms:.4f} (DIASpMV "
+                  f"{plan_ms:.4f}, device {fmt(dev_ms)}) plain_ms="
                   f"{plain_ms:.4f} csr_ms={lib_ms:.4f} bound_ms="
-                  f"{bound_ms:.4f} ({nbytes / 1e6:.1f} MB)", flush=True)
+                  f"{bound_ms:.4f} ({nbytes / 1e6:.1f} MB, "
+                  f"{bound_ms / plan_ms:.3f} of it by events"
+                  f"{on_device(bound_ms, dev_ms)}"
+                  f"); host us/call dia_spmv_aligned {us_pub:.2f}, DIASpMV "
+                  f"{us_plan:.2f}", flush=True)
             check(rel <= tol, f"dia_spmv {label} agrees with its plain "
                   f"version ({rel:.2e} <= {tol:g})")
+            check(same, f"dia_spmv {label}: DIASpMV's call gives the "
+                  "public wrapper's bits")
             if label == "128^3 f32":
-                report["dia_spmv"] = dict(max_abs_err=err, ms=ms,
+                # the main path's call: DIAOperator's DIASpMV
+                report["dia_spmv"] = dict(max_abs_err=err, ms=plan_ms,
                                           plain_ms=plain_ms,
                                           bound_ms=bound_ms,
                                           bound_by=bound_by,
                                           library_ms=lib_ms)
-            del A, pd, x, y, y_ref
+            del A, pd, x, y, y_ref, plan
         # the pairs that had no kernel before (64^3): the general routes
         # of an f64 b on f32 diagonals, of complex systems and of bf16 or
         # f16 vectors run them; tolerances relative to max|y| as in
@@ -389,36 +481,6 @@ def main():
 
     from krylov_tpu_torch.ops import cuda_sell as csell
     from krylov_tpu_torch.ops.hybrid import split_diagonals
-
-    def fem_band(nf, seed=0):
-        """bench.py:698-704's FEM band: nf rows of 12 nonzeros at column
-        offsets uniform in ±300 (clipped to the matrix), normal values
-        (float64; the bench's float32 values are these rounded), seed 0;
-        as (rows, cols, vals) on the host."""
-        gen = np.random.default_rng(seed)
-        fr = np.repeat(np.arange(nf, dtype=np.int64), 12)
-        fc = np.clip(fr + gen.integers(-300, 301, size=fr.size), 0, nf - 1)
-        return fr, fc, gen.standard_normal(fr.size)
-
-    def dominant(rows, cols, vals, nf, symmetric):
-        """The band's off-diagonal entries (with their transposes where
-        ``symmetric``: S + S^T) and the diagonal 1 + the sum of the moduli
-        of each row's off-diagonal entries: SPD where symmetric, strictly
-        diagonally dominant in every case."""
-        keep = rows != cols
-        r, c, v = rows[keep], cols[keep], vals[keep]
-        if symmetric:
-            r, c, v = np.r_[r, c], np.r_[c, r], np.r_[v, v]
-        d = 1.0 + np.bincount(r, np.abs(v), nf)
-        i = np.arange(nf)
-        return np.r_[r, i], np.r_[c, i], np.r_[v, d]
-
-    def torch_csr(csr, dtype=None):
-        """torch.sparse CSR copy of a CSRMatrix (yardstick only)."""
-        return torch.sparse_csr_tensor(
-            csr.indptr, csr.indices,
-            csr.data if dtype is None else csr.data.to(dtype),
-            csr.shape)
 
     def sell_bytes(S, x):
         """Bytes a SELL product must move: every stored slot (its element
@@ -538,7 +600,7 @@ def main():
                  ("FEM band bucketed f64", SB64, x64, None, 1e-12),
                  ("FEM band bucketed f64 x, f32 data", SB, x64, None, 1e-12),
                  ("sigma-sorted f32", SS, x32, sorted_csr, 1e-5),
-                 ("FEM band single covered f32", S1, x32, None, 1e-5),
+                 ("FEM band single covered f32", S1, x32, fem32, 1e-5),
                  ("SPD band remainder f32 (main path)", SR, x32, spd_rem,
                   1e-5)]
         for label, S, x, lib_csr, tol in cases:
@@ -555,7 +617,21 @@ def main():
             err = float((y - y_ref).abs().max())
             rel = err / float(y_ref.abs().max())
             ms = event_ms(run)
+            dev_ms = device_ms(run)
             plain_ms = event_ms(plain, reps=5)
+            us = host_us(run)
+            comp = ""
+            if bucketed:
+                # the per-part composition: the kernel on each part alone,
+                # then PyTorch's adds and gather
+                parts = (lambda S=S, x=x:
+                         csell.sell_bucketed_spmv_parts(S, x))
+                same = torch.equal(y, parts())
+                comp = (f"; per-part composition ({len(S.parts)} launches) "
+                        f"ms={event_ms(parts):.4f} host us/call="
+                        f"{host_us(parts):.2f}, bit-equal={same}")
+                check(same, f"sell_spmv {label}: one launch gives the "
+                      "per-part composition's bits")
             lib_ms = None
             if lib_csr is not None:
                 tc = torch_csr(lib_csr, x.dtype)
@@ -563,12 +639,20 @@ def main():
                 del tc
             nbytes = sell_bytes(S, x)
             bound_ms = nbytes / bw * 1e3
+            need = S.nnz * (S.dtype.itemsize + 4) \
+                + (S.shape[0] + S.shape[1]) * x.element_size()
             print(f"  {label}: launches={nl} max_abs_err={err:.3e} rel="
-                  f"{rel:.3e} (tol {tol:g}) ms={ms:.4f} plain_ms="
-                  f"{plain_ms:.4f} csr_ms="
+                  f"{rel:.3e} (tol {tol:g}) ms={ms:.4f} (device "
+                  f"{fmt(dev_ms)}) plain_ms={plain_ms:.4f} csr_ms="
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
-                  f"bound_ms={bound_ms:.4f} ({nbytes / 1e6:.1f} MB) "
-                  f"{S.nnz / ms / 1e6:.2f} Gnnz/s", flush=True)
+                  f"bound_ms={bound_ms:.4f} ({nbytes / 1e6:.1f} MB of "
+                  f"slots, {bound_ms / ms:.3f} of it by events"
+                  f"{on_device(bound_ms, dev_ms)}"
+                  f") nnz bound_ms="
+                  f"{need / bw * 1e3:.4f} ({need / 1e6:.1f} MB) "
+                  f"{S.nnz / ms / 1e6:.2f} Gnnz/s host us/call={us:.2f}"
+                  f"{comp}", flush=True)
+            check(nl == 1, f"sell_spmv {label}: one launch per product")
             check(y.dtype == x.dtype and y.shape == (nf,) and rel <= tol
                   and bool(torch.isfinite(y).all()),
                   f"sell_spmv {label} agrees with its plain version "
@@ -585,7 +669,36 @@ def main():
         print(f"  one part alone (pairs {one.data.shape[0]}, Kmax "
               f"{one.kmax}): ms={ms:.4f} bound_ms="
               f"{sell_bytes(one, x32) / bw * 1e3:.4f}", flush=True)
-        del SB, SB64, SS, S1, sorted_csr, fem32, spd_rem, SR, x32, x64
+        # the main path's whole product: the DIA half and one SELL launch
+        # that adds it, against the DIA half plus the per-part composition
+        hyb = spd_op.hyb
+        counts0 = kt.kernel_launches()
+        y = spd_op.matvec(x32)
+        counts1 = kt.kernel_launches()
+        nl = (counts1["dia_spmv"] - counts0["dia_spmv"],
+              counts1["sell_spmv"] - counts0["sell_spmv"])
+        parts = (lambda: hyb._dia_spmv(x32)
+                 + csell.sell_bucketed_spmv_parts(hyb.sell, x32)) \
+            if isinstance(hyb.sell, kt.SELLBucketed) else \
+            (lambda: hyb._dia_spmv(x32) + kt.sell_spmv(hyb.sell, x32))
+        same = torch.equal(y, parts())
+        tc = torch_csr(fem_spd)
+        lib_ms = event_ms(lambda: tc @ x32)
+        del tc
+        need = fem_spd.nnz * 8 + 2 * nf * 4
+        ms = event_ms(lambda: spd_op.matvec(x32))
+        dev_ms = device_ms(lambda: spd_op.matvec(x32))
+        print(f"  SPD band hybrid product (main path): launches dia_spmv, "
+              f"sell_spmv = {nl} ms={ms:.4f} (device {fmt(dev_ms)}) host "
+              f"us/call="
+              f"{host_us(lambda: spd_op.matvec(x32)):.2f}; DIA half + "
+              f"per-part composition ms={event_ms(parts):.4f} host us/call="
+              f"{host_us(parts):.2f} bit-equal={same}; csr_ms={lib_ms:.4f} "
+              f"nnz bound_ms={need / bw * 1e3:.4f}", flush=True)
+        check(nl == (1, 1) and same, "the hybrid product is one dia_spmv "
+              "and one sell_spmv launch, bit for bit the DIA half plus the "
+              "per-part composition")
+        del SB, SB64, SS, S1, sorted_csr, fem32, spd_rem, SR, x32, x64, y
 
     with Phase("3 cg_dia kernel vs plain", 90):
         A = kt.poisson_dia(128)
@@ -3218,16 +3331,24 @@ def main():
                        lambda: kt.lsqr(kt.CSROperator(fem_u64), b64),
                        fem_u64, b64))
         for label, solve, plain, csr, b in solves:
-            (x, st), ms, counts = timed(solve)
-            (xc, sc), ms_c, _ = timed(plain)
+            # three solves each, in turns; the median time of each
+            runs = [(timed(solve), timed(plain)) for _ in range(3)]
+            (x, st), _, counts = runs[0][0]
+            (xc, sc), _, _ = runs[0][1]
+            ms = statistics.median(r[0][1] for r in runs)
+            ms_c = statistics.median(r[1][1] for r in runs)
             res, res_c = csr_rel_residual(csr, b, x), csr_rel_residual(
                 csr, b, xc)
+            per_it = (counts["dia_spmv"] + counts["sell_spmv"]) / max(
+                st.niter, 1)
             print(f"  {label}: niter={st.niter} status='{st.status}' "
                   f"true_res={res:.3e} ms/solve={ms:.2f} us/iter="
                   f"{1e3 * ms / max(st.niter, 1):.2f} launches dia_spmv="
-                  f"{counts['dia_spmv']} sell_spmv={counts['sell_spmv']}; "
+                  f"{counts['dia_spmv']} sell_spmv={counts['sell_spmv']} "
+                  f"({per_it:.2f} SpMV launches per iteration); "
                   f"CSROperator: niter={sc.niter} status='{sc.status}' "
-                  f"true_res={res_c:.3e} ms/solve={ms_c:.2f}", flush=True)
+                  f"true_res={res_c:.3e} ms/solve={ms_c:.2f}; ratio "
+                  f"{ms / ms_c:.3f}", flush=True)
             check(st.status == sc.status and abs(st.niter - sc.niter)
                   <= max(2, 0.1 * sc.niter),
                   f"{label}: CSROperator's status, niter {st.niter} within "
@@ -3280,6 +3401,8 @@ def main():
         del P, p_csr, p_op, xp, bp
         print("  profile of the SPD band cg solve:", flush=True)
         profile_solve(spd_solve)
+        print("  profile of the same solve through CSROperator:", flush=True)
+        profile_solve(lambda: kt.cg(kt.CSROperator(fem_spd), b32))
     del fem_spd, spd_op, b32
 
     with Phase("5e dtype and device repairs on the card (64^3)", 90):
@@ -3526,5 +3649,80 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def compare_main(root):
+    """``python3 chip_smoke.py --compare ROOT``: the SpMV layer of the
+    krylov_tpu_torch in checkout ROOT (this one, or another commit's
+    package unpacked beside it, to compare the two in one run on one
+    card) on the main path's inputs, as one JSON line: CUDA-event ms,
+    profiled device ms and host us per call of the DIA SpMV at 128^3 f32
+    and 64^3 f64 (the public wrapper and DIAOperator.matvec), of the SPD
+    FEM band's SELL remainder product and its hybrid product (n = 2^17
+    f32), and the median ms of three cg(csr, b) solves and three
+    CSROperator solves."""
+    from pathlib import Path
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import krylov_tpu_torch as kt
+    if Path(kt.__file__).resolve().parent != root / "krylov_tpu_torch":
+        raise RuntimeError(f"imported {kt.__file__}, not ROOT's package")
+    from krylov_tpu_torch import _build
+    from krylov_tpu_torch.ops import cuda_sell as csell
+    from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
+                                               offsets_tensor)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
+    gen = np.random.default_rng(SEED + 42)
+    for N, dt in ((128, torch.float32), (64, torch.float64)):
+        A = kt.poisson_dia(N, dtype=dt)
+        pd = dia_align(A.data, A.offsets, A.shape[0])
+        ot = offsets_tensor(A.offsets, "cuda")
+        x = torch.as_tensor(gen.standard_normal(A.shape[0])).to("cuda", dt)
+        op = kt.DIAOperator(A)
+        out[f"dia_spmv {N}^3"] = dict(
+            ms=event_ms(lambda: dia_spmv_aligned(pd, ot, x), reps=50),
+            host_us=host_us(lambda: dia_spmv_aligned(pd, ot, x)),
+            matvec_ms=event_ms(lambda: op.matvec(x), reps=50),
+            matvec_device_ms=device_ms(lambda: op.matvec(x)),
+            matvec_host_us=host_us(lambda: op.matvec(x)))
+        del A, pd, ot, x, op
+    nf = 1 << 17
+    sr, sc, sv = dominant(*fem_band(nf), nf, True)
+    fem_spd = kt.csr_from_coo(sr, sc, sv.astype(np.float32), (nf, nf))
+    op = kt.as_operator(fem_spd)
+    S = op.hyb.sell
+    x = torch.as_tensor(gen.standard_normal(nf)).to("cuda", torch.float32)
+    rem = (lambda: csell.sell_bucketed_spmv(S, x)) if isinstance(
+        S, kt.SELLBucketed) else (lambda: kt.sell_spmv(S, x))
+    out["sell remainder"] = dict(ms=event_ms(rem, reps=50),
+                                 device_ms=device_ms(rem),
+                                 host_us=host_us(rem))
+    out["hybrid product"] = dict(
+        ms=event_ms(lambda: op.matvec(x), reps=50),
+        device_ms=device_ms(lambda: op.matvec(x)),
+        host_us=host_us(lambda: op.matvec(x)))
+
+    def solve_ms(fn):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, st = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times[1:]), st.niter
+
+    ms, it = solve_ms(lambda: kt.cg(fem_spd, x))
+    ms_c, it_c = solve_ms(lambda: kt.cg(kt.CSROperator(fem_spd), x))
+    out["cg(csr, b)"] = dict(ms=ms, niter=it, csroperator_ms=ms_c,
+                             csroperator_niter=it_c)
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        compare_main(sys.argv[2])
+    else:
+        main()

@@ -42,10 +42,11 @@ _GK = ("lsqr", "lsmr", "lslq", "craig", "craigmr", "lnlq")
 # C entry points and their argument types; every pointer and the stream
 # is a c_void_p, so ctypes never cuts a 64-bit address to 32 bits.
 _SIGNATURES = {
-    # (pd, offsets, nd, x, y, n[, halo], stream)
-    **{f"ktt_dia_spmv_{t}": (_P, _P, _I, _P, _P, _L, _P)
+    # (pd, offsets, nd, x, y, n[, halo], lo, hi, kabs, stream)
+    **{f"ktt_dia_spmv_{t}": (_P, _P, _I, _P, _P, _L, _L, _L, _L, _P)
        for t in _SPMV_PAIRS},
-    **{f"ktt_dia_spmv_padded_{t}": (_P, _P, _I, _P, _P, _L, _L, _P)
+    **{f"ktt_dia_spmv_padded_{t}": (_P, _P, _I, _P, _P, _L, _L, _L, _L, _L,
+                                    _P)
        for t in _SPMV_PAIRS},
     **{f"ktt_cg_dia_init_{t}": (_P,) * 8 + (_L, _I, _D, _D, _P)
        for t in ("f32", "f64")},
@@ -222,9 +223,10 @@ _SIGNATURES = {
        for t in _BELL},
     **{f"ktt_bell_spmm_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L, _I, _P)
        for t in _BELL},
-    # the SELL-C-128 product (csrc/sell_spmv.cu): (data, idx, chunk_of,
-    # slice_ptr, x, y, kmax, nsl, m, n, stream)
-    **{f"ktt_sell_spmv_{t}": (_P,) * 6 + (_I, _I, _L, _L, _P)
+    # the SELL-C-128 product over a part table (csrc/sell_spmv.cu): (data,
+    # idx, chunk_of, slice_ptr, table, nparts, inv, x, y_dia, y, nsl, m, n,
+    # stream)
+    **{f"ktt_sell_spmv_{t}": (_P,) * 5 + (_I, _P, _P, _P, _P, _I, _L, _L, _P)
        for t in _SPMV_PAIRS},
 }
 
@@ -302,6 +304,20 @@ def library():
     lib.ktt_error_string.argtypes = (ctypes.c_int,)
     lib.ktt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _stream_getter():
+    import torch
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get if get is not None else \
+        (lambda i: torch.cuda.current_stream(i).cuda_stream)
+
+
+def current_stream(index):
+    """The raw handle of the current CUDA stream of device ``index``, by
+    one lookup (PyTorch's own getter where it has one)."""
+    return _stream_getter()(index)
 
 
 def check(err, name):

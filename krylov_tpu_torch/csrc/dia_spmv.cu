@@ -4,90 +4,210 @@
 //
 // pd holds output-aligned diagonals, pd[d, i] = data[d, i + k_d] and 0
 // where i + k_d lies outside [0, n) (krylov_tpu_torch/ops/cuda_dia.py
-// dia_align).  Two kernels:
+// dia_align).  One kernel, two entry points:
 //
-// * dia_spmv_kernel replaces the TPU kernel krylov_tpu/ops/pallas_dia.py:105
+// * ktt_dia_spmv_* replaces the TPU kernel krylov_tpu/ops/pallas_dia.py:105
 //   dia_spmv_pallas: y = A x on plain vectors of length n.
-// * dia_spmv_padded_kernel replaces pallas_dia.py:226 dia_spmv_padded: the
+// * ktt_dia_spmv_padded_* replaces pallas_dia.py:226 dia_spmv_padded: the
 //   same product in the padded, chainable layout of cuda_dia.py
 //   dia_pad_layout, a vector of length n + 2 h whose interior is rows
-//   [h, h + n).  The halo rows are don't-care: every read of x is masked
-//   against the interior, so a halo full of NaN never reaches y, and only
-//   the interior of y is written, so y chains into the next product as it
-//   is.
+//   [h, h + n).  It runs the kernel on the interiors: every read of x is
+//   masked against the interior, so a halo full of NaN never reaches y,
+//   and only the interior of y is written, so y chains into the next
+//   product as it is.
 //
 // Bound on an H100 SXM: memory bandwidth.  One pass moves pd once, x
 // once and y once: (7*4 + 4 + 4) B per row for the 7-point stencil in
 // f32, 75.5 MB at 128^3, so at least 22.5 us at 3.35 TB/s.  Two flops per
 // stored entry is far below the card's compute rate.
 //
-// Design: one thread per row, grid-stride, so neighbouring threads read
-// neighbouring addresses of pd, x and y and every load coalesces; the
-// x[i + k] reads of the near diagonals hit in L1/L2.  The TPU kernel's
-// zero-copy path reads clamped out-of-range rows and relies on pd being
-// 0 there; here the read of x[i + k] is masked instead, so nothing is
-// ever loaded past either end of x.  Row and diagonal indices are 64-bit.
-// The offsets come as a device int64 array, so any number of diagonals
-// works.  The accumulator follows x's type as pallas_dia.py:165-166 does:
-// f32 for f32, bf16 and f16 x (the result is rounded to x's type), f64
-// for f64, and complex for complex x, whose diagonals are real or complex
-// of the same precision.
+// Design: a thread owns R = 16 / sizeof(pd element) consecutive rows, so
+// each diagonal's R entries of pd are one 16-byte load and the R outputs
+// one or two 16-byte stores, where pd, y and n are aligned for it (a
+// scalar path otherwise).  The offsets are staged in shared memory once
+// per block.  Rows whose every neighbour i + k_d lies in [0, n) -- the
+// interior [lo, hi), computed on the host from the offsets -- take a path
+// with no bounds branch, several diagonals' loads in flight, and x read
+// 16 bytes at a time where i + k_d is a multiple of R and x is aligned;
+// the rows outside it mask each read of x, so nothing is loaded past
+// either end of x.  Index math is 32-bit where nd * n and n + max|k_d|
+// stay below 2^31, 64-bit otherwise.  Each row sums its diagonals in
+// order, skipping those that leave [0, n), in the accumulation type of
+// pallas_dia.py:165-166: f32 for f32, bf16 and f16 x (the result is
+// rounded to x's type), f64 for f64, and complex for complex x, whose
+// diagonals are real or complex of the same precision.
+#include <cstdint>
+#include <cstring>
+
 #include "common.cuh"
 
 namespace {
 
+using namespace ktt;
+
 constexpr int kThreads = 256;
+constexpr int kTile = 256;   // diagonals staged in shared memory at a time
 
-template <typename XT, typename PT, typename AT>
+__device__ __forceinline__ float ld_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double ld_ro(const double* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ld_ro(const __nv_bfloat16* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ __half ld_ro(const __half* p) { return __ldg(p); }
+__device__ __forceinline__ complex<float> ld_ro(const complex<float>* p) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  return complex<float>(v.x, v.y);
+}
+__device__ __forceinline__ complex<double> ld_ro(const complex<double>* p) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  return complex<double>(v.x, v.y);
+}
+
+// R elements from a 16-byte aligned address, 16 bytes at a time.
+template <typename T, int R>
+__device__ __forceinline__ void ld_vec(const T* p, T (&v)[R]) {
+  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
+  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
+  uint4 w[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    w[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
+  }
+  memcpy(&v[0], &w[0], sizeof(w));
+}
+
+template <typename T, int R>
+__device__ __forceinline__ void st_vec(T* p, const T (&v)[R]) {
+  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
+  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
+  uint4 w[W];
+  memcpy(&w[0], &v[0], sizeof(w));
+#pragma unroll
+  for (int q = 0; q < W; ++q) reinterpret_cast<uint4*>(p)[q] = w[q];
+}
+
+template <typename P>
+__host__ __device__ constexpr int rows_per_thread() {
+  return static_cast<int>(16 / sizeof(P));
+}
+
+template <typename XT, typename PT, typename AT, typename IT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const PT* __restrict__ pd, const long long* __restrict__ offsets,
-                int nd, const XT* __restrict__ x, XT* __restrict__ y,
-                long long n) {
-  for (long long i = ktt::first_row(); i < n; i += ktt::row_stride()) {
-    y[i] = ktt::narrow<XT>(ktt::stencil_row_acc<AT>(pd, offsets, nd, x, i, n));
+dia_spmv_kernel(const PT* __restrict__ pd,
+                const long long* __restrict__ offsets, int nd,
+                const XT* __restrict__ x, XT* __restrict__ y, IT n, IT lo,
+                IT hi, int x_aligned) {
+  constexpr int R = rows_per_thread<PT>();
+  __shared__ IT offs[kTile];
+  const IT i0 = (static_cast<IT>(blockIdx.x) * kThreads + threadIdx.x) * R;
+  const bool live = i0 < n;
+  const bool inner = i0 >= lo && i0 + R <= hi;
+  AT acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = AT(0);
+  for (int d0 = 0; d0 < nd; d0 += kTile) {
+    const int dn = min(kTile, nd - d0);
+    if (d0 > 0) __syncthreads();           // the last tile's reads are done
+    for (int t = threadIdx.x; t < dn; t += kThreads) {
+      offs[t] = static_cast<IT>(offsets[d0 + t]);
+    }
+    __syncthreads();
+    if (!live) continue;
+    const PT* __restrict__ pt = pd + static_cast<IT>(d0) * n + i0;
+    if (inner) {
+#pragma unroll 4
+      for (int dd = 0; dd < dn; ++dd) {
+        const IT k = offs[dd];
+        const PT* __restrict__ prow = pt + static_cast<IT>(dd) * n;
+        PT pv[R];
+        XT xv[R];
+        if (VEC) {
+          ld_vec(prow, pv);
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) pv[r] = ld_ro(prow + r);
+        }
+        if (VEC && x_aligned && k % R == 0) {
+          ld_vec(x + i0 + k, xv);
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) xv[r] = ld_ro(x + i0 + k + r);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = madd(acc[r], pv[r], xv[r]);
+      }
+    } else {
+      for (int dd = 0; dd < dn; ++dd) {
+        const IT k = offs[dd];
+        const PT* __restrict__ prow = pt + static_cast<IT>(dd) * n;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const IT i = i0 + r;
+          const IT j = i + k;
+          if (i < n && j >= 0 && j < n) {
+            acc[r] = madd(acc[r], ld_ro(prow + r), ld_ro(x + j));
+          }
+        }
+      }
+    }
+  }
+  if (!live) return;
+  XT out[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = narrow<XT>(acc[r]);
+  if (VEC && i0 + R <= n) {
+    st_vec(y + i0, out);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (i0 + r < n) y[i0 + r] = out[r];
+    }
   }
 }
 
-// The interior of yw from the interior of xw; the halo of xw is never
-// read and the halo of yw is never written.
-template <typename XT, typename PT, typename AT>
-__global__ void __launch_bounds__(kThreads)
-dia_spmv_padded_kernel(const PT* __restrict__ pd,
-                       const long long* __restrict__ offsets, int nd,
-                       const XT* __restrict__ xw, XT* __restrict__ yw,
-                       long long n, long long halo) {
-  const XT* __restrict__ x = xw + halo;
-  XT* __restrict__ y = yw + halo;
-  for (long long i = ktt::first_row(); i < n; i += ktt::row_stride()) {
-    y[i] = ktt::narrow<XT>(ktt::stencil_row_acc<AT>(pd, offsets, nd, x, i, n));
-  }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
-unsigned blocks_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks > 0x7fffffffLL ? 0x7fffffffLL : blocks);
+template <typename XT, typename PT, typename AT, typename IT, bool VEC>
+void run(unsigned blocks, cudaStream_t stream, const void* pd,
+         const void* offsets, int nd, const void* x, void* y, long long n,
+         long long lo, long long hi, int x_aligned) {
+  dia_spmv_kernel<XT, PT, AT, IT, VEC><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const PT*>(pd), static_cast<const long long*>(offsets), nd,
+      static_cast<const XT*>(x), static_cast<XT*>(y), static_cast<IT>(n),
+      static_cast<IT>(lo), static_cast<IT>(hi), x_aligned);
 }
 
+// y = A x on vectors of length n; [lo, hi) is the interior and kabs the
+// largest |k_d| (cuda_dia.py _interior).
 template <typename XT, typename PT, typename AT>
-int launch(const void* pd, const void* offsets, int nd, const void* x, void* y,
-           long long n, void* stream) {
+int launch(const void* pd, const void* offsets, int nd, const void* x,
+           void* y, long long n, long long lo, long long hi, long long kabs,
+           void* stream) {
   if (n > 0) {
-    dia_spmv_kernel<XT, PT, AT><<<blocks_for(n), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const PT*>(pd), static_cast<const long long*>(offsets), nd,
-        static_cast<const XT*>(x), static_cast<XT*>(y), n);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename XT, typename PT, typename AT>
-int launch_padded(const void* pd, const void* offsets, int nd, const void* xw,
-                  void* yw, long long n, long long halo, void* stream) {
-  if (n > 0) {
-    dia_spmv_padded_kernel<XT, PT, AT><<<blocks_for(n), kThreads, 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const PT*>(pd), static_cast<const long long*>(offsets), nd,
-        static_cast<const XT*>(xw), static_cast<XT*>(yw), n, halo);
+    constexpr int R = rows_per_thread<PT>();
+    constexpr long long kSpan = static_cast<long long>(R) * kThreads;
+    const long long blocks = (n + kSpan - 1) / kSpan;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = n % R == 0 && aligned16(pd) && aligned16(y);
+    const int x_aligned = aligned16(x) ? 1 : 0;
+    const long long lim = (1LL << 31) - 2 * kSpan;
+    const bool narrow_idx = static_cast<long long>(nd) * n < lim
+        && n + kabs < lim;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const unsigned b = static_cast<unsigned>(blocks);
+    if (narrow_idx) {
+      if (vec) run<XT, PT, AT, int, true>(b, st, pd, offsets, nd, x, y, n, lo,
+                                          hi, x_aligned);
+      else run<XT, PT, AT, int, false>(b, st, pd, offsets, nd, x, y, n, lo,
+                                       hi, x_aligned);
+    } else {
+      if (vec) run<XT, PT, AT, long long, true>(b, st, pd, offsets, nd, x, y,
+                                                n, lo, hi, x_aligned);
+      else run<XT, PT, AT, long long, false>(b, st, pd, offsets, nd, x, y, n,
+                                             lo, hi, x_aligned);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -95,17 +215,23 @@ int launch_padded(const void* pd, const void* offsets, int nd, const void* xw,
 }  // namespace
 
 // The plain and the padded entry point of one (x type, diagonal type,
-// accumulator type).
+// accumulator type).  The padded one runs the product on the interiors,
+// rows [halo, halo + n) of xw and yw.
 #define KTT_DIA_SPMV(NAME, PADDED, XT, PT, AT)                                \
   extern "C" int NAME(const void* pd, const void* offsets, int nd,           \
-                      const void* x, void* y, long long n, void* stream) {   \
-    return launch<XT, PT, AT>(pd, offsets, nd, x, y, n, stream);             \
+                      const void* x, void* y, long long n, long long lo,     \
+                      long long hi, long long kabs, void* stream) {          \
+    return launch<XT, PT, AT>(pd, offsets, nd, x, y, n, lo, hi, kabs,        \
+                              stream);                                       \
   }                                                                          \
   extern "C" int PADDED(const void* pd, const void* offsets, int nd,         \
                         const void* xw, void* yw, long long n,               \
-                        long long halo, void* stream) {                      \
-    return launch_padded<XT, PT, AT>(pd, offsets, nd, xw, yw, n, halo,       \
-                                     stream);                                \
+                        long long halo, long long lo, long long hi,          \
+                        long long kabs, void* stream) {                      \
+    return launch<XT, PT, AT>(pd, offsets, nd,                               \
+                              static_cast<const XT*>(xw) + halo,             \
+                              static_cast<XT*>(yw) + halo, n, lo, hi, kabs,  \
+                              stream);                                       \
   }
 
 using c64 = ktt::complex<float>;

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ._runtime import as_device_tensor, full_fp32
-from .ops.cuda_dia import (dia_align, dia_align_adjoint, dia_spmv_aligned,
+from .ops.cuda_dia import (DIASpMV, dia_align, dia_align_adjoint,
                            offsets_tensor)
 from .ops.cuda_spmv import bell_spmm, bell_spmv
 from .ops.dia import DIAMatrix, dia_spmm, dia_spmv, resolve_device
@@ -278,13 +278,15 @@ class DIAOperator(AbstractLinearOperator):
         self.use_kernel = bool(use_kernel)
         self._pd = None
         self._pd_adj = self._offsets_adj = None
+        self._spmv = self._spmv_adj = None
         if self.use_kernel:
             self._pd = dia_align(dia.data, dia.offsets, dia.shape[0])
             self._offsets = offsets_tensor(dia.offsets, dia.data.device)
+            self._spmv = DIASpMV(self._pd, self._offsets, dia.offsets)
 
     def matvec(self, x):
         if self.use_kernel:
-            return dia_spmv_aligned(self._pd, self._offsets, x)
+            return self._spmv(x)
         return dia_spmv(self.dia.data, self.dia.offsets, x)
 
     def matmat(self, X):
@@ -324,7 +326,11 @@ class DIAOperator(AbstractLinearOperator):
 
     def rmatvec(self, x):
         if self.use_kernel:
-            return dia_spmv_aligned(*self.aligned_adjoint_kernel_args(), x)
+            if self._spmv_adj is None:
+                pd_adj, ot_adj = self.aligned_adjoint_kernel_args()
+                self._spmv_adj = DIASpMV(pd_adj, ot_adj,
+                                         self.aligned_adjoint()[1])
+            return self._spmv_adj(x)
         data, offs = self.adjoint_dia()
         return dia_spmv(data, offs, x)
 

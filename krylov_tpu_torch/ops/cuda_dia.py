@@ -5,8 +5,15 @@ versions (counterpart of ``krylov_tpu/ops/pallas_dia.py``).
 y[i] = Σ_d pd[d, i]·x[i+k_d].  ``dia_spmv_aligned`` launches the kernel
 of ``csrc/dia_spmv.cu`` for a CUDA tensor and takes the plain version,
 ``dia_spmv_aligned_ref``, for a CPU tensor.  ``dia_spmv_padded`` is the
-same product in a padded, chainable layout (``dia_pad_layout``).
+same product in a padded, chainable layout (``dia_pad_layout``).  Both
+validate their arguments on every call; ``DIASpMV`` validates a matrix
+once (``DIAOperator`` and ``HybridMatrix`` hold one), so that its call
+checks x and makes one stream lookup and one foreign call.  The entry
+points are looked up once per type pair and the offsets' values read
+from the card once per offsets tensor.
 """
+
+import functools
 
 import torch
 
@@ -100,30 +107,147 @@ def _entry(kind, x, pd):
     return f"ktt_{kind}_{suffix}"
 
 
-def _launch(wrapper, entry, pd, offsets, x, y, *extra):
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(pd.data_ptr(), offsets.data_ptr(),
-                                  pd.shape[0], x.data_ptr(), y.data_ptr(),
-                                  *extra, stream)
+def _interior(offsets, n):
+    """Rows [lo, hi) whose every neighbour i + k_d lies in [0, n): the rows
+    the kernel sums with no bounds branch.  Empty (lo == hi) where no row
+    has all its neighbours, [0, n) where there is no diagonal."""
+    if not offsets:
+        return 0, n
+    lo = min(n, max(0, -min(offsets)))
+    return lo, max(lo, min(n, n - max(offsets)))
+
+
+def _host_offsets(offsets):
+    """The values of an offsets tensor as a tuple of ints, read from the
+    card once and kept on the tensor until an in-place change."""
+    return _kept(offsets)[1]
+
+
+def _kept(offsets):
+    version = None if offsets.is_inference() else offsets._version
+    kept = getattr(offsets, "_ktt_host", None)
+    if kept is None or kept[0] != version or version is None:
+        kept = (version, tuple(int(k) for k in offsets.tolist()), {})
+        offsets._ktt_host = kept
+    return kept
+
+
+def _kernel_span(host, n):
+    """(lo, hi, max |k|): the interior and the widest offset, what the
+    kernel takes beside the offsets."""
+    return (*_interior(host, n), max((abs(k) for k in host), default=0))
+
+
+def _tensor_span(offsets, n):
+    """_kernel_span of an offsets tensor's values, kept on the tensor."""
+    _, host, spans = _kept(offsets)
+    if n not in spans:
+        spans[n] = _kernel_span(host, n)
+    return spans[n]
+
+
+_BOUND = {}
+
+
+@functools.cache
+def _many_cards():
+    return torch.cuda.device_count() > 1
+
+
+def _bound(kind, x, pd):
+    """(name, C function) of ``kind``'s entry point for x and pd on the
+    card, looked up once per type pair; raises naming the pair where
+    there is none."""
+    key = (kind, x.dtype, pd.dtype)
+    hit = _BOUND.get(key)
+    if hit is None:
+        name = _entry(kind, x, pd)
+        hit = _BOUND[key] = (name, getattr(_build.library(), name))
+    return hit
+
+
+def _run(bound, wrapper, device, args):
+    """One foreign call of a bound entry point on ``device``'s current
+    stream, counted on ``wrapper``; raises on a CUDA error."""
+    name, fn = bound
+    index = device.index
+    if _many_cards() and torch.cuda.current_device() != index:
+        with torch.cuda.device(index):
+            err = fn(*args, _build.current_stream(index))
+    else:
+        err = fn(*args, _build.current_stream(index))
     wrapper.launches += 1
-    _build.check(err, entry)
-    return y
+    if err:
+        _build.check(err, name)
+
+
+class DIASpMV:
+    """y = A x from aligned diagonals ``pd`` (nd, n) and ``offsets``, an
+    int64 tensor on pd's device whose values are ``host_offsets`` (read
+    from it when not given), validated once.
+
+    A call checks x's type, device, length and contiguity against what
+    the last one bound, then makes one stream lookup and one foreign call
+    to the kernel of ``csrc/dia_spmv.cu`` (counted on
+    ``dia_spmv_aligned.launches``); a CPU x takes the plain version.  An
+    in-place change of pd is seen by the next call; a changed offsets
+    tensor needs a new ``DIASpMV``.
+    """
+
+    def __init__(self, pd, offsets, host_offsets=None):
+        if pd.dim() != 2 or not pd.is_contiguous():
+            raise ValueError(f"pd {tuple(pd.shape)} must be a contiguous "
+                             "(nd, n) tensor")
+        if (offsets.dtype != torch.int64 or offsets.shape != (pd.shape[0],)
+                or not offsets.is_contiguous()
+                or offsets.device != pd.device):
+            raise ValueError("offsets must be a contiguous int64 tensor of "
+                             "length nd on pd's device")
+        self.pd, self.offsets = pd, offsets
+        host = _host_offsets(offsets) if host_offsets is None \
+            else tuple(int(k) for k in host_offsets)
+        if len(host) != pd.shape[0]:
+            raise ValueError("host_offsets do not match pd")
+        self.n = pd.shape[1]
+        self.device = pd.device
+        self._x_shape = (self.n,)
+        self._tail = (self.n, *_kernel_span(host, self.n))
+        self._plans = {}
+
+    def __call__(self, x):
+        plan = self._plans.get(x.dtype)
+        if (plan is None or x.device != self.device
+                or x.shape != self._x_shape or not x.is_contiguous()):
+            _check(self.pd, self.offsets, x)
+            if x.device.type == "cpu":
+                return dia_spmv_aligned_ref(self.pd, self.offsets, x)
+            plan = self._plans[x.dtype] = (
+                _bound("dia_spmv", x, self.pd),
+                (self.pd.data_ptr(), self.offsets.data_ptr(),
+                 self.pd.shape[0]))
+        y = torch.empty_like(x)
+        _run(plan[0], dia_spmv_aligned, self.device,
+             (*plan[1], x.data_ptr(), y.data_ptr(), *self._tail))
+        return y
 
 
 def dia_spmv_aligned(pd, offsets, x):
     """y = A x from aligned diagonals ``pd`` (see dia_align).
 
     ``offsets`` is an int64 tensor on x's device.  A CUDA tensor goes
-    through the kernel; a CPU tensor through the plain version.
+    through the kernel; a CPU tensor through the plain version.  Checks
+    its arguments on every call; ``DIASpMV`` checks the matrix once.
     """
     _check(pd, offsets, x)
     if x.device.type == "cpu":
         return dia_spmv_aligned_ref(pd, offsets, x)
-    entry = _entry("dia_spmv", x, pd)
-    return _launch(dia_spmv_aligned, entry, pd, offsets, x,
-                   torch.empty_like(x), x.shape[0])
+    bound = _bound("dia_spmv", x, pd)
+    y = torch.empty_like(x)
+    n = x.shape[0]
+    _run(bound, dia_spmv_aligned, x.device,
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], x.data_ptr(),
+          y.data_ptr(), n, *_tensor_span(offsets, n)))
+    return y
 
 
 dia_spmv_aligned.launches = 0
@@ -188,9 +312,12 @@ def dia_spmv_padded(pd, offsets, xw, n):
     h = _halo(pd, offsets, xw, n)
     if xw.device.type == "cpu":
         return dia_spmv_padded_ref(pd, offsets, xw, n)
-    entry = _entry("dia_spmv_padded", xw, pd)
-    return _launch(dia_spmv_padded, entry, pd, offsets, xw,
-                   torch.empty_like(xw), n, h)
+    bound = _bound("dia_spmv_padded", xw, pd)
+    yw = torch.empty_like(xw)
+    _run(bound, dia_spmv_padded, xw.device,
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], xw.data_ptr(),
+          yw.data_ptr(), n, h, *_tensor_span(offsets, n)))
+    return yw
 
 
 dia_spmv_padded.launches = 0

@@ -12,14 +12,16 @@ A one-time host-side analysis decomposes the pattern:
 A banded matrix analyses to pure DIA, a scattered one to pure SELL.
 ``y = dia part + sell part``, exact.  The analysis makes the JAX
 package's decisions, so one CSR gives the same parts in both packages.
+On the card a product with both parts is two launches, the DIA SpMV and
+one SELL SpMV over every part that adds the DIA half as it writes y.
 """
 
 import numpy as np
 import torch
 
-from .cuda_dia import dia_align, dia_spmv_aligned, offsets_tensor
+from .cuda_dia import DIASpMV, dia_align, offsets_tensor
 from .cuda_sell import (_MAX_PAIR_WORDS, SELLBucketed, sell_bucketed_from_csr,
-                        sell_bucketed_spmv, sell_spmv)
+                        sell_hybrid_spmv, sell_spmv)
 from .cuda_spmv import _host, _placed
 from .dia import DIAMatrix, dia_spmv
 from .sparse import CSRMatrix, csr_from_coo, spmv
@@ -88,7 +90,8 @@ class HybridMatrix:
     ``sell`` is a SELLMatrix, a SELLBucketed, or the CSRMatrix remainder
     when its packing would be degenerate.  ``dia_pd`` holds the
     output-aligned diagonals that the DIA SpMV kernel takes, made at
-    analysis time when the diagonals lie on the card (None elsewhere).
+    analysis time when the diagonals lie on the card (None elsewhere),
+    and validated once for the kernel (``DIASpMV``).
     """
 
     def __init__(self, dia, sell, shape, dia_pd=None):
@@ -96,8 +99,10 @@ class HybridMatrix:
         self.sell = sell
         self.dia_pd = dia_pd
         self.shape = tuple(shape)
-        self._offsets = None if dia_pd is None else offsets_tensor(
-            dia.offsets, dia_pd.device)
+        self._offsets = self._dia_spmv = None
+        if dia_pd is not None:
+            self._offsets = offsets_tensor(dia.offsets, dia_pd.device)
+            self._dia_spmv = DIASpMV(dia_pd, self._offsets, dia.offsets)
 
     @property
     def dtype(self):
@@ -169,19 +174,19 @@ def hybrid_from_csr(csr, diag_fill=0.5, max_diags=256):
 def hybrid_spmv(A, x):
     """y = A x for a HybridMatrix: the DIA part through the DIA SpMV kernel
     (on the card) or the plain shift-and-add product (on the CPU), plus
-    the remainder through the SELL kernels or the CSR product."""
+    the remainder through one SELL launch that adds the DIA half (its
+    table walk on the CPU), or the CSR product."""
     y = None
     if A.dia is not None:
-        if A.dia_pd is not None:
-            y = dia_spmv_aligned(A.dia_pd, A._offsets, x)
+        if A._dia_spmv is not None:
+            y = A._dia_spmv(x)
         else:
             y = dia_spmv(A.dia.data, A.dia.offsets, x)
-    if A.sell is not None:
-        if isinstance(A.sell, CSRMatrix):
-            ys = spmv(A.sell, x)
-        elif isinstance(A.sell, SELLBucketed):
-            ys = sell_bucketed_spmv(A.sell, x)
-        else:
-            ys = sell_spmv(A.sell, x)
-        y = ys if y is None else y + ys
-    return y
+    if A.sell is None:
+        return y
+    if isinstance(A.sell, CSRMatrix):
+        ys = spmv(A.sell, x)
+        return ys if y is None else y + ys
+    if y is None:
+        return sell_spmv(A.sell, x)
+    return sell_hybrid_spmv(A.sell, x, y)

@@ -253,3 +253,58 @@ def test_padded_ref_chains_like_jax(name, offs, dtype):
         assert _rel(got, jdia_unpad_layout(want, offs, n)) <= TOL[dtype]
     with pytest.raises(ValueError):
         dia_spmv_padded(pd, ot, xw[1:], n)
+
+
+@pytest.mark.parametrize("offsets,n,want", [
+    ((-2, -1), 10, (2, 10)),            # negative offsets only
+    ((0, 1, 3), 10, (0, 7)),            # positive offsets only
+    ((-3, 0, 2), 10, (3, 8)),
+    ((-12, -3, -1, 0, 1, 3, 12), 60, (12, 48)),
+    ((0, 10), 10, (0, 0)),              # |k| >= n: no interior row
+    ((-10, 0), 10, (10, 10)),
+    ((-25, 40), 10, (10, 10)),
+    ((-1, 0, 1), 3, (1, 2)),            # n below the vector width
+    ((-1, 1), 1, (1, 1)),
+    ((0,), 2, (0, 2)),
+    ((), 5, (0, 5)),                    # no diagonal
+])
+def test_interior_row_range(offsets, n, want):
+    """The host's interior [lo, hi), the rows whose every neighbour
+    i + k_d lies in [0, n), which the kernel sums with no bounds branch:
+    every row in it has all its neighbours, and no row outside it
+    does."""
+    from krylov_tpu_torch.ops.cuda_dia import _interior
+    lo, hi = _interior(offsets, n)
+    assert (lo, hi) == want and 0 <= lo <= hi <= n
+    full = [all(0 <= i + k < n for k in offsets) for i in range(n)]
+    assert full == [lo <= i < hi for i in range(n)]
+
+
+def test_dia_plan_on_cpu_takes_plain_version_and_checks_once():
+    """DIASpMV (what DIAOperator and HybridMatrix hold) checks the
+    diagonals when it is made and x on each call; on the CPU its product
+    is the plain version's, bit for bit, with no launch counted, and its
+    offsets are read from the tensor where not given."""
+    from krylov_tpu_torch.ops.cuda_dia import DIASpMV, _host_offsets
+    data, offs, x = _case("random_offsets", CASES[1][1], np.float64, seed=6)
+    n = x.shape[0]
+    pd = dia_align(torch.as_tensor(data), offs, n)
+    ot = offsets_tensor(offs, "cpu")
+    assert _host_offsets(ot) == tuple(int(k) for k in offs)
+    plan = DIASpMV(pd, ot)
+    xt = torch.as_tensor(x)
+    before = dia_spmv_aligned.launches
+    assert torch.equal(plan(xt), dia_spmv_aligned_ref(pd, ot, xt))
+    assert dia_spmv_aligned.launches == before
+    with pytest.raises(ValueError):
+        plan(torch.zeros(n + 1, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        DIASpMV(pd.t().contiguous().t(), ot)
+    with pytest.raises(ValueError):
+        DIASpMV(pd, ot.to(torch.int32))
+    with pytest.raises(ValueError):
+        DIASpMV(pd, ot, offs[:-1])
+    op = ktt.DIAOperator(dia_from_numpy(data, offs, (n, n), device="cpu"),
+                         use_kernel=True)
+    assert torch.equal(op.matvec(xt), dia_spmv_aligned_ref(op._pd,
+                                                           op._offsets, xt))

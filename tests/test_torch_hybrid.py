@@ -381,3 +381,48 @@ def test_cached_analysis_follows_in_place_changes():
     opa = op3.with_adjoint()
     assert T._hybrid_op is opa and opa.hyb is op3.hyb
     assert _cached_hybrid(T) is opa
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.complex64])
+@pytest.mark.parametrize("name", ["mixed", "band_noise", "bucketed"])
+def test_hybrid_product_is_the_per_part_composition(name, dtype):
+    """hybrid_spmv on the CPU (the DIA half, then the table walk that adds
+    it, as the card's second launch does) is bit for bit the DIA half
+    plus the per-part composition of the SELL remainder; within 1e-12
+    (f64) and 1e-5 (f32, bf16 data with f32 x) of the JAX package's
+    hybrid_spmv, and within 1e-5 of the f64 product for c64, which the
+    JAX SELL kernel does not take."""
+    from krylov_tpu_torch.ops.dia import dia_spmv
+    A = FIXTURES[name]()
+    if dtype.is_complex:
+        A = (A * (1.0 + 0.5j)).tocsr()
+    T = _tcsr(_jcsr(A))
+    if dtype == torch.bfloat16:
+        T = _bf16(T)
+    elif dtype == torch.complex64 or dtype == torch.float32:
+        T = CSRMatrix(T.data.to(dtype), T.indices, T.indptr, T.rows, T.shape)
+    H = th.hybrid_from_csr(T)
+    assert (H.dia is not None) == (name != "bucketed")
+    assert isinstance(H.sell, (ts.SELLMatrix, ts.SELLBucketed))
+    xdt = torch.float32 if dtype == torch.bfloat16 else dtype
+    xw = np.random.default_rng(12).standard_normal(A.shape[1])
+    if dtype.is_complex:
+        xw = xw * (0.5 - 1.0j)
+    x = torch.as_tensor(xw).to(xdt)
+    y = th.hybrid_spmv(H, x)
+    sell = ts.sell_bucketed_spmv_ref(H.sell, x) if isinstance(
+        H.sell, ts.SELLBucketed) else ts.sell_spmv_ref(H.sell, x)
+    want = sell if H.dia is None else dia_spmv(H.dia.data, H.dia.offsets,
+                                               x) + sell
+    assert y.dtype == xdt and torch.equal(y, want)
+    if dtype.is_complex:
+        ref = A @ x.numpy().astype(np.complex128)
+        assert np.max(np.abs(y.numpy() - ref)) <= 1e-5 * np.max(np.abs(ref))
+        return
+    jdt = {torch.float32: np.float32, torch.float64: np.float64,
+           torch.bfloat16: jnp.bfloat16}[dtype]
+    Hj = jh.hybrid_from_csr(_jcsr(A, dtype=jdt))
+    yj = np.asarray(jh.hybrid_spmv(Hj, jnp.asarray(x.numpy())), np.float64)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(y.double().numpy(), yj) <= tol

@@ -1953,8 +1953,9 @@ def _sell_csr(m, n, dtype, seed=29):
 def test_sell_kernel_matches_plain_on_card(pair):
     """sell_spmv against its plain version on the same SELL arrays, for
     every (x, data) pair of the DIA SpMV, covered and uncovered, single
-    and bucketed: max |Δ| ≤ tol · max|y|, tol a few ulps of the
-    accumulation type over a row (f32 for f32, bf16 and f16, whose
+    and bucketed (one launch each, the parts' data narrowed after the
+    build and so homed again): max |Δ| ≤ tol · max|y|, tol a few ulps of
+    the accumulation type over a row (f32 for f32, bf16 and f16, whose
     outputs round to one ulp of the narrow type); the rows of a slice
     with no pair read exactly 0."""
     _card()
@@ -1979,8 +1980,8 @@ def test_sell_kernel_matches_plain_on_card(pair):
             part.data = part.data.to(ddt)
         n0 = kt.sell_spmv.launches
         y = S @ x
-        nparts = len(S.parts) if isinstance(S, kt.SELLBucketed) else 1
-        assert kt.sell_spmv.launches == n0 + nparts
+        # one launch per product, over all the parts
+        assert kt.sell_spmv.launches == n0 + 1
         ref = (cs.sell_bucketed_spmv_ref(S, x)
                if isinstance(S, kt.SELLBucketed) else cs.sell_spmv_ref(S, x))
         assert y.dtype == xdt and y.shape == (3000,)
@@ -2134,3 +2135,176 @@ def test_bf16_csr_on_card_routes_through_hybrid_operator():
     xc, sc = kt.cg(kt.CSROperator(csr), x)
     assert st.solved and st.status == sc.status
     assert abs(st.niter - sc.niter) <= 2
+
+
+_PAIR_TYPES = {"f32": torch.float32, "f64": torch.float64,
+               "bf16": torch.bfloat16, "f16": torch.float16,
+               "c64": torch.complex64, "c128": torch.complex128}
+
+
+def _narrowed_bucketed(S, ddt):
+    """SELLBucketed ``S`` rebuilt from separate part tensors with data in
+    ``ddt`` (homed anew into one set of buffers)."""
+    from krylov_tpu_torch.ops import cuda_sell as cs
+    return kt.SELLBucketed(
+        [cs.SELLMatrix(p.data.to(ddt), p.idx.clone(), p.slice_of,
+                       p.chunk_of.clone(), p.shape, p.nnz, p.covered,
+                       p.slice_ptr.clone()) for p in S.parts],
+        S.shape, S.nnz, S.row_pos)
+
+
+def _spread_csr(rng, n, dtype):
+    """A band with n/256 heavy constraint rows spread over every slice:
+    the σ-sorted plan."""
+    r = np.repeat(np.arange(n, dtype=np.int64), 7)
+    c = np.clip(r + rng.integers(-300, 301, size=r.size), 0, n - 1)
+    heavy = np.sort(rng.choice(n, n // 256, replace=False))
+    r = np.r_[r, np.repeat(heavy, 1280)]
+    c = np.r_[c, np.tile(np.arange(1280), len(heavy))]
+    return kt.csr_from_coo(r, c, rng.standard_normal(r.size), (n, n),
+                           dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", _build._SPMV_PAIRS)
+def test_sell_one_launch_is_the_per_part_composition_on_card(pair):
+    """For every (x, data) pair: a bucketed plan with uncovered parts, a
+    slice with no pair and empty rows, and a σ-sorted plan, each one
+    sell_spmv launch, bit for bit the per-part composition (the kernel
+    on each part alone, PyTorch's adds and gather); a hybrid product with
+    a DIA part is one dia_spmv and one sell_spmv launch, bit for bit the
+    DIA half plus that composition, for A and Aᴴ."""
+    _card()
+    from krylov_tpu_torch.ops import cuda_sell as cs
+    from krylov_tpu_torch.ops.hybrid import HybridMatrix, hybrid_spmv
+    xdt, ddt = (_PAIR_TYPES[t] for t in pair.split("_"))
+    wide = torch.complex128 if ddt.is_complex else torch.float64
+    rng = np.random.default_rng(34)
+    csr, _ = _sell_csr(3000, 2600, wide)
+    spread = _spread_csr(rng, 1 << 14, np.float64)
+    if wide.is_complex:
+        spread = kt.CSRMatrix(spread.data * (1.0 - 0.25j), spread.indices,
+                              spread.indptr, spread.rows, spread.shape)
+    for A in (csr, spread):
+        S = _narrowed_bucketed(kt.sell_bucketed_from_csr(A), ddt)
+        assert isinstance(S, kt.SELLBucketed) and len(S.parts) >= 2
+        x = torch.as_tensor(rng.standard_normal(A.shape[1])).to("cuda", xdt)
+        if xdt.is_complex:
+            x = x * (0.5 - 1.0j)
+        n0 = kt.sell_spmv.launches
+        y = cs.sell_bucketed_spmv(S, x)
+        assert kt.sell_spmv.launches == n0 + 1
+        assert y.dtype == xdt and torch.equal(
+            y, cs.sell_bucketed_spmv_parts(S, x))
+    assert S.row_pos is not None
+    band = _spd_band_csr(rng, 1 << 13, np.float64)
+    if wide.is_complex:
+        band = kt.CSRMatrix(band.data * (1.0 + 0.5j), band.indices,
+                            band.indptr, band.rows, band.shape)
+    x = torch.as_tensor(rng.standard_normal(1 << 13)).to("cuda", xdt)
+    if xdt.is_complex:
+        x = x * (0.5 - 1.0j)
+    for M in (band, band.transpose_conj()):
+        H = kt.hybrid_from_csr(M)
+        assert H.dia_pd is not None and isinstance(
+            H.sell, (kt.SELLMatrix, kt.SELLBucketed))
+        Hd = HybridMatrix(H.dia, None, H.shape,
+                          H.dia_pd.to(ddt))
+        Hs = H.sell if isinstance(H.sell, kt.SELLMatrix) else \
+            _narrowed_bucketed(H.sell, ddt)
+        if isinstance(Hs, kt.SELLMatrix):
+            Hs.data = Hs.data.to(ddt)
+        Hy = HybridMatrix(H.dia, Hs, H.shape, Hd.dia_pd)
+        n0 = kt.kernel_launches()
+        y = hybrid_spmv(Hy, x)
+        n1 = kt.kernel_launches()
+        assert (n1["dia_spmv"] - n0["dia_spmv"],
+                n1["sell_spmv"] - n0["sell_spmv"]) == (1, 1)
+        parts = cs.sell_bucketed_spmv_parts(Hs, x) \
+            if isinstance(Hs, kt.SELLBucketed) else kt.sell_spmv(Hs, x)
+        assert torch.equal(y, hybrid_spmv(Hd, x) + parts)
+        n0 = kt.sell_spmv.launches
+        assert torch.equal(hybrid_spmv(HybridMatrix(None, Hs, H.shape), x),
+                           parts)
+        assert kt.sell_spmv.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_one_launch_products_match_plain_on_card():
+    """The one-launch SELL product and the two-launch hybrid product in
+    f32 and f64 against their plain versions (the table walk, and the
+    plain CSR product): within 1e-5 and 1e-12 of max|y|; a product whose
+    x is not contiguous, and a part tensor replaced after the build,
+    give the plain results too."""
+    _card()
+    from krylov_tpu_torch.ops import cuda_sell as cs
+    from krylov_tpu_torch.ops.hybrid import hybrid_spmv
+    rng = np.random.default_rng(35)
+    for dt, tol in ((np.float32, 1e-5), (np.float64, 1e-12)):
+        band = _spd_band_csr(rng, 1 << 13, dt)
+        op = kt.as_operator(band).with_adjoint()
+        tdt = torch.float32 if dt == np.float32 else torch.float64
+        x = torch.as_tensor(rng.standard_normal(1 << 13)).to("cuda", tdt)
+        for hyb in (op.hyb, op.hyb_h):
+            assert _rel(hybrid_spmv(hyb, x), kt.spmv(band, x)
+                        if hyb is op.hyb else
+                        kt.CSROperator(band).with_adjoint().rmatvec(x)) <= tol
+            S = hyb.sell
+            assert _rel(kt.sell_spmv(S, x), cs.sell_table_spmv_ref(S, x)) \
+                <= tol
+        S = kt.sell_bucketed_from_csr(_spread_csr(rng, 1 << 14, dt))
+        assert S.row_pos is not None
+        x2 = torch.as_tensor(rng.standard_normal(2 << 14)).to("cuda", tdt)
+        assert _rel(kt.sell_spmv(S, x2[::2]), cs.sell_table_spmv_ref(
+            S, x2[::2].contiguous())) <= tol
+        S.parts[0].data = S.parts[0].data * 2.0
+        x = x2[1::2].contiguous()
+        assert _rel(kt.sell_spmv(S, x), cs.sell_bucketed_spmv_ref(S, x)) \
+            <= tol
+
+
+def _dia_case(n, offs, xdt, pdt, seed):
+    rng = np.random.default_rng(seed)
+    data = torch.as_tensor(rng.standard_normal((len(offs), n)))
+    x = torch.as_tensor(rng.standard_normal(n + 4))
+    if pdt.is_complex:
+        data = data * (1.0 + 0.5j)
+    if xdt.is_complex:
+        x = x * (0.5 - 1.0j)
+    pd = dia_align(data, offs, n).to("cuda", pdt)
+    return pd, offsets_tensor(offs, "cuda"), x.to("cuda", xdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,pdt,tol", SPMV_PAIRS,
+                         ids=[f"{x}-{p}".replace("torch.", "")
+                              for x, p, _ in SPMV_PAIRS])
+def test_dia_spmv_wide_loads_on_card(xdt, pdt, tol):
+    """The DIA SpMV with wide loads against dia_spmv_aligned_ref at the
+    tolerances of test_spmv_kernel_matches_plain_on_card: n = 1000, 1001
+    and 1003 (the vector path and the scalar one), one diagonal, 27
+    diagonals, offsets with |k| >= n, an x that starts one element past a
+    16-byte boundary, and DIASpMV's lean call against the public one (bit
+    for bit, one launch each)."""
+    _card()
+    from krylov_tpu_torch.ops.cuda_dia import DIASpMV
+    cube = tuple(i + 10 * j + 100 * k for i in (-1, 0, 1)
+                 for j in (-1, 0, 1) for k in (-1, 0, 1))
+    cases = [(n, (-33, -1, 0, 1, 5, 64, 100)) for n in (1000, 1001, 1003)]
+    cases += [(1000, (0,)), (1000, (-7,)), (1003, cube),
+              (1000, (-1000, -3, 0, 2, 1000, 5000)), (1001, (-2000, 1001))]
+    for seed, (n, offs) in enumerate(cases):
+        pd, ot, xs = _dia_case(n, offs, xdt, pdt, seed)
+        for x in (xs[:n], xs[1:n + 1]):
+            before = dia_spmv_aligned.launches
+            y = dia_spmv_aligned(pd, ot, x)
+            assert dia_spmv_aligned.launches == before + 1
+            want = dia_spmv_aligned_ref(pd, ot, x)
+            assert y.dtype == xdt and y.shape == (n,)
+            if float(want.abs().max()) == 0.0:
+                assert bool((y == 0).all())
+            else:
+                assert _rel(y, want) <= tol
+            plan = DIASpMV(pd, ot, offs)
+            assert torch.equal(plan(x), y)
+            assert dia_spmv_aligned.launches == before + 2

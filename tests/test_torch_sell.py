@@ -278,3 +278,129 @@ def test_numpy_input_goes_to_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ts.sell_from_csr(C)
+
+
+def _fixture(case):
+    rng = np.random.default_rng(0)
+    if case == "skewed":
+        return _skewed()
+    if case == "sorted":
+        return _spread()
+    if case == "heavy_row":
+        A = sp.eye(8192, format="lil")
+        A[3, :100] = np.arange(1.0, 101.0)
+        return A.tocsr()
+    n, w = 1 << 13, 300
+    deg = np.minimum(2 + rng.zipf(1.6, size=n), 200)
+    r = np.repeat(np.arange(n, dtype=np.int64), deg)
+    c = np.clip(r + rng.integers(-w, w + 1, size=r.size), 0, n - 1)
+    A = sp.coo_matrix((rng.standard_normal(r.size), (r, c)),
+                      shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+@pytest.mark.parametrize("case", ["skewed", "fat_tailed", "heavy_row",
+                                  "sorted"])
+def test_bucketed_parts_are_views_of_the_part_table(case):
+    """sell_bucketed_from_csr homes its parts in one set of buffers: each
+    part's data, idx, chunk_of and slice_ptr are consecutive views of
+    them (and still the JAX package's arrays), the table holds each
+    part's data, pair and slice_ptr offsets and its Kmax, and inv is the
+    inverse of row_pos."""
+    C = _jcsr(_fixture(case))
+    J = js.sell_bucketed_from_csr(C)
+    T = ts.sell_bucketed_from_csr(_tcsr(C))
+    _assert_same_bucketed(T, J)
+    offs = [0, 0, 0, 0]
+    rows = []
+    for tp, jp in zip(T.parts, J.parts):
+        rows.append((offs[0], offs[2], offs[3], jp.kmax))
+        for b, f in enumerate(ts.SELLBuffers._fields):
+            a, buf = getattr(tp, f), getattr(T.buffers, f)
+            assert a._base is buf and a.is_contiguous()
+            assert a.storage_offset() - buf.storage_offset() == offs[b]
+            offs[b] += a.numel()
+    assert [b.numel() for b in T.buffers] == offs
+    assert T.table.dtype == torch.int64 and T.table.tolist() == \
+        [list(r) for r in rows]
+    if case == "sorted":
+        assert T.inv.dtype == torch.int32
+        assert torch.equal(T.inv[T.row_pos.long()].long(),
+                           torch.arange(T.shape[0]))
+    else:
+        assert T.inv is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.complex64])
+@pytest.mark.parametrize("case", ["skewed", "sorted"])
+def test_table_walk_is_the_per_part_composition(case, dtype):
+    """The plain walk of the part table (the kernel's rounding points:
+    each part rounded to x's type, the parts summed in x's type in part
+    order, inv) is bit for bit sell_bucketed_spmv_ref, and it is what
+    sell_spmv gives on the CPU; within 1e-12 (f64) and 1e-5 (f32, bf16
+    data with f32 x) of the JAX package's sell_bucketed_spmv in interpret
+    mode, and within 1e-5 of the f64 product for c64, which the JAX
+    kernel does not take."""
+    A = _fixture(case)
+    wide = np.complex128 if dtype.is_complex else np.float64
+    Aw = (A * (1.0 + 0.5j)).tocsr() if dtype.is_complex else A
+    T = ts.sell_bucketed_from_csr(_tcsr(_jcsr(Aw)))
+    for p in T.parts:
+        p.data = p.data.to(dtype)
+    xdt = torch.float32 if dtype == torch.bfloat16 else dtype
+    rng = np.random.default_rng(7)
+    xw = rng.standard_normal(A.shape[1]).astype(wide)
+    if dtype.is_complex:
+        xw = xw * (0.5 - 1.0j)
+    x = torch.as_tensor(xw).to(xdt)
+    y = ts.sell_table_spmv_ref(T, x)
+    assert y.dtype == xdt and T._stale is False
+    assert torch.equal(y, ts.sell_bucketed_spmv_ref(T, x))
+    assert torch.equal(kt.sell_spmv(T, x), y)
+    if dtype.is_complex:
+        want = Aw @ x.numpy().astype(wide)
+        assert np.max(np.abs(y.numpy() - want)) <= 1e-5 * np.max(
+            np.abs(want))
+        return
+    jdt = {torch.float32: np.float32, torch.float64: np.float64,
+           torch.bfloat16: jnp.bfloat16}[dtype]
+    J = js.sell_bucketed_from_csr(_jcsr(A, dtype=jdt))
+    yj = np.asarray(js.sell_bucketed_spmv(J, jnp.asarray(x.numpy())),
+                    np.float64)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(y.double().numpy(), yj) <= tol
+
+
+def test_separate_parts_are_homed_and_follow_changes():
+    """A SELLBucketed made from separate part tensors copies them into one
+    set of buffers and re-points the parts at them; an in-place change
+    of a part's data is seen by the next product, and a part tensor
+    replaced by another is homed again before it."""
+    T = ts.sell_bucketed_from_csr(_tcsr(_jcsr(_skewed())))
+    S = ts.SELLBucketed(
+        [ts.SELLMatrix(p.data.clone(), p.idx.clone(), p.slice_of,
+                       p.chunk_of.clone(), p.shape, p.nnz, p.covered,
+                       p.slice_ptr.clone()) for p in T.parts],
+        T.shape, T.nnz, T.row_pos)
+    for p in S.parts:
+        assert p.data._base is S.buffers.data
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        T.shape[1]))
+    y = kt.sell_spmv(S, x)
+    assert torch.equal(y, kt.sell_spmv(T, x))
+    S.parts[0].data.mul_(2.0)
+    y2 = kt.sell_spmv(S, x)
+    assert torch.equal(y2, ts.sell_bucketed_spmv_ref(S, x))
+    assert not torch.equal(y2, y)
+    S.parts[1].data = S.parts[1].data * 0.0
+    assert S._stale
+    y3 = kt.sell_spmv(S, x)
+    assert not S._stale and S.parts[1].data._base is S.buffers.data
+    assert torch.equal(y3, ts.sell_bucketed_spmv_ref(S, x))
+    single = T.parts[0]
+    assert single.table.tolist() == [[0, 0, 0, single.kmax]]
+    assert single.inv is None
+    assert torch.equal(ts.sell_table_spmv_ref(single, x),
+                       ts.sell_spmv_ref(single, x))
