@@ -37,6 +37,7 @@ a CUDA device it exits non-zero before printing a result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -128,7 +129,9 @@ def host_us(fn, calls=100, batches=10):
 def device_ms(fn, reps=20):
     """Device time of one call of fn: the time of the kernels that the
     profiler (CUPTI) records over ``reps`` calls, divided by reps; None
-    where it records none."""
+    where it records none, or a count of kernels that is not a whole
+    multiple of reps (a trace that lost records: a long run of this
+    script has shown traces with half of them, timed below the bound)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -136,10 +139,12 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if not e.key.startswith("aten::"))
-    return us / reps / 1e3 if us > 0 else None
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in prof.key_averages() if not e.key.startswith("aten::")]
+    us = sum(t for t, _ in rows)
+    count = sum(c for t, c in rows if t > 0)
+    return us / reps / 1e3 if us > 0 and count % reps == 0 else None
 
 
 def fmt(v):
@@ -200,6 +205,107 @@ def torch_csr(csr, dtype=None):
         csr.indptr, csr.indices,
         csr.data if dtype is None else csr.data.to(dtype),
         csr.shape)
+
+
+def bell_tridiagonal(kt, nb, dt, seed, dev="cuda"):
+    """The SPD block-tridiagonal BELL of tests/test_pallas_spmv.py:
+    184-203 (nb block rows of 128: M M^T / 128^2 + 2 I on the diagonal, a
+    seeded off-diagonal block and its transpose beside it, clamped at the
+    edges), built on the card."""
+    bs = 128
+    g = np.random.default_rng(seed)
+    M = torch.as_tensor(g.standard_normal((nb, bs, bs)) / bs, device=dev)
+    diag = M @ M.transpose(1, 2) + 2 * torch.eye(bs, dtype=M.dtype,
+                                                 device=dev)
+    off = torch.as_tensor(g.standard_normal((bs, bs)) / (4 * bs),
+                          device=dev)
+    i = torch.arange(nb, device=dev)
+    idx = torch.stack([(i - 1).clamp(min=0), i, (i + 1).clamp(max=nb - 1)],
+                      1)
+    data = torch.zeros((nb, 3, bs, bs), dtype=torch.float64, device=dev)
+    for k in range(3):
+        j = idx[:, k]
+        data[:, k] += torch.where((j == i)[:, None, None], diag, 0.0)
+        data[:, k] += torch.where((j == i - 1)[:, None, None], off, 0.0)
+        data[:, k] += torch.where((j == i + 1)[:, None, None], off.T, 0.0)
+    del M, diag
+    return kt.BELLMatrix(data.to(dt), idx.to(torch.int32), (nb * bs, nb * bs),
+                         bs)
+
+
+def bsr_of(A):
+    """torch.sparse_bsr_tensor of a BELL's blocks, the duplicate block
+    columns of a row summed (the library yardstick's operand)."""
+    dev = A.data.device
+    nbr, mbpr, bs, _ = A.data.shape
+    rows = torch.arange(nbr, device=dev).repeat_interleave(mbpr)
+    key = rows * nbr + A.indices.reshape(-1).long()
+    uniq, inv = torch.unique(key, return_inverse=True)
+    vals = torch.zeros((uniq.numel(), bs, bs), dtype=A.dtype,
+                       device=dev).index_add_(0, inv,
+                                              A.data.reshape(-1, bs, bs))
+    crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(uniq // nbr, minlength=nbr), 0)
+    return torch.sparse_bsr_tensor(crow, uniq % nbr, vals, A.shape)
+
+
+def bell_bound_ms(A, X, bw):
+    """The byte bound of one BELL product: the blocks and their indices,
+    x and y, each once, at ``bw`` bytes/s."""
+    return (A.data.numel() * A.data.element_size() + A.indices.numel() * 4
+            + 2 * X.numel() * X.element_size()) / bw * 1e3
+
+
+# phase 3l's BELLs: block rows and element type
+BELL_CASES = ((1024, torch.float32), (1024, torch.float64),
+              (96, torch.float32), (96, torch.float64))
+
+
+def bell_label(p, nb, dt):
+    name = "bell_spmv" if p == 1 else "bell_spmm"
+    return f"{name} p={p} nb={nb} {str(dt)[6:]}"
+
+
+def bell_device_main():
+    """``python3 chip_smoke.py --bell-device``: the device ms of
+    BELLOperator's products on phase 3l's BELLs (p = 1, 4 and 8), one
+    profiler trace each, as one JSON line keyed by 3l's labels."""
+    import krylov_tpu_torch as kt
+    from krylov_tpu_torch import _build
+    _build.library()
+    gen = np.random.default_rng(SEED + 43)
+    out = {}
+    for nb, dt in BELL_CASES:
+        A = bell_tridiagonal(kt, nb, dt, SEED + 31)
+        op = kt.BELLOperator(A)
+        for p in (1, 4, 8):
+            X = torch.as_tensor(gen.standard_normal(
+                (A.shape[1], p) if p > 1 else A.shape[1])).to("cuda", dt)
+            call = op.matvec if p == 1 else op.matmat
+            out[bell_label(p, nb, dt)] = device_ms(lambda: call(X))
+        del A, op
+    print(json.dumps(out), flush=True)
+
+
+def bell_device_ms_in_own_process():
+    """``bell_device_main``'s device ms, {label: ms or None}, from a
+    process of its own: late in a long run of this script the profiler's
+    traces have lost kernel records (PERF.md §7), in a fresh process they
+    have not.  {} where that process fails (its error printed)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--bell-device"], capture_output=True, text=True,
+                         timeout=300)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or not lines:
+        print(f"  --bell-device failed ({run.returncode}): "
+              f"{run.stderr[-2000:]}", flush=True)
+        return {}
+    print(f"  device ms from a process of its own "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return json.loads(lines[-1])
 
 
 def profile_solve(solve, top=10):
@@ -1927,49 +2033,6 @@ def main():
                     total += diag + 3 * n * p * s
         return total
 
-    def bell_tridiagonal(nb, dt, seed):
-        """The SPD block-tridiagonal BELL of tests/test_pallas_spmv.py:
-        184-203 (nb block rows of 128: M M^T / 128^2 + 2 I on the
-        diagonal, a seeded off-diagonal block and its transpose beside
-        it, clamped at the edges), built on the card."""
-        bs = 128
-        g = np.random.default_rng(seed)
-        M = torch.as_tensor(g.standard_normal((nb, bs, bs)) / bs,
-                            device=dev)
-        diag = M @ M.transpose(1, 2) + 2 * torch.eye(bs, dtype=M.dtype,
-                                                     device=dev)
-        off = torch.as_tensor(g.standard_normal((bs, bs)) / (4 * bs),
-                              device=dev)
-        i = torch.arange(nb, device=dev)
-        idx = torch.stack([(i - 1).clamp(min=0), i,
-                           (i + 1).clamp(max=nb - 1)], 1)
-        data = torch.zeros((nb, 3, bs, bs), dtype=torch.float64, device=dev)
-        for k in range(3):
-            j = idx[:, k]
-            data[:, k] += torch.where((j == i)[:, None, None], diag, 0.0)
-            data[:, k] += torch.where((j == i - 1)[:, None, None], off, 0.0)
-            data[:, k] += torch.where((j == i + 1)[:, None, None], off.T,
-                                      0.0)
-        del M, diag
-        return kt.BELLMatrix(data.to(dt), idx.to(torch.int32),
-                             (nb * bs, nb * bs), bs)
-
-    def bsr_of(A):
-        """torch.sparse_bsr_tensor of a BELL's blocks, the duplicate block
-        columns of a row summed (the library yardstick's operand)."""
-        nbr, mbpr, bs, _ = A.data.shape
-        rows = torch.arange(nbr, device=dev).repeat_interleave(mbpr)
-        key = rows * nbr + A.indices.reshape(-1).long()
-        uniq, inv = torch.unique(key, return_inverse=True)
-        vals = torch.zeros((uniq.numel(), bs, bs), dtype=A.dtype,
-                           device=dev).index_add_(
-            0, inv, A.data.reshape(-1, bs, bs))
-        crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
-        crow[1:] = torch.cumsum(torch.bincount(uniq // nbr, minlength=nbr),
-                                0)
-        return torch.sparse_bsr_tensor(crow, uniq % nbr, vals, A.shape)
-
-
     with Phase("3l block GMRES and block-ELL kernels vs plain", 240):
         # Block GMRES on the 128^3 Poisson stencil + 0.5 I, B seeded
         # normal with 4 columns, memory 32 with restarts (bench.py:
@@ -1986,9 +2049,12 @@ def main():
         # block-tridiagonal BELL at nb = 1024 block rows of 128 (201.3 MB
         # of f32 blocks, four times the L2) and at bench.py:714-728's
         # nb = 96, in f32 and f64: max |Δ| ≤ 1e-5 max|y| (f32), 1e-12
-        # max|y| (f64); ms by CUDA events, the plain version's, and the
-        # library yardstick's (a BSR product of the same blocks).  Bounds
-        # count bytes: the blocks, their indices, x and y once.
+        # max|y| (f64), BELLOperator's bound plan bit for bit the public
+        # wrapper's; ms by CUDA events, device ms by the profiler and host
+        # us per call (BELLOperator's and the public wrapper's), the plain
+        # version's ms and the library yardstick's (a BSR product of the
+        # same blocks).  Bounds count bytes: the blocks, their indices, x
+        # and y once.
         gen = np.random.default_rng(SEED + 30)
         n = 128 ** 3
         for dt, mem, basis, rtol in ((torch.float32, 32, None, None),
@@ -2050,35 +2116,44 @@ def main():
             if mem == 8:
                 check(np_k >= 2, f"{label}: restarted ({np_k} passes)")
             del A, B, k, r
-        for nb, dt in ((1024, torch.float32), (1024, torch.float64),
-                       (96, torch.float32), (96, torch.float64)):
-            Ab = bell_tridiagonal(nb, dt, SEED + 31)
+        bell_dev = bell_device_ms_in_own_process()
+        for nb, dt in BELL_CASES:
+            Ab = bell_tridiagonal(kt, nb, dt, SEED + 31)
             nB = nb * 128
             tol = 1e-5 if dt == torch.float32 else 1e-12
             blocks = Ab.data.numel() * Ab.data.element_size() \
                 + Ab.indices.numel() * 4
+            bsr = bsr_of(Ab)
+            op = kt.BELLOperator(Ab)
             for p in (1, 4, 8):
                 S = torch.as_tensor(gen.standard_normal(
                     (nB, p) if p > 1 else nB)).to(dev, dt)
                 name = "bell_spmv" if p == 1 else "bell_spmm"
                 kern = getattr(kt, name)
                 plain = getattr(cspmv, name + "_ref")
+                bound_call = op.matvec if p == 1 else op.matmat
                 y, y_r = kern(Ab, S), plain(Ab, S)
                 torch.cuda.synchronize()
                 err = float((y - y_r).abs().max())
                 ymax = float(y_r.abs().max())
+                check(torch.equal(bound_call(S), y), f"{name} p={p}: "
+                      "BELLOperator's bound plan gives the wrapper's bits")
+                label = bell_label(p, nb, dt)
                 ms = event_ms(lambda: kern(Ab, S))
+                dev_ms = bell_dev.get(label)
+                us = host_us(lambda: bound_call(S))
+                us_public = host_us(lambda: kern(Ab, S))
                 plain_ms = event_ms(lambda: plain(Ab, S), reps=5)
-                bsr, S2 = bsr_of(Ab), (S if p > 1 else S[:, None])
+                S2 = S if p > 1 else S[:, None]
                 library_ms = event_ms(lambda: bsr @ S2, reps=5)
-                bound_ms = (blocks + 2 * S.numel() * S.element_size()) \
-                    / bw * 1e3
-                label = f"{name} p={p} nb={nb} {str(dt)[6:]}"
+                bound_ms = bell_bound_ms(Ab, S, bw)
                 print(f"  {label}: max_abs_err={err:.3e} (max|y| "
-                      f"{ymax:.3e}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"{ymax:.3e}); ms={ms:.4f} device_ms={fmt(dev_ms)} "
+                      f"host_us={us:.1f} (BELLOperator; public "
+                      f"{us_public:.1f}) plain_ms={plain_ms:.4f} "
                       f"library_ms={library_ms:.4f} (BSR @) bound_ms="
-                      f"{bound_ms:.4f} ({blocks / 1e6:.1f} MB of blocks)",
-                      flush=True)
+                      f"{bound_ms:.4f} ({blocks / 1e6:.1f} MB of blocks"
+                      f"{on_device(bound_ms, dev_ms)})", flush=True)
                 check(err <= tol * ymax, f"{label}: agrees with the plain "
                       f"version ({err / ymax:.2e} <= {tol})")
                 if nb == 1024 and dt == torch.float32 and p in (1, 4):
@@ -2086,7 +2161,7 @@ def main():
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by="bytes",
                         library_ms=library_ms)
-            del Ab
+            del Ab, bsr, op
 
     with Phase("4 krylov_tpu_torch.cg end to end", 120):
         problems = {N: (kt.poisson_dia(N), rhs(N ** 3)) for N in (128, 256)}
@@ -3210,7 +3285,7 @@ def main():
                       and counts["dia_spmv"] > 0 and res1 <= 1.5 * tol,
                       "a rank-1 B took the general core and solved")
             del A, B, X, Xh, ref
-        Ab = bell_tridiagonal(1024, torch.float32, SEED + 33)
+        Ab = bell_tridiagonal(kt, 1024, torch.float32, SEED + 33)
         Ab64 = kt.BELLMatrix(Ab.data.double(), Ab.indices, Ab.shape, 128)
         nB = Ab.shape[0]
         op = kt.BELLOperator(Ab)
@@ -3226,23 +3301,47 @@ def main():
             R = S2.double() - cspmv.bell_spmm_ref(Ab64, Y2.double())
             return float(R.norm() / S2.double().norm())
 
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+
         launches["bell_spmm"] = 0
         for method, rhs_, name in (("cg", b, "bell_spmv"),
                                    ("block_gmres", B, "bell_spmm"),
                                    ("block_minres", B, "bell_spmm")):
-            torch.cuda.synchronize()
-            reset_counts()
-            t = time.perf_counter()
-            Y, st = getattr(kt, method)(op, rhs_)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            counts = kt.kernel_launches()
-            Yp, sp = getattr(kt, method)(plain_op, rhs_)
+            solve = getattr(kt, method)
+            # each route once untimed (the operator's first products bind
+            # its plan), then three rounds of the kernel route and the
+            # plain products one after the other; the first round's kernel
+            # solve is the main path's, driven with the counts set to 0
+            solve(op, rhs_)
+            solve(plain_op, rhs_)
+            rounds = []
+            for r in range(3):
+                if r == 0:
+                    torch.cuda.synchronize()
+                    reset_counts()
+                (Y, st), ms = timed(lambda: solve(op, rhs_))
+                if r == 0:
+                    counts = kt.kernel_launches()
+                    Y0, st0 = Y, st
+                (Yp, sp), ms_p = timed(lambda: solve(plain_op, rhs_))
+                rounds.append((ms, ms_p))
+            Y, st = Y0, st0
             res, res_p = bell_res(rhs_, Y), bell_res(rhs_, Yp)
+            ms = statistics.median(r[0] for r in rounds)
+            pairs = ", ".join(f"{k:.2f}/{q:.2f}" for k, q in rounds)
             print(f"  {method} on BELL nb=1024 f32: niter={st.niter} status="
-                  f"'{st.status}' true_res={res:.3e} ms={ms:.2f}; plain "
-                  f"products: niter={sp.niter} true_res={res_p:.3e}; "
-                  f"launches {counts[name]} ({name})", flush=True)
+                  f"'{st.status}' true_res={res:.3e} ms/solve={ms:.2f} "
+                  f"({1e3 * ms / max(st.niter, 1):.1f} us/iter; "
+                  f"{counts[name]} products); plain products: niter="
+                  f"{sp.niter} true_res={res_p:.3e} ms/solve="
+                  f"{statistics.median(r[1] for r in rounds):.2f}; ms per "
+                  f"round, kernel/plain: {pairs}", flush=True)
+            profile_solve(lambda: solve(op, rhs_), top=4)
             check(st.solved and st.status == sp.status
                   and abs(st.niter - sp.niter) <= 2,
                   f"{method} on BELL solved as with the plain products")
@@ -3657,8 +3756,13 @@ def compare_main(root):
     profiled device ms and host us per call of the DIA SpMV at 128^3 f32
     and 64^3 f64 (the public wrapper and DIAOperator.matvec), of the SPD
     FEM band's SELL remainder product and its hybrid product (n = 2^17
-    f32), and the median ms of three cg(csr, b) solves and three
-    CSROperator solves."""
+    f32), the median ms of three cg(csr, b) solves and three
+    CSROperator solves, and the BELL SpMV and SpMM (p = 1, 4, 8) on the
+    block-tridiagonal BELL of phase 3l at 1024 and 96 block rows, f32 and
+    f64: the public wrapper's and BELLOperator's ms, the latter's device
+    ms and host us, the public wrapper's host us, the library's BSR
+    product's ms and the byte bound, and the kernel's largest difference
+    from the BSR product relative to max |y|."""
     from pathlib import Path
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
@@ -3702,6 +3806,31 @@ def compare_main(root):
         device_ms=device_ms(lambda: op.matvec(x)),
         host_us=host_us(lambda: op.matvec(x)))
 
+    bw = hbm_rate(out["device"])
+    for nb in (1024, 96):
+        for dt in (torch.float32, torch.float64):
+            A = bell_tridiagonal(kt, nb, dt, SEED + 31)
+            op, bsr = kt.BELLOperator(A), bsr_of(A)
+            for p in (1, 4, 8):
+                X = torch.as_tensor(gen.standard_normal(
+                    (A.shape[1], p) if p > 1 else A.shape[1])).to("cuda", dt)
+                X2 = X if p > 1 else X[:, None]
+                pub = (lambda: kt.bell_spmv(A, X)) if p == 1 \
+                    else (lambda: kt.bell_spmm(A, X))
+                bound = (lambda: op.matvec(X)) if p == 1 \
+                    else (lambda: op.matmat(X))
+                ref = (bsr @ X2).reshape(pub().shape)
+                out[f"bell p={p} nb={nb} {str(dt)[6:]}"] = dict(
+                    rel_err=float((pub() - ref).abs().max()
+                                  / ref.abs().max()),
+                    ms=event_ms(pub, reps=50),
+                    matvec_ms=event_ms(bound, reps=50),
+                    matvec_device_ms=device_ms(bound),
+                    matvec_host_us=host_us(bound), host_us=host_us(pub),
+                    library_ms=event_ms(lambda: bsr @ X2, reps=50),
+                    bound_ms=bell_bound_ms(A, X, bw))
+            del A, op, bsr
+
     def solve_ms(fn):
         times = []
         for _ in range(4):
@@ -3724,5 +3853,9 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")
         compare_main(sys.argv[2])
+    elif sys.argv[1:] == ["--bell-device"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        bell_device_main()
     else:
         main()

@@ -218,11 +218,11 @@ _SIGNATURES = {
        for k in ("init", "iterate") for t in _PAIRS
        for v in (t[:3], "bf16")},
     # the block-ELL products (csrc/bell_spmv.cu): (data, idx, x, y, nbr,
-    # mbpr, bs, m, n[, p], stream)
-    **{f"ktt_bell_spmv_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L, _P)
-       for t in _BELL},
-    **{f"ktt_bell_spmm_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L, _I, _P)
-       for t in _BELL},
+    # mbpr, bs, m, n[, p, cols], rows, parts, ld, wide, stream)
+    **{f"ktt_bell_spmv_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L) + (_I,) * 4
+       + (_P,) for t in _BELL},
+    **{f"ktt_bell_spmm_{t}": (_P,) * 4 + (_I, _I, _I, _L, _L) + (_I,) * 6
+       + (_P,) for t in _BELL},
     # the SELL-C-128 product over a part table (csrc/sell_spmv.cu): (data,
     # idx, chunk_of, slice_ptr, table, nparts, inv, x, y_dia, y, nsl, m, n,
     # stream)

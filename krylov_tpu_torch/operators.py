@@ -13,7 +13,7 @@ import torch
 from ._runtime import as_device_tensor, full_fp32
 from .ops.cuda_dia import (DIASpMV, dia_align, dia_align_adjoint,
                            offsets_tensor)
-from .ops.cuda_spmv import bell_spmm, bell_spmv
+from .ops.cuda_spmv import BELLSpMM
 from .ops.dia import DIAMatrix, dia_spmm, dia_spmv, resolve_device
 from .ops.hybrid import hybrid_from_csr, hybrid_spmv
 from .ops.sparse import CSRMatrix, spmm, spmv
@@ -337,10 +337,13 @@ class DIAOperator(AbstractLinearOperator):
 
 class BELLOperator(AbstractLinearOperator):
     """Block-ELL operator on the BELL kernels (ops/cuda_spmv.py): matvec
-    through ``bell_spmv``, matmat (the block solvers') through
-    ``bell_spmm``.  Hermitian systems need only A's storage; the
-    unsymmetric methods take the adjoint's, built by the caller:
-    ``BELLOperator(bell, bell_h)``."""
+    and matmat (the block solvers') through a ``BELLSpMM`` bound to the
+    storage once, so that a product is one foreign call counted on
+    ``bell_spmv`` or ``bell_spmm``.  Hermitian systems need only A's
+    storage; the unsymmetric methods take the adjoint's, built by the
+    caller: ``BELLOperator(bell, bell_h)``.  Storage on the card must be
+    contiguous; an in-place change of its data is seen, and new tensors
+    put in a matrix are bound again at the next product."""
 
     def __init__(self, bell, bell_h=None):
         self.bell = bell
@@ -348,6 +351,14 @@ class BELLOperator(AbstractLinearOperator):
         self.shape = bell.shape
         self.dtype = bell.dtype
         self.device = bell.device
+        self._bound = {}
+
+    def _product(self, A):
+        prod = self._bound.get(id(A))
+        if prod is None or prod.data is not A.data \
+                or prod.indices is not A.indices:
+            prod = self._bound[id(A)] = BELLSpMM(A)
+        return prod
 
     def _adjoint(self):
         if self.bell_h is None:
@@ -356,16 +367,16 @@ class BELLOperator(AbstractLinearOperator):
         return self.bell_h
 
     def matvec(self, x):
-        return bell_spmv(self.bell, x)
+        return self._product(self.bell)(x)
 
     def rmatvec(self, x):
-        return bell_spmv(self._adjoint(), x)
+        return self._product(self._adjoint())(x)
 
     def matmat(self, X):
-        return bell_spmm(self.bell, X)
+        return self._product(self.bell)(X)
 
     def rmatmat(self, X):
-        return bell_spmm(self._adjoint(), X)
+        return self._product(self._adjoint())(X)
 
 
 class HybridOperator(AbstractLinearOperator):

@@ -7,7 +7,12 @@
 * **BELL** (block-ELL): dense bs × bs blocks, nbr block rows of mbpr
   slots, padding slots zero.  ``bell_spmv`` and ``bell_spmm`` launch the
   CUDA kernels of ``csrc/bell_spmv.cu`` for CUDA tensors and take their
-  plain versions (``bell_spmv_ref``, ``bell_spmm_ref``) for CPU tensors.
+  plain versions (``bell_spmv_ref``, ``bell_spmm_ref``) for CPU tensors;
+  both check their arguments on every call.  ``bell_plan`` chooses how
+  the kernel runs a product (column tile, rows per slab, parts of a
+  row's words, wide or element copies); ``BELLSpMM``, which ``BELLOperator`` holds,
+  checks the storage once and binds one plan per type, shape and
+  alignment of x, so that its call is one foreign call.
 
 The builders run on the host with numpy, vectorised over the entries, and
 give the JAX package's arrays: the same slots, in the same order.  A
@@ -15,11 +20,15 @@ builder puts its result on its input's device (a tensor's, a CSR
 matrix's), numpy input on ``device``, by default the card.
 """
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .. import _build
 from .._runtime import full_fp32
+from .cuda_dia import _run
 from .dia import resolve_device
 
 # the element types the block-ELL kernels take (data and x alike)
@@ -208,42 +217,210 @@ def bell_spmv_ref(A, x):
     return bell_spmm_ref(A, x[:, None])[:, 0]
 
 
-def _bell_launch(wrapper, name, A, X, p):
-    """The block-ELL kernel ``name`` on X (n,) or (n, p) on the card;
-    raises for a type pair with no kernel."""
-    suffix = _SUFFIX.get(X.dtype)
-    if suffix is None or A.data.dtype != X.dtype or not X.is_cuda:
-        raise ValueError(f"no BELL {name} kernel for x {X.dtype} with data "
-                         f"{A.data.dtype} on {X.device}")
-    if not (A.data.device == A.indices.device == X.device
+# ---------------------------------------------------------------------------
+# the kernels' plan and their binding
+# ---------------------------------------------------------------------------
+
+# sm_90's shared memory per thread block (227 KB) and the kernel's ring
+# and limits (csrc/bell_spmv.cu kStages, kMaxThreads): two stages, threads
+SHARED_BYTES = 232448
+STAGES = 2
+_MAX_THREADS = 512
+# the plan's aims, the fastest plans of sweeps on an H100 (PERF.md §6):
+# slabs of 32 KB, at most 8 parts and 256 threads, at least two blocks per
+# SM
+SLAB_BYTES = 32768
+PARTS = 8
+THREADS = 256
+# each thread's tile of outputs (rows, columns) by tile width: the
+# kernel's TileRows and TileCols
+_TILE = {1: (1, 1), 2: (1, 2), 4: (2, 2), 8: (2, 4)}
+# the H100 SXM's SMs, for a plan made off the card
+H100_SMS = 132
+
+
+class BELLPlan(NamedTuple):
+    """How the kernel of ``csrc/bell_spmv.cu`` runs one product: tiles of
+    ``cols`` columns (1, 2, 4 or 8), slabs of ``rows`` rows, a ring of
+    STAGES stages whose rows (the slab's, then x's columns) are ``ld``
+    elements apart, ``wide`` 16-byte copies or element copies, ``shared``
+    bytes of shared memory and ``threads`` threads per block: ``parts``
+    of them for each tile of outputs (``_TILE``), each summing every
+    ``parts``-th 16-byte word of the tile's rows."""
+    cols: int
+    rows: int
+    parts: int
+    ld: int
+    wide: bool
+    shared: int
+    threads: int
+
+    def blocks(self, nbr, bs, p):
+        """Thread blocks in the grid: block rows × slabs × column tiles."""
+        return nbr * -(-bs // self.rows) * -(-p // self.cols)
+
+
+@functools.lru_cache(maxsize=None)
+def bell_plan(bs, itemsize, p, aligned, nbr=None, sms=H100_SMS):
+    """The plan of a product with blocks of bs, elements of ``itemsize``
+    bytes and p columns (1 for the SpMV) over ``nbr`` block rows on a
+    card of ``sms`` SMs; ``aligned`` says that data and x start on
+    16-byte boundaries.
+
+    Wide copies where a block's rows are whole 16-byte words and the
+    pointers aligned, element copies otherwise.  Rows of a stage padded
+    to an odd number of 16-byte words (distinct banks for 16-byte reads
+    of distinct rows).  A slab is SLAB_BYTES of a block, cut
+    in half while the grid has fewer than two blocks per SM (down to 16
+    rows), and each tile's words are split over the most parts (up to
+    PARTS) that keep THREADS threads.  Rows (a whole number of thread
+    tiles, at most bs so rounded, at most 512 threads) are cut, then the
+    tile width, until the ring fits 227 KB; raises where even one row of
+    one column does not."""
+    vec = 16 // itemsize
+    words = -(-bs * itemsize // 16)
+    ld = (words | 1) * vec
+    cols = 1 if p == 1 else 2 if p == 2 else 4 if p <= 4 else 8
+
+    def fit(r, c, g):
+        tr, tc = _TILE[c]
+        r = min(r, -(-bs // tr) * tr, _MAX_THREADS // (c // tc * g) * tr)
+        return max(tr, r - r % tr)
+
+    def shared(r, c):
+        return STAGES * (r + c) * ld * itemsize
+
+    def split(r, c):
+        # the most parts, a power of two, that keep THREADS threads
+        tr, tc = _TILE[c]
+        g = 1
+        while (g * 2 <= min(PARTS, words)
+               and r // tr * (c // tc) * g * 2 <= THREADS):
+            g *= 2
+        return g
+
+    rows = max(1, SLAB_BYTES // (bs * itemsize))
+    if nbr is not None:
+        while rows > 16 and nbr * -(-bs // rows) * -(-p // cols) < 2 * sms:
+            rows //= 2
+    parts = split(fit(rows, cols, 1), cols)
+    rows = fit(rows, cols, parts)
+    while shared(rows, cols) > SHARED_BYTES and rows > _TILE[cols][0]:
+        rows = fit(-(-rows // 2), cols, parts)
+    while shared(rows, cols) > SHARED_BYTES and cols > 1:
+        cols //= 2
+        rows = fit(rows, cols, parts)
+    if shared(rows, cols) > SHARED_BYTES:
+        raise ValueError(f"no BELL kernel plan for blocks of {bs} elements "
+                         f"of {itemsize} bytes: two stages exceed "
+                         f"{SHARED_BYTES} bytes of shared memory")
+    tr, tc = _TILE[cols]
+    threads = -(-(rows // tr * (cols // tc) * parts) // 32) * 32
+    wide = aligned and (bs * itemsize) % 16 == 0
+    return BELLPlan(cols, rows, parts, ld, wide, shared(rows, cols),
+                    threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _entry(kind, dtype):
+    """(name, C function) of the BELL ``kind`` entry point for ``dtype``,
+    looked up once."""
+    key = (kind, dtype)
+    hit = _BOUND.get(key)
+    if hit is None:
+        name = f"ktt_bell_{kind}_{_SUFFIX[dtype]}"
+        hit = _BOUND[key] = (name, getattr(_build.library(), name))
+    return hit
+
+
+_BOUND = {}
+
+
+def _check_storage(A):
+    """(nbr, mbpr, bs) of a BELLMatrix whose data (nbr, mbpr, bs, bs) and
+    int32 indices (nbr, mbpr) agree with its shape and lie on one device;
+    raises otherwise."""
+    if A.data.dim() != 4 or A.indices.dim() != 2:
+        raise ValueError(f"BELL data {tuple(A.data.shape)} and indices "
+                         f"{tuple(A.indices.shape)}: want (nbr, mbpr, bs, "
+                         "bs) and (nbr, mbpr)")
+    nbr, mbpr, bs, bs2 = A.data.shape
+    m, n = A.shape
+    if (bs != bs2 or bs != A.bs or tuple(A.indices.shape) != (nbr, mbpr)
+            or m > nbr * bs):
+        raise ValueError(f"BELL data {tuple(A.data.shape)}, indices "
+                         f"{tuple(A.indices.shape)} and bs {A.bs} do not "
+                         f"make a {m} x {n} matrix")
+    if not (A.data.device == A.indices.device
             and A.indices.dtype == torch.int32):
+        raise ValueError("BELL data and int32 indices must be on one "
+                         "device")
+    return nbr, mbpr, bs
+
+
+def _plan_args(A, X, storage):
+    """What one product of A (storage (nbr, mbpr, bs)) with X on the card
+    launches: the bound entry point and the wrapper that counts it
+    (bell_spmv's for a vector, bell_spmm's for a panel), the arguments
+    before and after x and y, and y's shape; raises for a type pair with
+    no kernel."""
+    kind, wrapper = ("spmv", bell_spmv) if X.dim() == 1 \
+        else ("spmm", bell_spmm)
+    if _SUFFIX.get(X.dtype) is None or A.data.dtype != X.dtype \
+            or not X.is_cuda:
+        raise ValueError(f"no BELL {kind} kernel for x {X.dtype} with data "
+                         f"{A.data.dtype} on {X.device}")
+    if A.data.device != X.device:
         raise ValueError("BELL data, int32 indices and x must be on one "
                          "device")
-    nbr, mbpr, bs, _ = A.data.shape
+    nbr, mbpr, bs = storage
     m, n = A.shape
-    data, idx, X = (A.data.contiguous(), A.indices.contiguous(),
-                    X.contiguous())
-    Y = torch.empty((m,) + tuple(X.shape[1:]), dtype=X.dtype,
-                    device=X.device)
-    entry = f"ktt_bell_{name}_{suffix}"
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (data.data_ptr(), idx.data_ptr(), X.data_ptr(), Y.data_ptr(),
-                nbr, mbpr, bs, m, n) + ((p,) if name == "spmm" else ())
-        err = getattr(_build.library(), entry)(*args, stream)
-    wrapper.launches += 1
-    _build.check(err, entry)
+    p = 1 if X.dim() == 1 else X.shape[1]
+    aligned = A.data.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0
+    plan = bell_plan(bs, X.element_size(), p, aligned, nbr,
+                     _sm_count(X.device))
+    cols = () if kind == "spmv" else (p, plan.cols)
+    return (_entry(kind, X.dtype), wrapper,
+            (A.data.data_ptr(), A.indices.data_ptr()),
+            (nbr, mbpr, bs, m, n, *cols, plan.rows, plan.parts, plan.ld,
+             int(plan.wide)),
+            (m,) + tuple(X.shape[1:]))
+
+
+def _check_x(A, X):
+    if X.dim() not in (1, 2) or X.shape[0] != A.shape[1]:
+        raise ValueError(f"x {tuple(X.shape)} does not match A {A.shape}")
+
+
+def _launch(plan, X, device):
+    """One foreign call of a product's plan (``_plan_args``) on X."""
+    bound, wrapper, head, tail, shape = plan
+    Y = torch.empty(shape, dtype=X.dtype, device=device)
+    _run(bound, wrapper, device, (*head, X.data_ptr(), Y.data_ptr(), *tail))
     return Y
+
+
+def _public(A, X):
+    _check_x(A, X)
+    if X.device.type == "cpu":
+        return bell_spmv_ref(A, X) if X.dim() == 1 else bell_spmm_ref(A, X)
+    A = BELLMatrix(A.data.contiguous(), A.indices.contiguous(), A.shape,
+                   A.bs)
+    X = X.contiguous()
+    return _launch(_plan_args(A, X, _check_storage(A)), X, X.device)
 
 
 def bell_spmv(A, x):
     """y = A x for a BELLMatrix: the kernel for a CUDA x, the plain
-    version for a CPU one."""
-    if x.dim() != 1 or x.shape[0] != A.shape[1]:
+    version for a CPU one.  Checks its arguments on every call;
+    ``BELLSpMM`` checks the storage once."""
+    if x.dim() != 1:
         raise ValueError(f"x {tuple(x.shape)} does not match A {A.shape}")
-    if x.device.type == "cpu":
-        return bell_spmv_ref(A, x)
-    return _bell_launch(bell_spmv, "spmv", A, x, 1)
+    return _public(A, x)
 
 
 bell_spmv.launches = 0
@@ -251,14 +428,54 @@ bell_spmv.launches = 0
 
 def bell_spmm(A, X):
     """Y = A X for a BELLMatrix and X of shape (n, p), any p: the kernel
-    (each block read once per tile of 8 columns) for a CUDA X, the plain
-    version for a CPU one.  The block solvers reach it through
+    (each block read once per tile of up to 8 columns) for a CUDA X, the
+    plain version for a CPU one.  The block solvers reach it through
     ``BELLOperator.matmat``."""
-    if X.dim() != 2 or X.shape[0] != A.shape[1]:
+    if X.dim() != 2:
         raise ValueError(f"X {tuple(X.shape)} does not match A {A.shape}")
-    if X.device.type == "cpu":
-        return bell_spmm_ref(A, X)
-    return _bell_launch(bell_spmm, "spmm", A, X, X.shape[1])
+    return _public(A, X)
 
 
 bell_spmm.launches = 0
+
+
+class BELLSpMM:
+    """y = A x and Y = A X for one BELLMatrix, its storage checked once
+    (contiguous, where it lies on the card).
+
+    A call checks x's type, shape, 16-byte alignment, device and
+    contiguity against the plans it has bound, then makes one stream
+    lookup and one foreign call to the kernel of ``csrc/bell_spmv.cu``,
+    counted on ``bell_spmv.launches`` for a vector and
+    ``bell_spmm.launches`` for a panel; a CPU x takes the plain version,
+    and a strided x is copied first, as the public wrappers do.
+    An in-place change of the data is seen by the next call; new tensors
+    in the matrix need a new ``BELLSpMM``.
+    """
+
+    def __init__(self, A):
+        self._storage = _check_storage(A)
+        if A.data.is_cuda and not (A.data.is_contiguous()
+                                   and A.indices.is_contiguous()):
+            raise ValueError("BELL data and indices on the card must be "
+                             "contiguous")
+        self.A, self.data, self.indices = A, A.data, A.indices
+        self.device = A.data.device
+        self._plans = {}
+
+    def __call__(self, X):
+        plan = self._plans.get((X.dtype, X.shape, not X.data_ptr() & 15))
+        if plan is None or X.device != self.device \
+                or not X.is_contiguous():
+            return self._bind(X)
+        return _launch(plan, X, self.device)
+
+    def _bind(self, X):
+        _check_x(self.A, X)
+        if X.device.type == "cpu":
+            return bell_spmv_ref(self.A, X) if X.dim() == 1 \
+                else bell_spmm_ref(self.A, X)
+        X = X.contiguous()
+        plan = self._plans[X.dtype, X.shape, not X.data_ptr() & 15] = \
+            _plan_args(self.A, X, self._storage)
+        return _launch(plan, X, self.device)

@@ -225,3 +225,132 @@ def test_block_solvers_over_a_bell_operator():
     Xm, sm = kt.block_minres(A, torch.as_tensor(B), atol=0.0, rtol=1e-10)
     assert sm.solved and np.linalg.norm(B - A.matmat(Xm).numpy()) \
         <= 1e-8 * np.linalg.norm(B)
+
+
+_TYPES = [torch.float32, torch.float64, torch.bfloat16, torch.float16,
+          torch.complex64, torch.complex128]
+_IDS = lambda v: str(v).replace("torch.", "")  # noqa: E731
+
+
+def _itemsize(dtype):
+    return torch.empty((), dtype=dtype).element_size()
+
+
+@pytest.mark.parametrize("dtype", _TYPES, ids=_IDS)
+@pytest.mark.parametrize("bs", [6, 8, 24, 128])
+def test_bell_plan_copies_wide_only_whole_aligned_words(dtype, bs):
+    """The kernel copies 16 bytes at a time where a block's rows are whole
+    16-byte words and data and x are aligned, element by element
+    otherwise (bs = 6 in f32, bf16 and f16; any misaligned pointer); slab
+    rows are padded to an odd number of 16-byte words, so that a warp's
+    16-byte reads of its own rows hit distinct banks."""
+    size = _itemsize(dtype)
+    whole = (bs * size) % 16 == 0
+    for p in (1, 2, 3, 4, 5, 8, 9, 130):
+        for aligned in (True, False):
+            plan = ts.bell_plan(bs, size, p, aligned)
+            assert plan.wide == (aligned and whole)
+            assert plan.ld >= bs and (plan.ld * size) % 16 == 0
+            assert (plan.ld * size // 16) % 2 == 1
+            assert plan.ld * size < bs * size + 32
+    assert ts.bell_plan(6, 4, 1, True).wide is False
+    assert ts.bell_plan(6, 8, 1, True).wide is True
+
+
+@pytest.mark.parametrize("dtype", _TYPES, ids=_IDS)
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_bell_plan_fills_the_card_at_small_block_counts(dtype, p):
+    """At 96 block rows of 128 the grid has at least two blocks for each
+    of the H100's 132 SMs (the earlier kernel ran one block per block
+    row), at 1024 several waves of them, at 5 what 5 block rows give; a
+    block runs at most 256 threads, its tile's words split over up to 8
+    lanes."""
+    size = _itemsize(dtype)
+    for nbr in (5, 96, 1024):
+        plan = ts.bell_plan(128, size, p, True, nbr, ts.H100_SMS)
+        assert plan.cols == (1 if p == 1 else 4 if p == 4 else 8)
+        assert plan.threads <= 256 and plan.parts <= 8
+        assert plan.rows >= 16 or plan.rows * 128 * size >= 32768
+        if nbr >= 96:
+            assert plan.blocks(nbr, 128, p) >= 2 * ts.H100_SMS
+    assert ts.bell_plan(128, size, p, True, 1024).blocks(1024, 128, p) \
+        >= 4 * ts.H100_SMS
+
+
+@pytest.mark.parametrize("dtype", _TYPES, ids=_IDS)
+@pytest.mark.parametrize("bs", [6, 128, 256, 1024])
+def test_bell_plan_fits_shared_memory(dtype, bs):
+    """Every plan keeps the kernel's ring of two stages within sm_90's
+    227 KB per block, complex128 at bs = 1024 and 130 columns included,
+    by cutting rows per slab, then the tile width, with at most 512
+    threads (a tile of outputs each, the kernel's TileRows × TileCols);
+    the shared bytes are the kernel's layout (csrc/bell_spmv.cu
+    shared_bytes): 2 × (rows + cols) rows of ld elements."""
+    size = _itemsize(dtype)
+    for p in (1, 2, 3, 4, 5, 8, 9, 130):
+        plan = ts.bell_plan(bs, size, p, True)
+        tile_rows, tile_cols = ts._TILE[plan.cols]
+        assert ts.STAGES == 2 and 1 <= plan.rows <= bs + 1
+        assert plan.rows % tile_rows == 0 and plan.threads <= 512
+        assert plan.parts in (1, 2, 4, 8, 16, 32)
+        assert plan.parts <= -(-bs * size // 16)
+        assert plan.threads == -(-plan.rows // tile_rows * plan.parts
+                                 * (plan.cols // tile_cols) // 32) * 32
+        want = 2 * (plan.rows + plan.cols) * plan.ld * size
+        assert plan.shared == want <= ts.SHARED_BYTES == 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        ts.bell_plan(1 << 14, 16, 1, True)
+
+
+def test_bell_operator_binds_its_products_once_on_the_cpu():
+    """BELLOperator's bound products on the CPU: the plain versions (no
+    launch counted), an in-place change of the data seen by the next
+    product, an x of another type checked again and multiplied in its
+    type, a wrong shape refused, and new tensors in the matrix bound
+    again."""
+    data, idx, rng = _block_tridiagonal(3, 8)
+    A = bell_from_numpy(data, idx, (24, 24), 8, device="cpu")
+    op = kt.BELLOperator(A)
+    x = torch.as_tensor(rng.standard_normal(24))
+    X = torch.as_tensor(rng.standard_normal((24, 3)))
+    counts = (kt.bell_spmv.launches, kt.bell_spmm.launches)
+    assert torch.equal(op.matvec(x), ts.bell_spmv_ref(A, x))
+    assert torch.equal(op.matmat(X), ts.bell_spmm_ref(A, X))
+    bound = op._product(A)
+    assert op._product(A) is bound and isinstance(bound, ts.BELLSpMM)
+    y0 = op.matvec(x)
+    A.data.mul_(2.0)
+    y1 = op.matvec(x)
+    assert torch.equal(y1, 2.0 * y0)
+    assert torch.equal(y1, ts.bell_spmv_ref(A, x))
+    x32 = x.float()
+    y32 = op.matvec(x32)
+    assert y32.dtype == torch.float32
+    assert torch.equal(y32, ts.bell_spmv_ref(A, x32))
+    with pytest.raises(ValueError, match="does not match"):
+        op.matvec(torch.ones(23, dtype=torch.float64))
+    A.data = A.data * 0.5
+    assert op._product(A) is not bound
+    assert torch.equal(op.matvec(x), ts.bell_spmv_ref(A, x))
+    assert (kt.bell_spmv.launches, kt.bell_spmm.launches) == counts
+
+
+def test_bell_storage_is_checked_once():
+    """BELLSpMM refuses storage that does not make the matrix its shape
+    says; the public wrappers check x on every call."""
+    data, idx, _ = _block_tridiagonal(2, 8)
+    A = bell_from_numpy(data, idx, (16, 16), 8, device="cpu")
+    with pytest.raises(ValueError, match="do not make"):
+        ts.BELLSpMM(ts.BELLMatrix(A.data, A.indices, (17, 16), 8))
+    with pytest.raises(ValueError, match="do not make"):
+        ts.BELLSpMM(ts.BELLMatrix(A.data, A.indices[:, :2], (16, 16), 8))
+    with pytest.raises(ValueError, match="one device"):
+        ts.BELLSpMM(ts.BELLMatrix(A.data, A.indices.long(), (16, 16), 8))
+    prod = ts.BELLSpMM(A)
+    v = torch.ones(16, dtype=torch.float64)
+    assert torch.equal(prod(v), ts.bell_spmv_ref(A, v))
+    assert torch.equal(prod(v[:, None]), ts.bell_spmm_ref(A, v[:, None]))
+    W = torch.arange(48, dtype=torch.float64).reshape(16, 3)
+    assert torch.equal(prod(W[:, 1:]), ts.bell_spmm_ref(A, W[:, 1:]))
+    with pytest.raises(ValueError, match="does not match"):
+        kt.bell_spmm(A, v)

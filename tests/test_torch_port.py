@@ -1826,14 +1826,17 @@ def test_block_gmres_kernel_matches_plain_on_card(N, dtype, p, mem, basis,
 
 
 def _bell_operands(dtype, bs, nb, m, n, seed=26):
-    """A random BELL of nb block rows (2 slots, the second a padding slot
-    in the last row) and its dense copy, m × n (ragged edges)."""
+    """A random BELL of nb block rows, m × n (ragged edges): 4 slots, so
+    that the kernel's ring of two stages takes a second slab into each
+    stage, block columns i, i + 1, i + 2 and i + 3 (modulo the block
+    columns, so a few block columns repeat in a row), slot 2 of the last
+    row a padding slot."""
     rng = np.random.default_rng(seed)
     nbc = -(-n // bs)
-    data = rng.standard_normal((nb, 2, bs, bs)) / bs
-    idx = np.stack([np.arange(nb) % nbc, (np.arange(nb) + 1) % nbc], 1)
-    data[-1, 1] = 0.0
-    idx[-1, 1] = 0
+    data = rng.standard_normal((nb, 4, bs, bs)) / bs
+    idx = (np.arange(nb)[:, None] + np.arange(4)) % nbc
+    data[-1, 2] = 0.0
+    idx[-1, 2] = 0
     if dtype.is_complex:
         data = data * (1.0 + 0.5j)
     A = kt.BELLMatrix(torch.as_tensor(data).to("cuda", dtype),
@@ -1842,30 +1845,84 @@ def _bell_operands(dtype, bs, nb, m, n, seed=26):
     return A, rng
 
 
+def _misaligned(X):
+    """A contiguous copy of X that starts one element past an allocation,
+    so that its address is off a 16-byte boundary for elements narrower
+    than 16 bytes."""
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=X.device)
+    return buf[1:].view(X.shape).copy_(X)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, 1e-5), (torch.float64, 1e-12), (torch.bfloat16, 2e-2),
     (torch.float16, 2e-3), (torch.complex64, 1e-5),
     (torch.complex128, 1e-12)], ids=lambda v: str(v).replace("torch.", ""))
-@pytest.mark.parametrize("bs,nb,m,n", [(8, 7, 53, 50), (128, 5, 640, 600)])
+@pytest.mark.parametrize("bs,nb,m,n", [
+    (6, 7, 40, 39), (8, 7, 53, 50), (24, 9, 210, 200), (128, 5, 640, 600),
+    (128, 1100, 140750, 140700)])
 def test_bell_kernels_match_plain_on_card(dtype, tol, bs, nb, m, n):
-    """bell_spmv and bell_spmm (p = 1, 4, 8, 130) against their plain
-    versions on the same blocks: max |Δ| ≤ tol · max|y|, tol a few ulps
+    """bell_spmv and bell_spmm against their plain versions on the same
+    blocks, every variant of the kernel: blocks of 6 (rows of f32, bf16
+    and f16 not whole 16-byte words: element copies), 8, 24 and 128;
+    ragged m and n; p = 1, 2, 3, 4, 5, 8, 9 and 130 (tiles of 1, 2, 4 and
+    8 columns, x's segment one run or gathered); x as a view off a
+    16-byte boundary (element copies); 5 block rows, which leave SMs
+    idle, and 1100, several waves; 4 slots per block row, so that every
+    variant writes each stage of its ring twice, one of them a padding
+    slot.  max |Δ| ≤ tol · max|y|, tol a few ulps
     of the accumulation type summed over a block row (f32 for f32, bf16
     and f16, whose outputs round to one ulp of the narrow type)."""
     _card()
     A, rng = _bell_operands(dtype, bs, nb, m, n)
     x = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    y_r = cspmv.bell_spmv_ref(A, x)
     n0 = kt.bell_spmv.launches
     y = kt.bell_spmv(A, x)
     assert kt.bell_spmv.launches == n0 + 1 and y.shape == (m,)
-    assert _rel(y, cspmv.bell_spmv_ref(A, x)) <= tol
-    for p in (1, 4, 8, 130):
+    assert _rel(y, y_r) <= tol
+    xm = _misaligned(x)
+    assert xm.data_ptr() % 16 != 0 or x.element_size() == 16
+    assert _rel(kt.bell_spmv(A, xm), y_r) <= tol
+    for p in (1, 2, 3, 4, 5, 8, 9, 130):
         X = torch.as_tensor(rng.standard_normal((n, p))).to("cuda", dtype)
+        Y_r = cspmv.bell_spmm_ref(A, X)
         n0 = kt.bell_spmm.launches
         Y = kt.bell_spmm(A, X)
         assert kt.bell_spmm.launches == n0 + 1 and Y.shape == (m, p)
-        assert _rel(Y, cspmv.bell_spmm_ref(A, X)) <= tol
+        assert _rel(Y, Y_r) <= tol
+        if p in (1, 4, 9):
+            assert _rel(kt.bell_spmm(A, _misaligned(X)), Y_r) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.complex128],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_bell_kernels_give_the_same_bits_twice(dtype):
+    """Each output is summed in a fixed order (one tree of partial sums),
+    so two runs of a product give equal bits, and BELLOperator's bound
+    plan gives the public wrappers' bits with one launch per product, a
+    strided panel too."""
+    _card()
+    A = _bell_tridiagonal(96, 128, dtype, 30)
+    op = kt.BELLOperator(A)
+    rng = np.random.default_rng(31)
+    for p in (1, 4, 8, 130):
+        X = torch.as_tensor(rng.standard_normal(
+            (A.shape[1], p) if p > 1 else A.shape[1])).to("cuda", dtype)
+        call = kt.bell_spmv if p == 1 else kt.bell_spmm
+        name = "bell_spmv" if p == 1 else "bell_spmm"
+        Y1, Y2 = call(A, X), call(A, X)
+        n0 = kt.kernel_launches()[name]
+        Y3 = op.matvec(X) if p == 1 else op.matmat(X)
+        Y4 = op.matvec(X) if p == 1 else op.matmat(X)
+        assert kt.kernel_launches()[name] == n0 + 2
+        for Y in (Y2, Y3, Y4):
+            assert torch.equal(Y1, Y)
+        if p > 1:
+            wide = torch.cat([X, X], 1)
+            assert torch.equal(op.matmat(wide[:, p:]), Y1)
 
 
 @pytest.mark.cuda
