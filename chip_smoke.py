@@ -308,10 +308,11 @@ def bell_device_ms_in_own_process():
     return json.loads(lines[-1])
 
 
-def profile_solve(solve, top=10):
-    """Device time by kernel over one call of ``solve`` (a default solve,
-    run once before as a warm-up), and the device's busy share of its
-    wall time (torch.profiler; CUPTI kernel records)."""
+def solve_profile(solve):
+    """One call of ``solve`` (a default solve, run once before as a
+    warm-up) under the profiler (CUPTI kernel records): (stats, wall us,
+    device busy us, [(device us, calls, kernel)]), or None where the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     solve()
     torch.cuda.synchronize()
@@ -330,13 +331,24 @@ def profile_solve(solve, top=10):
         # kernels and copies count
         if dev_us > 0 and not e.key.startswith("aten::"):
             rows.append((dev_us, e.count, e.key))
-    busy_us = sum(r[0] for r in rows)
     if not rows:
+        return None
+    return stats, wall_us, sum(r[0] for r in rows), sorted(rows,
+                                                            reverse=True)
+
+
+def profile_solve(solve, top=10):
+    """Device time by kernel over one call of ``solve`` (a default solve,
+    run once before as a warm-up), and the device's busy share of its
+    wall time (torch.profiler; CUPTI kernel records)."""
+    prof = solve_profile(solve)
+    if prof is None:
         print("  profiler saw no device time", flush=True)
         return
+    stats, wall_us, busy_us, rows = prof
     print(f"  niter={stats.niter} wall_us={wall_us:.1f} device_busy_us="
           f"{busy_us:.1f} busy_share={busy_us / wall_us:.3f}", flush=True)
-    for dev_us, count, key in sorted(rows, reverse=True)[:top]:
+    for dev_us, count, key in rows[:top]:
         print(f"  {dev_us:12.1f} us {count:7d} calls {dev_us / count:9.2f} "
               f"us/call  {key[:90]}", flush=True)
 
@@ -3748,11 +3760,89 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def import_root(root):
+    """The krylov_tpu_torch of checkout ROOT, imported in its place of
+    this checkout's."""
+    from pathlib import Path
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import krylov_tpu_torch as kt
+    if Path(kt.__file__).resolve().parent != root / "krylov_tpu_torch":
+        raise RuntimeError(f"imported {kt.__file__}, not ROOT's package")
+    return root, kt
+
+
+def two_sided_main(root):
+    """``python3 chip_smoke.py --two-sided ROOT``: the BiLQ, QMR and BiLQR
+    kernels of the krylov_tpu_torch in checkout ROOT at 128^3 f64 on
+    phase 3f's inputs (convdiff_dia(128), its seeded b and c, rtol
+    1e-10, itmax 2n), as one JSON line: each solve's ms by CUDA events
+    (one warm-up, three timed), niter, status code and us per iteration,
+    and from one profiled solve the device's busy share and each kernel's
+    device us and calls.  ``--compare`` runs it in a process of its own,
+    whose profiler traces keep their records (PERF.md section 7)."""
+    _, kt = import_root(root)
+    from krylov_tpu_torch import _build
+    from krylov_tpu_torch.ops import cuda_fused as cf
+    from krylov_tpu_torch.ops.cuda_dia import dia_align, offsets_tensor
+    _build.library()
+    # phase 3f's draws: b and c of 128^3, of 64^3, then of 128^3 in f64
+    gen = np.random.default_rng(SEED + 8)
+    for n in (128 ** 3, 128 ** 3, 64 ** 3, 64 ** 3):
+        gen.standard_normal(n)
+    n = 128 ** 3
+    dt = torch.float64
+    b = torch.as_tensor(gen.standard_normal(n)).to("cuda", dt)
+    c = torch.as_tensor(gen.standard_normal(n)).to("cuda", dt)
+    A = kt.convdiff_dia(128, dtype=dt)
+    pd = dia_align(A.data, A.offsets, n)
+    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+    ot, ota = offsets_tensor(A.offsets, "cuda"), offsets_tensor(offa, "cuda")
+    del A
+    tol = (0.0, 1e-10, 2 * n)
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
+    for name, args in (("bilq", (pd, pda, ot, ota, b) + tol + (True,)),
+                       ("qmr", (pd, pda, ot, ota, b) + tol),
+                       ("bilqr", (pd, pda, ot, ota, b, c) + tol + (True,))):
+        kernel = getattr(cf, name + "_dia_fused")
+        res = kernel(*args)
+        two = name == "bilqr"
+        niter = int(res[2 if two else 1])
+        ms = event_ms(lambda: kernel(*args), reps=3, warmup=1)
+        prof = solve_profile(lambda: (None, kernel(*args)))
+        row = dict(ms=ms, niter=niter, status=int(res[5 if two else 3]),
+                   us_per_iter=1e3 * ms / max(niter, 1))
+        if prof is not None:
+            _, wall_us, busy_us, rows = prof
+            row.update(busy_share=busy_us / wall_us, device_us=busy_us,
+                       kernels={key[:80]: [dev_us, count]
+                                for dev_us, count, key in rows[:8]})
+        out[name] = row
+    print(json.dumps(out), flush=True)
+
+
+def two_sided_in_own_process(root):
+    """``two_sided_main``'s line for ROOT, from a process of its own; {}
+    where that process fails (its error printed)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--two-sided", str(root)], capture_output=True,
+                         text=True, timeout=600)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or not lines:
+        print(f"  --two-sided failed ({run.returncode}): "
+              f"{run.stderr[-2000:]}", file=sys.stderr, flush=True)
+        return {}
+    return json.loads(lines[-1])
+
+
 def compare_main(root):
-    """``python3 chip_smoke.py --compare ROOT``: the SpMV layer of the
-    krylov_tpu_torch in checkout ROOT (this one, or another commit's
-    package unpacked beside it, to compare the two in one run on one
-    card) on the main path's inputs, as one JSON line: CUDA-event ms,
+    """``python3 chip_smoke.py --compare ROOT``: the SpMV layer and the
+    two-sided whole-solve kernels of the krylov_tpu_torch in checkout
+    ROOT (this one, or another commit's package unpacked beside it, to
+    compare the two in one run on one card) on the main path's inputs,
+    as one JSON line: CUDA-event ms,
     profiled device ms and host us per call of the DIA SpMV at 128^3 f32
     and 64^3 f64 (the public wrapper and DIAOperator.matvec), of the SPD
     FEM band's SELL remainder product and its hybrid product (n = 2^17
@@ -3762,13 +3852,9 @@ def compare_main(root):
     f64: the public wrapper's and BELLOperator's ms, the latter's device
     ms and host us, the public wrapper's host us, the library's BSR
     product's ms and the byte bound, and the kernel's largest difference
-    from the BSR product relative to max |y|."""
-    from pathlib import Path
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
-    import krylov_tpu_torch as kt
-    if Path(kt.__file__).resolve().parent != root / "krylov_tpu_torch":
-        raise RuntimeError(f"imported {kt.__file__}, not ROOT's package")
+    from the BSR product relative to max |y|; and, under "two-sided",
+    ``two_sided_main``'s line: BiLQ, QMR and BiLQR at 128^3 f64."""
+    root, kt = import_root(root)
     from krylov_tpu_torch import _build
     from krylov_tpu_torch.ops import cuda_sell as csell
     from krylov_tpu_torch.ops.cuda_dia import (dia_align, dia_spmv_aligned,
@@ -3845,6 +3931,7 @@ def compare_main(root):
     ms_c, it_c = solve_ms(lambda: kt.cg(kt.CSROperator(fem_spd), x))
     out["cg(csr, b)"] = dict(ms=ms, niter=it, csroperator_ms=ms_c,
                              csroperator_niter=it_c)
+    out["two-sided"] = two_sided_in_own_process(root)
     print(json.dumps(out), flush=True)
 
 
@@ -3853,6 +3940,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")
         compare_main(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--two-sided":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        two_sided_main(sys.argv[2])
     elif sys.argv[1:] == ["--bell-device"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

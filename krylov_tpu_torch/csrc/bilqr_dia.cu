@@ -14,29 +14,41 @@
 // breakdown.
 //
 // Bound on an H100 SXM: memory bandwidth.  An iteration applies A and
-// A^H once each (2 x 56 B per row in f64 for the 7-point stencil) and
-// must read v_k, u_k, v_{k-1}, u_{k-1}, x, d_bar, y, w_{k-2} and w_{k-3}
-// and write v_{k+1}, u_{k+1}, x, d_bar, y and w_{k-1}: (112 + 120) B per
-// row in f64, 232 B.
+// A^H once each (2 x 7 diagonals for the 7-point stencil) and must read
+// v_k, u_k, v_{k-1}, u_{k-1}, x, d_bar, y, w_{k-2} and w_{k-3} and write
+// v_{k+1}, u_{k+1}, x, d_bar, y and w_{k-1}: 14 + 15 words per row,
+// 116 B in f32, 232 B in f64.
 //
-// Design: the launches of bilanczos.cuh (the stencil launch also takes
-// the partials of <u_k, u_k> for the dual residual), then
-//   3. br_next    (grid)     beta_{k+1}, gamma_{k+1}; this iteration's
-//                            rotation (from the last iteration's
-//                            scalars, in one thread of each block); the
-//                            primal x and d_bar updates; the dual
-//                            direction w_{k-1} from u_{k-1}, which the
-//                            stencil launch left whole, and y; v_{k+1}
-//                            and u_{k+1} in place of q and p; partials
-//                            of <v_k, v_{k+1}> and ||v_{k+1}||^2
-//   4. br_scalars (1 block)  the rest of both chains, the nine flags and
-//                            the status, in one thread, branch for
-//                            branch as the TPU kernel
+// Design: the fused launches of bilanczos.cuh (its note says where
+// v_{k+1} and u_{k+1} are normalised and in which order the dots are
+// summed; the stencil also takes the partials of <u_k, u_k> for the
+// dual residual), three per iteration:
+//   1. fused_stencil (grid)     q, p, partials of <u_k, q>, <u_k, u_k>
+//   2. br_fused      (grid)     alpha; q -= alpha v_k, p -= alpha u_k;
+//                               partials of <p, q>, <v_k, q>, ||q||^2
+//                               and ||v_k||^2; this iteration's rotation
+//                               (from the last iteration's scalars, in
+//                               one thread of each block); the primal x
+//                               and d_bar updates; the dual direction
+//                               w_{k-1} from u_{k-1} and y
+//   3. br_scalars    (1 block)  beta_{k+1}, gamma_{k+1}; <v_k, v_{k+1}>
+//                               = <v_k, q> / beta_{k+1} and
+//                               ||v_{k+1}||^2 = ||q||^2 / beta_{k+1}^2
+//                               (||v_k||^2 for both where <p, q> = 0);
+//                               the rest of both chains, the nine flags
+//                               and the status, in one thread, branch for
+//                               branch as the TPU kernel
 // and one finishing launch after the loop, x += zeta_bar d_bar where the
-// BiCG point solved the primal system.  w_{k-1} overwrites w_{k-3} in
-// its buffer row by row, so two buffers hold the dual recurrence.  Per
-// iteration this design moves (112 + 56) + 48 + (136 + 16) B per row in
-// f64: 368 B.
+// BiCG point solved the primal system.  Where <p, q> = 0 after the
+// primal system is solved, the dual goes on with v_{k+1} = v_k and
+// u_{k+1} = u_k, which the next stencil copies (bilanczos.cuh).  w_{k-1}
+// overwrites w_{k-3} in its buffer row by row, so two buffers hold the
+// dual recurrence.  Bytes per row and iteration: the stencil 2 x 7
+// diagonals, v_k, u_k, v_{k-1}, u_{k-1} read and q, p written (20
+// words), the fused launch q, p, v_k, u_k, x, d_bar, u_{k-1}, w_{k-2},
+// w_{k-3}, y read and q, p, x, d_bar, w_{k-1}, y written (16 words):
+// 144 B in f32 (bound 116), 288 B in f64 (bound 232).  On BiLQ's
+// four launches BiLQR would move 368 B in f64.
 #include "bilanczos.cuh"
 
 namespace {
@@ -44,12 +56,12 @@ namespace {
 using namespace bilanczos;
 
 enum ScalarSlot {
-  EPSL = GAMMA1 + 1, EPSQ, C_KM1, S_KM1, DBAR_KM1, ZETA_KM1, ZETA_KM2,
+  EPSL = NFUSED_SLOTS, EPSQ, C_KM1, S_KM1, DBAR_KM1, ZETA_KM1, ZETA_KM2,
   ETA_KM1, ZETABAR, PSIBAR_KM1, EPS_KM3, LAM_KM2, NORM_VK, TAU, RNORM, SNORM,
   CK, SK, ZKM1N, NSC
 };
 enum IntSlot {
-  SP = GO + 1, SD, LQ_T, LQ_M, CG_T, CG_M, QR_T, QR_M, CGFLAG, BRK, NST
+  SP = NFUSED_INTS, SD, LQ_T, LQ_M, CG_T, CG_M, QR_T, QR_M, CGFLAG, BRK, NST
 };
 enum OwnRow { X = NSHARED_ROWS, Y, DBAR, W0, W1, NROWS };
 
@@ -62,12 +74,13 @@ __device__ __forceinline__ int wkm3_row(int it0) { return W0 + it0 % 2; }
 // state (pallas_fused.py:7455-7475).
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-br_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st) {
-  const T bb = sum_partials(partial + PUQ * nparts, nparts);
+br_init_scalars(const Dot* __restrict__ partial, int nparts, T* sc,
+                int* st) {
+  const T bb = sum_partials_in<T>(partial + PUQ * nparts, nparts);
   __syncthreads();
-  const T cc = sum_partials(partial + PUU * nparts, nparts);
+  const T cc = sum_partials_in<T>(partial + PUU * nparts, nparts);
   __syncthreads();
-  const T chb = sum_partials(partial + PPQ * nparts, nparts);
+  const T chb = sum_partials_in<T>(partial + PPQ * nparts, nparts);
   if (threadIdx.x != 0) return;
   const T bnorm = sqrt(bb);
   const T cnorm = sqrt(cc);
@@ -75,6 +88,7 @@ br_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st) {
   sc[BETA] = beta;
   sc[GAMMA] = chb / safe(beta);
   sc[ALPHA] = sc[PHQ] = sc[BETA1] = sc[GAMMA1] = T(0);
+  fused_init_state(sc, st);
   sc[EPSL] = sc[ATOL] + sc[RTOL] * bnorm;
   sc[EPSQ] = sc[ATOL] + sc[RTOL] * cnorm;
   sc[C_KM1] = T(-1);
@@ -116,17 +130,16 @@ __device__ __forceinline__ Pre<T> pre_step(const T* sc, const int* st,
   return r;
 }
 
-// 3. beta_{k+1}, gamma_{k+1}; x, d_bar, w_{k-1} and y; v_{k+1} and
-// u_{k+1}; partials of <v_k, v_{k+1}> and ||v_{k+1}||^2.
+// 2. alpha, q and p, the partials of <p, q>, <v_k, q>, ||q||^2 and
+// ||v_k||^2; x, d_bar, w_{k-1} and y.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-br_next(T* __restrict__ work, T* __restrict__ partial, T* sc, const int* st,
-        long long n) {
+br_fused(T* __restrict__ work, Dot* __restrict__ partial, T* sc,
+         const int* st, long long n) {
   if (!st[GO]) return;
-  T phq, beta1, gamma1;
-  bi_next_scalars(partial, sc, phq, beta1, gamma1);
   const int it0 = st[IT];
   const int it = it0 + 1;
+  const AlphaRows<T> lz(work, partial, sc, it0, n);
   __shared__ Pre<T> pre;
   if (threadIdx.x == 0) pre = pre_step(sc, st, it);
   __syncthreads();
@@ -144,58 +157,66 @@ br_next(T* __restrict__ work, T* __restrict__ partial, T* sc, const int* st,
   const T y_add = pre.y_add;
   const T lam_km2 = sc[LAM_KM2];
   const T eps_km3 = sc[EPS_KM3];
-  const T* vk = row(work, V0 + cur(it0), n);
   const T* ukm1 = row(work, U0 + prev(it0), n);
+  const DividedBy<T> fum(sc[DU0 + prev(it0)]);
+  const DividedBy<T> fd(d);
   const T* wkm2 = row(work, wkm2_row(it0), n);
   T* wkm3 = row(work, wkm3_row(it0), n);
   T* x = row(work, X, n);
   T* y = row(work, Y, n);
   T* dbar = row(work, DBAR, n);
-  T svv = T(0);
-  T snn = T(0);
+  T t[3] = {T(0), T(0), T(0)};
+  Dot qq = Dot(0);
   for (long long i = first_row(); i < n; i += row_stride()) {
-    const T vi = vk[i];
+    const auto lv = lz.load(i);
     const T di = dbar[i];
-    x[i] = x[i] + a * di + bcoef * vi;
-    if (pm) dbar[i] = it == 1 ? vi : sk * di - ck * vi;
-    const T ui = ukm1[i];
+    const T xi = x[i];
+    const T um = ukm1[i];
     const T w2i = wkm2[i];
     const T w3i = wkm3[i];
-    const T w = it == 2 ? ui / d
-                : (it == 3 ? (ui - lam_km2 * w2i) / d
-                           : (ui - lam_km2 * w2i - eps_km3 * w3i) / d);
-    y[i] = y[i] + y_add * w;
+    const T yi = y[i];
+    const T vi = lz.step(i, lv, t, qq);
+    x[i] = xi + a * di + bcoef * vi;
+    if (pm) dbar[i] = it == 1 ? vi : sk * di - ck * vi;
+    const T ui = fum(um);
+    const T w = fd(it == 2 ? ui
+                   : (it == 3 ? ui - lam_km2 * w2i
+                              : ui - lam_km2 * w2i - eps_km3 * w3i));
+    y[i] = yi + y_add * w;
     // w_{k-3} <- w_{k-2}, w_{k-2} <- w_{k-1} from the second iteration on
     wkm3[i] = it >= 2 ? w : w3i;
-    const T vn = bi_next_row(work, it0, n, i, phq, beta1, gamma1);
-    svv += vi * vn;
-    snn += vn * vn;
   }
-  const int nparts = gridDim.x;
-  store_partials(svv, partial + PVV * nparts, snn, partial + PNN * nparts);
+  store_alpha_partials(t, qq, partial);
 }
 
-// 4. The rest of the primal and dual chains, the flags and the status
-// (pallas_fused.py:7506-7618).
+// 3. beta_{k+1}, gamma_{k+1}, the rest of the primal and dual chains,
+// the flags and the status (pallas_fused.py:7506-7618).
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-br_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
+br_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
            int transfer_to_bicg) {
   if (!st[GO]) return;
-  const T uu = sum_partials(partial + PUU * nparts, nparts);
-  __syncthreads();
-  const T vhv = sum_partials(partial + PVV * nparts, nparts);
-  __syncthreads();
-  const T nn = sum_partials(partial + PNN * nparts, nparts);
+  const LanczosSums<T> sums = lanczos_sums<T>(partial, nparts);
   if (threadIdx.x != 0) return;
-  const int it = st[IT] + 1;
+  const int it0 = st[IT];
+  const int it = it0 + 1;
+  const T uu = sums.uu;
+  const T phq = sums.phq;
+  const T beta1 = sqrt(fabs(phq));
+  const T gamma1 = phq / safe(beta1);
+  // <v_k, v_{k+1}> = <v_k, q> / beta_{k+1} and ||v_{k+1}||^2 =
+  // ||q||^2 / beta_{k+1}^2 (in double), ||v_k||^2 for both where
+  // <p, q> = 0
+  const bool nz = phq != T(0);
+  const T b1 = safe(beta1);
+  const Dot bd = b1;
+  const T vhv = nz ? sums.vq / b1 : sums.vv;
+  const T nn = nz ? static_cast<T>(sums.qq / (bd * bd)) : sums.vv;
   const bool is1 = it == 1;
   const bool is2 = it == 2;
   const T beta = sc[BETA];
   const T gamma = sc[GAMMA];
   const T alpha = sc[ALPHA];
-  const T phq = sc[PHQ];
-  const T beta1 = sc[BETA1];
   const T c_km1 = sc[C_KM1];
   const T s_km1 = sc[S_KM1];
   const T ck = sc[CK];
@@ -256,8 +277,6 @@ br_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
   const int cgflag =
       st[CGFLAG] == 1 || (solved_cg && pm && !solved_lq) ? 1 : st[CGFLAG];
 
-  sc[BETA] = beta1;
-  sc[GAMMA] = sc[GAMMA1];
   sc[C_KM1] = ck;
   sc[S_KM1] = sk;
   sc[DBAR_KM1] = dbar_k;
@@ -282,6 +301,7 @@ br_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
   st[QR_M] = qr_m;
   st[CGFLAG] = cgflag;
   st[BRK] = brk ? 1 : 0;
+  commit_lanczos(sc, st, it0, phq, beta1, gamma1);
   st[IT] = it;
   st[STATUS] = code;
 }
@@ -304,17 +324,17 @@ struct Bilqr {
   static constexpr int kRows = NROWS - NSHARED_ROWS;
   static constexpr int kWithUU = 1;
   template <typename T>
-  static void init_scalars(T* partial, int grid, T* sc, int* st,
+  static void init_scalars(Dot* partial, int grid, T* sc, int* st,
                            cudaStream_t s) {
     br_init_scalars<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st);
   }
   template <typename T>
-  static void next(T* work, T* partial, T* sc, int* st, long long n,
-                   int grid, int, cudaStream_t s) {
-    br_next<T><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n);
+  static void fused(T* work, Dot* partial, T* sc, int* st, long long n,
+                    int grid, cudaStream_t s) {
+    br_fused<T><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n);
   }
   template <typename T>
-  static void scalars(T* partial, int grid, T* sc, int* st, int flag,
+  static void scalars(Dot* partial, int grid, T* sc, int* st, int flag,
                       cudaStream_t s) {
     br_scalars<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st, flag);
   }
@@ -335,19 +355,20 @@ int finish(void* work, const void* sc, const void* st, long long n, int grid,
   extern "C" int NAME(const void* b, const void* c, void* work,              \
                       void* partial, void* sc, void* st, long long n,        \
                       int grid, void* stream) {                              \
-    return bilanczos::init<T, Bilqr>(b, c, work, partial, sc, st, n, grid,   \
-                                     stream);                                \
+    return bilanczos::init<T, Bilqr, Dot>(b, c, work, partial, sc, st, n,    \
+                                          grid, stream);                     \
   }
 
 #define KTT_BR_ITERATE(NAME, T, P)                                            \
   extern "C" int NAME(const void* pd, const void* offsets, int nd,           \
                       const void* pda, const void* offsets_a, int nda,       \
-                      void* work, void* partial, void* sc, void* st,         \
-                      long long n, int grid, int flag, int iters, int cap,   \
-                      void* stream) {                                        \
-    return bilanczos::iterate<T, P, Bilqr>(pd, offsets, nd, pda, offsets_a,  \
-                                           nda, work, partial, sc, st, n,    \
-                                           grid, flag, iters, cap, stream);  \
+                      long long lo, long long hi, long long lo_a,            \
+                      long long hi_a, void* work, void* partial, void* sc,   \
+                      void* st, long long n, int grid, int flag, int iters,  \
+                      int cap, void* stream) {                               \
+    return bilanczos::iterate_fused<T, P, Bilqr>(                              \
+        pd, offsets, nd, pda, offsets_a, nda, lo, hi, lo_a, hi_a, work,      \
+        partial, sc, st, n, grid, flag, iters, cap, stream);                 \
   }
 
 #define KTT_BR_FINISH(NAME, T)                                                \

@@ -1,11 +1,14 @@
 // Helpers shared by the port's CUDA kernels: element conversions, the
-// masked DIA stencil row, and block-wide sums whose order is fixed by the
-// grid and block shape alone, so that two runs of a kernel give the same
-// bits.
+// masked DIA stencil row, the wide DIA rows of dia_spmv.cu and the
+// two-sided stencil of bilanczos.cuh, and block-wide sums whose order is
+// fixed by the grid and block shape alone, so that two runs of a kernel
+// give the same bits.
 #pragma once
 
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+#include <cstring>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -117,6 +120,168 @@ __device__ __forceinline__ T stencil_row(const P* __restrict__ pd,
                                          int nd, const T* __restrict__ x,
                                          long long i, long long n) {
   return stencil_row_acc<T>(pd, offsets, nd, x, i, n);
+}
+
+// Loads through the read-only data cache: one element, or R elements
+// from a 16-byte aligned address, 16 bytes at a time.
+__device__ __forceinline__ float ld_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double ld_ro(const double* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ld_ro(const __nv_bfloat16* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ __half ld_ro(const __half* p) { return __ldg(p); }
+__device__ __forceinline__ complex<float> ld_ro(const complex<float>* p) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  return complex<float>(v.x, v.y);
+}
+__device__ __forceinline__ complex<double> ld_ro(const complex<double>* p) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  return complex<double>(v.x, v.y);
+}
+
+template <typename T, int R>
+__device__ __forceinline__ void ld_vec(const T* p, T (&v)[R]) {
+  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
+  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
+  uint4 w[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    w[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
+  }
+  memcpy(&v[0], &w[0], sizeof(w));
+}
+
+template <typename T, int R>
+__device__ __forceinline__ void st_vec(T* p, const T (&v)[R]) {
+  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
+  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
+  uint4 w[W];
+  memcpy(&w[0], &v[0], sizeof(w));
+#pragma unroll
+  for (int q = 0; q < W; ++q) reinterpret_cast<uint4*>(p)[q] = w[q];
+}
+
+// The rows a thread owns in the wide DIA kernels: as many as one 16-byte
+// load of the diagonal type holds.
+template <typename P>
+__host__ __device__ constexpr int rows_per_thread() {
+  return static_cast<int>(16 / sizeof(P));
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
+
+// How a DIA kernel reads x: as it is stored, or divided by d as it is
+// read (the two-sided kernels keep v_{k+1} = q / beta_{k+1} as q).
+struct AsStored {
+  template <typename X>
+  __device__ __forceinline__ X operator()(X v) const { return v; }
+};
+template <typename T>
+struct DividedBy {
+  T d;
+  __device__ __forceinline__ explicit DividedBy(T d_) : d(d_) {}
+  __device__ __forceinline__ T operator()(T v) const { return v / d; }
+};
+
+// Diagonals staged in shared memory at a time by the wide DIA rows.
+constexpr int kDiaTile = 256;
+
+template <typename Ix>
+__device__ __forceinline__ void stage_offsets(Ix* offs,
+                                              const long long* offsets,
+                                              int dn) {
+  for (int t = threadIdx.x; t < dn; t += blockDim.x) {
+    offs[t] = static_cast<Ix>(offsets[t]);
+  }
+}
+
+// Rows i0 .. i0 + R - 1 of A x added to acc over the dn diagonals whose
+// offsets offs holds, pt = pd + d0 * n + i0 (the first of them).  Rows
+// whose every neighbour lies in [0, n) (inner) take a path with no bounds
+// branch, several diagonals' loads in flight, and x read 16 bytes at a
+// time where i0 + k_d is a multiple of R and x is aligned (VEC and
+// x_aligned); the others mask each read of x, so nothing is loaded past
+// either end of x.  Each row sums its diagonals in order, skipping those
+// that leave [0, n), as stencil_row_acc does.
+template <int R, bool VEC, typename AT, typename PT, typename XT,
+          typename Ix, typename F>
+__device__ __forceinline__ void dia_tile_rows(
+    const PT* __restrict__ pt, const Ix* offs, int dn,
+    const XT* __restrict__ x, Ix i0, Ix n, bool inner, bool x_aligned, F f,
+    AT (&acc)[R]) {
+  if (inner) {
+#pragma unroll 4
+    for (int dd = 0; dd < dn; ++dd) {
+      const Ix k = offs[dd];
+      const PT* __restrict__ prow = pt + static_cast<Ix>(dd) * n;
+      PT pv[R];
+      XT xv[R];
+      if (VEC) {
+        ld_vec(prow, pv);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) pv[r] = ld_ro(prow + r);
+      }
+      if (VEC && x_aligned && k % R == 0) {
+        ld_vec(x + i0 + k, xv);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) xv[r] = ld_ro(x + i0 + k + r);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = madd(acc[r], pv[r], f(xv[r]));
+    }
+  } else {
+    for (int dd = 0; dd < dn; ++dd) {
+      const Ix k = offs[dd];
+      const PT* __restrict__ prow = pt + static_cast<Ix>(dd) * n;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const Ix i = i0 + r;
+        const Ix j = i + k;
+        if (i < n && j >= 0 && j < n) {
+          acc[r] = madd(acc[r], ld_ro(prow + r), f(ld_ro(x + j)));
+        }
+      }
+    }
+  }
+}
+
+// Rows i0 .. i0 + R - 1 of A x over all nd diagonals, [lo, hi) the
+// interior (ops/cuda_dia.py _interior).  Where nd <= kDiaTile the caller
+// has staged the offsets in offs, behind a barrier; otherwise each tile
+// is staged here between barriers.  Every thread of the block calls it
+// the same number of times, rows past n included.
+template <int R, bool VEC, typename AT, typename PT, typename XT,
+          typename Ix, typename F>
+__device__ __forceinline__ void dia_rows(
+    const PT* __restrict__ pd, const long long* __restrict__ offsets, int nd,
+    Ix* offs, const XT* __restrict__ x, Ix i0, Ix n, Ix lo, Ix hi,
+    bool x_aligned, F f, AT (&acc)[R]) {
+  const bool live = i0 < n;
+  const bool inner = i0 >= lo && i0 + R <= hi;
+  for (int d0 = 0; d0 < nd; d0 += kDiaTile) {
+    const int dn = min(kDiaTile, nd - d0);
+    if (nd > kDiaTile) {
+      __syncthreads();                 // the last tile's reads are done
+      stage_offsets(offs, offsets + d0, dn);
+      __syncthreads();
+    }
+    if (live) {
+      dia_tile_rows<R, VEC>(pd + static_cast<Ix>(d0) * n + i0, offs, dn, x,
+                            i0, n, inner, x_aligned, f, acc);
+    }
+  }
+}
+
+// a b + c rounded once, in the type of its arguments.
+__device__ __forceinline__ float fused_madd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fused_madd(double a, double b, double c) {
+  return fma(a, b, c);
 }
 
 // d, or 1 where d is 0: keeps a division whose result is not taken

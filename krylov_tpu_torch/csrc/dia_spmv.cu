@@ -30,15 +30,13 @@
 // with no bounds branch, several diagonals' loads in flight, and x read
 // 16 bytes at a time where i + k_d is a multiple of R and x is aligned;
 // the rows outside it mask each read of x, so nothing is loaded past
-// either end of x.  Index math is 32-bit where nd * n and n + max|k_d|
+// either end of x (common.cuh dia_rows, which the two-sided stencil of
+// bilanczos.cuh shares).  Index math is 32-bit where nd * n and n + max|k_d|
 // stay below 2^31, 64-bit otherwise.  Each row sums its diagonals in
 // order, skipping those that leave [0, n), in the accumulation type of
 // pallas_dia.py:165-166: f32 for f32, bf16 and f16 x (the result is
 // rounded to x's type), f64 for f64, and complex for complex x, whose
 // diagonals are real or complex of the same precision.
-#include <cstdint>
-#include <cstring>
-
 #include "common.cuh"
 
 namespace {
@@ -46,50 +44,6 @@ namespace {
 using namespace ktt;
 
 constexpr int kThreads = 256;
-constexpr int kTile = 256;   // diagonals staged in shared memory at a time
-
-__device__ __forceinline__ float ld_ro(const float* p) { return __ldg(p); }
-__device__ __forceinline__ double ld_ro(const double* p) { return __ldg(p); }
-__device__ __forceinline__ __nv_bfloat16 ld_ro(const __nv_bfloat16* p) {
-  return __ldg(p);
-}
-__device__ __forceinline__ __half ld_ro(const __half* p) { return __ldg(p); }
-__device__ __forceinline__ complex<float> ld_ro(const complex<float>* p) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  return complex<float>(v.x, v.y);
-}
-__device__ __forceinline__ complex<double> ld_ro(const complex<double>* p) {
-  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
-  return complex<double>(v.x, v.y);
-}
-
-// R elements from a 16-byte aligned address, 16 bytes at a time.
-template <typename T, int R>
-__device__ __forceinline__ void ld_vec(const T* p, T (&v)[R]) {
-  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
-  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
-  uint4 w[W];
-#pragma unroll
-  for (int q = 0; q < W; ++q) {
-    w[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
-  }
-  memcpy(&v[0], &w[0], sizeof(w));
-}
-
-template <typename T, int R>
-__device__ __forceinline__ void st_vec(T* p, const T (&v)[R]) {
-  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
-  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
-  uint4 w[W];
-  memcpy(&w[0], &v[0], sizeof(w));
-#pragma unroll
-  for (int q = 0; q < W; ++q) reinterpret_cast<uint4*>(p)[q] = w[q];
-}
-
-template <typename P>
-__host__ __device__ constexpr int rows_per_thread() {
-  return static_cast<int>(16 / sizeof(P));
-}
 
 template <typename XT, typename PT, typename AT, typename IT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -98,60 +52,18 @@ dia_spmv_kernel(const PT* __restrict__ pd,
                 const XT* __restrict__ x, XT* __restrict__ y, IT n, IT lo,
                 IT hi, int x_aligned) {
   constexpr int R = rows_per_thread<PT>();
-  __shared__ IT offs[kTile];
+  __shared__ IT offs[kDiaTile];
   const IT i0 = (static_cast<IT>(blockIdx.x) * kThreads + threadIdx.x) * R;
-  const bool live = i0 < n;
-  const bool inner = i0 >= lo && i0 + R <= hi;
   AT acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = AT(0);
-  for (int d0 = 0; d0 < nd; d0 += kTile) {
-    const int dn = min(kTile, nd - d0);
-    if (d0 > 0) __syncthreads();           // the last tile's reads are done
-    for (int t = threadIdx.x; t < dn; t += kThreads) {
-      offs[t] = static_cast<IT>(offsets[d0 + t]);
-    }
+  if (nd <= kDiaTile) {
+    stage_offsets(offs, offsets, nd);
     __syncthreads();
-    if (!live) continue;
-    const PT* __restrict__ pt = pd + static_cast<IT>(d0) * n + i0;
-    if (inner) {
-#pragma unroll 4
-      for (int dd = 0; dd < dn; ++dd) {
-        const IT k = offs[dd];
-        const PT* __restrict__ prow = pt + static_cast<IT>(dd) * n;
-        PT pv[R];
-        XT xv[R];
-        if (VEC) {
-          ld_vec(prow, pv);
-        } else {
-#pragma unroll
-          for (int r = 0; r < R; ++r) pv[r] = ld_ro(prow + r);
-        }
-        if (VEC && x_aligned && k % R == 0) {
-          ld_vec(x + i0 + k, xv);
-        } else {
-#pragma unroll
-          for (int r = 0; r < R; ++r) xv[r] = ld_ro(x + i0 + k + r);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = madd(acc[r], pv[r], xv[r]);
-      }
-    } else {
-      for (int dd = 0; dd < dn; ++dd) {
-        const IT k = offs[dd];
-        const PT* __restrict__ prow = pt + static_cast<IT>(dd) * n;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const IT i = i0 + r;
-          const IT j = i + k;
-          if (i < n && j >= 0 && j < n) {
-            acc[r] = madd(acc[r], ld_ro(prow + r), ld_ro(x + j));
-          }
-        }
-      }
-    }
   }
-  if (!live) return;
+  dia_rows<R, VEC>(pd, offsets, nd, offs, x, i0, n, lo, hi, x_aligned != 0,
+                   AsStored(), acc);
+  if (i0 >= n) return;
   XT out[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) out[r] = narrow<XT>(acc[r]);
@@ -163,10 +75,6 @@ dia_spmv_kernel(const PT* __restrict__ pd,
       if (i0 + r < n) y[i0 + r] = out[r];
     }
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
 template <typename XT, typename PT, typename AT, typename IT, bool VEC>

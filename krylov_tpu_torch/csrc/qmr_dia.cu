@@ -9,23 +9,39 @@
 // 1 solved / 2 zero residual / 29 b'c = 0 / 38 <u_{k+1}, v_{k+1}> = 0).
 //
 // Bound on an H100 SXM: memory bandwidth.  An iteration applies A and
-// A^H once each (2 x 28 B per row in f32) and must read v_k, u_k,
-// v_{k-1}, u_{k-1}, w_{k-1}, w_{k-2} and x and write v_{k+1}, u_{k+1},
-// w_k and x: (56 + 44) B per row, 100 B.
+// A^H once each (2 x 7 diagonals for the 7-point stencil) and must read
+// v_k, u_k, v_{k-1}, u_{k-1}, w_{k-1}, w_{k-2} and x and write v_{k+1},
+// u_{k+1}, w_k and x: 14 + 11 words per row, 100 B in f32, 200 B in f64.
 //
-// Design: the launches of bilanczos.cuh, then
-//   3. qm_next    (grid)     beta_{k+1}, gamma_{k+1}; the QR step (the
-//                            rotation of d_bar_k against beta_{k+1}, in
-//                            one thread of each block), w_k = (v_k
-//                            - lambda w_{k-1} - eps w_{k-2}) / d_k,
-//                            x += zeta_k w_k, v_{k+1} and u_{k+1} in
-//                            place of q and p, partials of
-//                            ||v_{k+1}||^2
-//   4. qm_scalars (1 block)  tau, the residual estimate, the status
-// w_k overwrites w_{k-2} in its buffer row by row (wkm2_row), so two
-// buffers hold the recurrence; neither is read with neighbours.  Per
-// iteration this design moves (56 + 24) + 24 + (36 + 8) B per row in
-// f32: 148 B.
+// Design: the fused launches of bilanczos.cuh (its note says where
+// v_{k+1} and u_{k+1} are normalised and how the stencil keeps BiLQ's
+// order of the dots), three per iteration:
+//   1. fused_stencil  (grid)     q, p, partials of <u_k, q>
+//   2. qm_fused       (grid)     alpha; q -= alpha v_k, p -= alpha u_k;
+//                                partials of <p, q>, ||q||^2 and
+//                                ||v_k||^2; and the last iteration's
+//                                direction update, one iteration late:
+//                                w_{k-1} = (v_{k-1} - lambda w_{k-2}
+//                                - eps w_{k-3}) / d_{k-1} and
+//                                x += zeta_{k-1} w_{k-1}
+//   3. qm_scalars     (1 block)  beta_{k+1}, gamma_{k+1}; the QR step
+//                                (the rotation of d_bar_k against
+//                                beta_{k+1}) and the coefficients of this
+//                                iteration's late update; tau,
+//                                ||v_{k+1}||^2 = ||q||^2 / beta_{k+1}^2,
+//                                the residual estimate, the status
+// The direction update needs beta_{k+1}, which only the scalar launch
+// has, so it runs in the next iteration's fused launch, and one
+// finishing launch after the loop (qm_finish) applies the update of the
+// last iteration that ran, whether the solve stopped in the middle of a
+// chunk or at its end, so x holds every update the plain version makes.
+// w_k overwrites w_{k-2} in its buffer row by row, so two buffers hold
+// the recurrence; neither is read with neighbours.  Bytes per row and
+// iteration: the stencil 2 x 7 diagonals, v_k, u_k, v_{k-1}, u_{k-1}
+// read and q, p written (20 words), the fused launch q, p, v_k, u_k,
+// v_{k-1}, w_{k-1}, w_{k-2}, x read and q, p, w, x written (12 words):
+// 128 B in f32 (bound 100), 256 B in f64 (bound 200).  On BiLQ's
+// four launches QMR would move 148 B in f32 and 296 B in f64.
 #include "bilanczos.cuh"
 
 namespace {
@@ -33,23 +49,19 @@ namespace {
 using namespace bilanczos;
 
 enum ScalarSlot {
-  EPS_LIM = GAMMA1 + 1, C_KM2, S_KM2, C_KM1, S_KM1, ZETABAR, TAU, RNORM, CK,
-  SK, NSC
+  EPS_LIM = NFUSED_SLOTS, C_KM2, S_KM2, C_KM1, S_KM1, ZETABAR, TAU, RNORM,
+  LAM, EPS, DK, ZETA, NSC
 };
-enum IntSlot { NST = GO + 1 };
+enum IntSlot { NST = NFUSED_INTS };
 enum OwnRow { X = NSHARED_ROWS, W0, W1, NROWS };
-
-// w_{k-1} sits in buffer W0 + (it + 1) mod 2 and w_{k-2} in W0 + it mod 2,
-// where w_k goes (it the 0-based iteration count).
-__device__ __forceinline__ int wkm1_row(int it0) { return W0 + (it0 + 1) % 2; }
-__device__ __forceinline__ int wkm2_row(int it0) { return W0 + it0 % 2; }
 
 // ||b||, b'c = ||b||^2, beta_1, gamma_1, zeta_bar_1 = beta_1, tau and the
 // starting status.
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-qm_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st) {
-  const T bb = sum_partials(partial + PUQ * nparts, nparts);
+qm_init_scalars(const Dot* __restrict__ partial, int nparts, T* sc,
+                int* st) {
+  const T bb = sum_partials_in<T>(partial + PUQ * nparts, nparts);
   if (threadIdx.x != 0) return;
   const T bnorm = sqrt(bb);
   const T chb = bnorm * bnorm;          // c = b on the fused path
@@ -59,12 +71,14 @@ qm_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st) {
   sc[BETA] = beta;
   sc[GAMMA] = chb / safe(beta);
   sc[ALPHA] = sc[PHQ] = sc[BETA1] = sc[GAMMA1] = T(0);
+  fused_init_state(sc, st);
   sc[EPS_LIM] = eps_lim;
   sc[C_KM2] = sc[S_KM2] = sc[C_KM1] = sc[S_KM1] = T(0);
   sc[ZETABAR] = beta;
   sc[TAU] = bnorm * bnorm / (abeta * abeta);
   sc[RNORM] = bnorm;
-  sc[CK] = sc[SK] = T(0);
+  sc[LAM] = sc[EPS] = sc[ZETA] = T(0);
+  sc[DK] = T(1);
   st[IT] = 0;
   st[GO] = 0;
   st[STATUS] = bnorm == T(0) ? ZERO_RESIDUAL
@@ -97,91 +111,156 @@ __device__ __forceinline__ QrStep<T> qr_step(const T* sc, int it, T beta1) {
   return r;
 }
 
-// 3. beta_{k+1}, gamma_{k+1}, the QR step, w_k and x, v_{k+1} and
-// u_{k+1}, partials of ||v_{k+1}||^2.
+// The direction update of the iteration before it0 (0-based), from the
+// coefficients its scalar launch stored: w = (v - lambda w_{k-1}
+// - eps w_{k-2}) / d_k over w_{k-2}'s buffer, x += zeta w.  v is that
+// iteration's v_k, now in buffer prev(it0) with its divisor.
+template <typename T>
+struct LateUpdate {
+  const T* v;
+  const T* wkm1;
+  T* wk;
+  T* x;
+  DividedBy<T> fv, fd;
+  T lam, eps, zeta;
+
+  __device__ __forceinline__ LateUpdate(T* work, const T* sc, int it0,
+                                        long long n)
+      : fv(sc[DV0 + prev(it0)]), fd(safe(sc[DK])) {
+    const int upd = it0 >= 1 ? it0 - 1 : 0;   // none before it0 = 1
+    v = row(work, V0 + prev(it0), n);
+    wkm1 = row(work, W0 + (upd + 1) % 2, n);
+    wk = row(work, W0 + upd % 2, n);
+    x = row(work, X, n);
+    lam = sc[LAM];
+    eps = sc[EPS];
+    zeta = sc[ZETA];
+  }
+
+  struct Vals {
+    T v, w1, w2, x;
+  };
+  __device__ __forceinline__ Vals load(long long i) const {
+    return Vals{v[i], wkm1[i], wk[i], x[i]};
+  }
+
+  __device__ __forceinline__ void step(long long i, const Vals& a) const {
+    const T w = fd(fv(a.v) - lam * a.w1 - eps * a.w2);
+    wk[i] = w;
+    x[i] = a.x + zeta * w;
+  }
+};
+
+// 2. alpha, q and p, the partials of <p, q>, ||q||^2 and ||v_k||^2, and
+// the last iteration's direction and x update.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-qm_next(T* __restrict__ work, T* __restrict__ partial, T* sc, const int* st,
-        long long n) {
+qm_fused(T* __restrict__ work, Dot* __restrict__ partial, T* sc,
+         const int* st, long long n) {
   if (!st[GO]) return;
-  T phq, beta1, gamma1;
-  bi_next_scalars(partial, sc, phq, beta1, gamma1);
   const int it0 = st[IT];
-  __shared__ QrStep<T> qr;
-  if (threadIdx.x == 0) qr = qr_step(sc, it0 + 1, beta1);
-  __syncthreads();
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    sc[CK] = qr.ck;
-    sc[SK] = qr.sk;
-  }
-  const T lam = qr.lam;
-  const T eps = qr.eps;
-  const T dk = safe(qr.dk);
-  const T zeta = qr.zeta;
-  const T* vk = row(work, V0 + cur(it0), n);
-  const T* wkm1 = row(work, wkm1_row(it0), n);
-  T* wk = row(work, wkm2_row(it0), n);
-  T* x = row(work, X, n);
-  T snn = T(0);
+  const AlphaRows<T> lz(work, partial, sc, it0, n);
+  const bool late = it0 >= 1;
+  const LateUpdate<T> up(work, sc, it0, n);
+  T t[3] = {T(0), T(0), T(0)};
+  Dot qq = Dot(0);
   for (long long i = first_row(); i < n; i += row_stride()) {
-    const T w = (vk[i] - lam * wkm1[i] - eps * wk[i]) / dk;
-    wk[i] = w;
-    x[i] = x[i] + zeta * w;
-    const T vn = bi_next_row(work, it0, n, i, phq, beta1, gamma1);
-    snn += vn * vn;
+    const auto a = lz.load(i);
+    if (late) {
+      const auto b = up.load(i);
+      lz.step(i, a, t, qq);
+      up.step(i, b);
+    } else {
+      lz.step(i, a, t, qq);
+    }
   }
-  store_partial(snn, partial + PNN * gridDim.x);
+  store_alpha_partials(t, qq, partial);
 }
 
-// 4. tau, ||r_k|| ~ |zeta_bar_{k+1}| sqrt(tau) and the status
-// (pallas_fused.py:4856-4872).
+// 3. beta_{k+1}, gamma_{k+1}, the QR step and the late update's
+// coefficients, tau, ||r_k|| ~ |zeta_bar_{k+1}| sqrt(tau) and the status
+// (pallas_fused.py:4837-4872).
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-qm_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st, int) {
+qm_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
+           int) {
   if (!st[GO]) return;
-  const T nn = sum_partials(partial + PNN * nparts, nparts);
+  const LanczosSums<T> sums = lanczos_sums<T>(partial, nparts);
   if (threadIdx.x != 0) return;
-  const T sk = sc[SK];
-  const T zetabar = sk * sc[ZETABAR];
+  const int it0 = st[IT];
+  const T phq = sums.phq;
+  const T beta1 = sqrt(fabs(phq));
+  const T gamma1 = phq / safe(beta1);
+  const QrStep<T> qr = qr_step(sc, it0 + 1, beta1);
+  // ||v_{k+1}||^2 = ||q||^2 / beta_{k+1}^2 in double, ||v_k||^2 where
+  // <p, q> = 0
+  const Dot b1 = safe(beta1);
+  const T nn = phq != T(0) ? static_cast<T>(sums.qq / (b1 * b1)) : sums.vv;
+  const T zetabar = qr.sk * sc[ZETABAR];
   const T tau = sc[TAU] + nn;
   const T rnorm = static_cast<T>(fabs(zetabar)) * sqrt(tau);
   const bool solved = rnorm <= sc[EPS_LIM] || (rnorm + T(1)) <= T(1);
-  const bool breakdown = !solved && sc[PHQ] == T(0);
+  const bool breakdown = !solved && phq == T(0);
   int code = RUNNING;
   if (breakdown) code = UV_BREAKDOWN;
   if (solved) code = SOLVED;
-  sc[BETA] = sc[BETA1];
-  sc[GAMMA] = sc[GAMMA1];
+  sc[LAM] = qr.lam;
+  sc[EPS] = qr.eps;
+  sc[DK] = qr.dk;
+  sc[ZETA] = qr.zeta;
   sc[C_KM2] = sc[C_KM1];
   sc[S_KM2] = sc[S_KM1];
-  sc[C_KM1] = sc[CK];
-  sc[S_KM1] = sk;
+  sc[C_KM1] = qr.ck;
+  sc[S_KM1] = qr.sk;
   sc[ZETABAR] = zetabar;
   sc[TAU] = tau;
   sc[RNORM] = rnorm;
-  st[IT] += 1;
+  commit_lanczos(sc, st, it0, phq, beta1, gamma1);
+  st[IT] = it0 + 1;
   st[STATUS] = code;
+}
+
+// After the loop: the direction and x update of the last iteration that
+// ran.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+qm_finish(T* __restrict__ work, const T* sc, const int* st, long long n) {
+  const int it0 = st[IT];
+  if (it0 < 1) return;
+  const LateUpdate<T> up(work, sc, it0, n);
+  for (long long i = first_row(); i < n; i += row_stride()) {
+    up.step(i, up.load(i));
+  }
 }
 
 struct Qmr {
   static constexpr int kRows = NROWS - NSHARED_ROWS;
   static constexpr int kWithUU = 0;
   template <typename T>
-  static void init_scalars(T* partial, int grid, T* sc, int* st,
+  static void init_scalars(Dot* partial, int grid, T* sc, int* st,
                            cudaStream_t s) {
     qm_init_scalars<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st);
   }
   template <typename T>
-  static void next(T* work, T* partial, T* sc, int* st, long long n,
-                   int grid, int, cudaStream_t s) {
-    qm_next<T><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n);
+  static void fused(T* work, Dot* partial, T* sc, int* st, long long n,
+                    int grid, cudaStream_t s) {
+    qm_fused<T><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n);
   }
   template <typename T>
-  static void scalars(T* partial, int grid, T* sc, int* st, int flag,
+  static void scalars(Dot* partial, int grid, T* sc, int* st, int flag,
                       cudaStream_t s) {
     qm_scalars<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st, flag);
   }
 };
+
+template <typename T>
+int finish(void* work, const void* sc, const void* st, long long n, int grid,
+           void* stream) {
+  qm_finish<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(work), static_cast<const T*>(sc),
+      static_cast<const int*>(st), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -189,19 +268,26 @@ struct Qmr {
   extern "C" int NAME(const void* b, const void* c, void* work,              \
                       void* partial, void* sc, void* st, long long n,        \
                       int grid, void* stream) {                              \
-    return bilanczos::init<T, Qmr>(b, c, work, partial, sc, st, n, grid,     \
-                                   stream);                                  \
+    return bilanczos::init<T, Qmr, Dot>(b, c, work, partial, sc, st, n,      \
+                                        grid, stream);                       \
   }
 
 #define KTT_QM_ITERATE(NAME, T, P)                                            \
   extern "C" int NAME(const void* pd, const void* offsets, int nd,           \
                       const void* pda, const void* offsets_a, int nda,       \
-                      void* work, void* partial, void* sc, void* st,         \
-                      long long n, int grid, int flag, int iters, int cap,   \
-                      void* stream) {                                        \
-    return bilanczos::iterate<T, P, Qmr>(pd, offsets, nd, pda, offsets_a,    \
-                                         nda, work, partial, sc, st, n,      \
-                                         grid, flag, iters, cap, stream);    \
+                      long long lo, long long hi, long long lo_a,            \
+                      long long hi_a, void* work, void* partial, void* sc,   \
+                      void* st, long long n, int grid, int flag, int iters,  \
+                      int cap, void* stream) {                               \
+    return bilanczos::iterate_fused<T, P, Qmr>(                              \
+        pd, offsets, nd, pda, offsets_a, nda, lo, hi, lo_a, hi_a, work,      \
+        partial, sc, st, n, grid, flag, iters, cap, stream);                 \
+  }
+
+#define KTT_QM_FINISH(NAME, T)                                                \
+  extern "C" int NAME(void* work, const void* sc, const void* st,            \
+                      long long n, int grid, void* stream) {                 \
+    return finish<T>(work, sc, st, n, grid, stream);                         \
   }
 
 KTT_QM_INIT(ktt_qmr_dia_init_f32, float)
@@ -210,3 +296,5 @@ KTT_QM_ITERATE(ktt_qmr_dia_iterate_f32_f32, float, float)
 KTT_QM_ITERATE(ktt_qmr_dia_iterate_f32_bf16, float, __nv_bfloat16)
 KTT_QM_ITERATE(ktt_qmr_dia_iterate_f32_f16, float, __half)
 KTT_QM_ITERATE(ktt_qmr_dia_iterate_f64_f64, double, double)
+KTT_QM_FINISH(ktt_qmr_dia_finish_f32, float)
+KTT_QM_FINISH(ktt_qmr_dia_finish_f64, double)

@@ -93,7 +93,7 @@ from .._runtime import (BREAKDOWN, COND_EXCEEDED, FWD_ERR, ILL_COND_MACH,
                         ZERO_CURVATURE, ZERO_RESIDUAL, drive,
                         full_fp32)
 from .cuda_dia import _check as _check_spmv
-from .cuda_dia import dia_spmv_aligned_ref
+from .cuda_dia import _tensor_span, dia_spmv_aligned_ref
 from .kops import sym_givens
 
 # CR-specific status codes (krylov_tpu/solvers/cr.py)
@@ -167,14 +167,15 @@ _CGS_RNORM, _CGS_NSC, _CGS_NST, _CGS_NPART = 4, 7, 3, 3
 _TR_RNORM, _TR_NSC, _TR_NST = 3, 8, 4
 # BiLQ, QMR and BiLQR (csrc/bilanczos.cuh): the partial rows, and the work
 # row of x (after v and u, three rows each); BiLQR's y follows x and its
-# snorm follows rnorm
-_BI_NPART, _BI_X = 5, 6
+# snorm follows rnorm.  QMR's and BiLQR's slots follow the six divisor
+# slots and the copy flag of the fused design.
+_BI_NPART, _BI_X = 6, 6
 _BQ_RNORM, _BQ_NSC, _BQ_NST = 17, 21, 4
-_QM_RNORM, _QM_NSC, _QM_NST = 15, 18, 3
-_BR_RNORM, _BR_NSC, _BR_NST = 22, 27, 13
+_QM_RNORM, _QM_NSC, _QM_NST = 21, 26, 4
+_BR_RNORM, _BR_NSC, _BR_NST = 28, 33, 14
 # BiLQR's int slots of lq_tol, lq_mach, cg_tol, cg_mach, qr_tol, qr_mach,
 # solved_primal, solved_dual and breakdown
-_BR_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
+_BR_FLAGS = (6, 7, 8, 9, 10, 11, 4, 5, 13)
 # USYMLQ, USYMQR, TriLQR and USYMLQR (csrc/ssy.cuh): the partial rows, and
 # the first work row of the method's own (after v and u, three rows
 # each): x, then TriLQR's and USYMLQR's y; each scalar and int array ends
@@ -4481,13 +4482,20 @@ def _bi_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
     """The buffers and launches shared by the BiLQ, QMR and BiLQR kernels
     (``csrc/bilanczos.cuh``): the work rows (v and u in three buffers
     each, then the method's own vectors), the block partials, the
-    scalars and the flags.  Returns (work, sc, st)."""
+    scalars and the flags; QMR's and BiLQR's stencils also take the
+    interiors of A's and Aᴴ's offsets, read on the host once per solve
+    (kept on the offsets tensors), and their partials are doubles.
+    Returns (work, sc, st)."""
     pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
+    spans = () if kind == "bilq" else (
+        *_tensor_span(offsets, n)[:2], *_tensor_span(offsets_adj, n)[:2])
     sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
     # the init launch writes every row an iteration reads before it does
     work = torch.empty((nvec, n), dtype=b.dtype, device=b.device)
-    partial = torch.empty((_BI_NPART, grid), dtype=b.dtype, device=b.device)
+    partial = torch.empty((_BI_NPART, grid),
+                          dtype=b.dtype if kind == "bilq" else torch.float64,
+                          device=b.device)
     st = torch.zeros(nst, dtype=torch.int32, device=b.device)
     bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),
             st.data_ptr(), n, grid)
@@ -4495,11 +4503,10 @@ def _bi_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
          (b.data_ptr(), c.data_ptr()) + bufs,
          f"ktt_{kind}_dia_iterate_{pair}",
          (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], pd_adj.data_ptr(),
-          offsets_adj.data_ptr(), pd_adj.shape[0]) + bufs + (int(flag),),
-         st, itmax)
-    if kind != "qmr":
-        _finish(wrapper, f"ktt_{kind}_dia_finish_{pair[:3]}", b,
-                (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid))
+          offsets_adj.data_ptr(), pd_adj.shape[0]) + spans + bufs
+         + (int(flag),), st, itmax)
+    _finish(wrapper, f"ktt_{kind}_dia_finish_{pair[:3]}", b,
+            (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid))
     return work, sc, st
 
 
@@ -4529,6 +4536,9 @@ bilq_dia_fused.launches = 0
 
 def qmr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, atol, rtol, itmax):
     """Full QMR solve of A x = b for a DIA matrix, shadow c = b.
+
+    Each iteration's direction and x update runs in the next iteration's
+    launch (it needs βₖ₊₁), and one finishing launch applies the last.
     Returns (x, niter, rnorm, status_code) as tensors on b's device, with
     the codes of ``bilq_dia_fused`` but 1 for solved."""
     _check(pd, offsets, b, None)

@@ -238,29 +238,49 @@ def test_slice6_wrapper_slots_match_kernel_enums(source, slots):
     """The slots the truncated and two-sided wrappers set and read and the
     array sizes they allocate are the kernels' enum values.  The two-sided
     kernels' enums continue those of csrc/bilanczos.cuh (ATOL .. GAMMA1,
-    IT .. GO, the six rows of v and u), and the shared header's partial
-    rows are the wrapper's count."""
-    base = {"ScalarSlot": len(_enum("bilanczos.cuh", "SharedSlot")),
-            "IntSlot": len(_enum("bilanczos.cuh", "SharedInt")),
-            "OwnRow": 6}
+    IT .. GO, the six rows of v and u; QMR's and BiLQR's after the fused
+    design's divisor slots and copy flag, DV0 .. NFUSED_SLOTS and COPY ..
+    NFUSED_INTS), and the shared header's partial rows are the wrapper's
+    count."""
     for enum, want in slots.items():
-        members = _enum(source, enum)
-        first = 0 if source == "trunc_dia.cu" else base[enum]
+        if source == "trunc_dia.cu":
+            members = _enum(source, enum)
+            got = {name: members.index(name) for name in want}
+        else:
+            got = _enum_values(source, enum, header="bilanczos.cuh")
         for name, slot in want.items():
-            assert members.index(name) + first == slot, (source, name)
+            assert got[name] == slot, (source, name)
+    shared = {e: _enum_values(None, e, header="bilanczos.cuh")
+              for e in ("SharedSlot", "SharedInt", "FusedSlot", "FusedInt")}
+    first = {"bilq_dia.cu": (len(shared["SharedSlot"]),
+                             len(shared["SharedInt"])),
+             "qmr_dia.cu": (shared["FusedSlot"]["NFUSED_SLOTS"],
+                            shared["FusedInt"]["NFUSED_INTS"])}
+    first["bilqr_dia.cu"] = first["qmr_dia.cu"]
+    if source in first:
+        for enum, start in zip(("ScalarSlot", "IntSlot"), first[source]):
+            assert min(_enum_values(source, enum,
+                                    header="bilanczos.cuh").values()) == start
+    assert shared["FusedSlot"]["DV0"] == len(shared["SharedSlot"])
+    assert shared["FusedInt"]["COPY"] == len(shared["SharedInt"])
     assert _enum("bilanczos.cuh", "Part")[-1] == "NPART"
     assert len(_enum("bilanczos.cuh", "Part")) - 1 == cf._BI_NPART
     assert _enum("bilanczos.cuh", "SharedSlot")[:2] == ["ATOL", "RTOL"]
 
 
 def _enum_values(source, name, header="ssy.cuh"):
-    """name -> value of ``enum name { ... }`` in a csrc file, where each
-    member is the last plus one or an expression of earlier members and
-    of the shared enums of its header (the SSY header by default)."""
+    """name -> value of ``enum name { ... }`` in a csrc file (the header
+    itself where source is None), where each member is the last plus one
+    or an expression of earlier members and of the shared enums of its
+    header (the SSY header by default), each of which may use those
+    before it."""
     env = {}
-    for enum in ("SharedSlot", "SharedInt", "Row", "Part"):
-        env.update(_enum_values_in(header, enum, {}))
-    return _enum_values_in(source, name, env)
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / header).read_text()
+    for enum in ("SharedSlot", "SharedInt", "Row", "Part", "FusedSlot",
+                 "FusedInt"):
+        if f"enum {enum} {{" in text:
+            env.update(_enum_values_in(header, enum, env))
+    return _enum_values_in(source or header, name, env)
 
 
 def _enum_values_in(source, name, env):
@@ -1117,6 +1137,115 @@ def test_slice6_kernels_match_plain_on_card(kernel, dtype):
         tol_x = 1e-8
     for v, w in vecs:
         assert bool((v == 0).all()) if not w.any() else _rel(v, w) <= tol_x
+
+
+def _hold_two_sided(k, r, n, f32, status_only=False):
+    """A two-sided kernel's outputs against its plain version's, under the
+    assertions of test_slice6_kernels_match_plain_on_card: status and
+    flags equal, niter equal in f64 (within ±max(2, 10%) in f32), x (and
+    y) to 1e-8 relative in f64 (1e-2 in f32)."""
+    ints = [(v, w) for v, w in zip(k, r) if v.dtype == torch.int32]
+    kints = [i for v, _ in ints for i in v.reshape(-1).tolist()]
+    rints = [i for _, w in ints for i in w.reshape(-1).tolist()]
+    assert kints[1:] == rints[1:]
+    if status_only:
+        return
+    if f32:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        tol_x = 1e-2
+    else:
+        assert kints[0] == rints[0]
+        tol_x = 1e-8
+    vecs = [(v, w) for v, w in zip(k, r) if v.dim() == 1 and v.numel() == n]
+    for v, w in vecs:
+        assert bool((v == 0).all()) if not w.any() else _rel(v, w) <= tol_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,N,dtype,pdt,itmax", [
+    ("qmr", 15, torch.float64, None, None),
+    ("qmr", 17, torch.float64, None, None),
+    ("bilqr", 15, torch.float64, None, None),
+    ("bilqr", 17, torch.float64, None, None),
+    ("bilqr", 15, torch.float32, None, None),
+    ("qmr", 16, torch.float32, torch.bfloat16, None),
+    ("qmr", 16, torch.float32, torch.float16, None),
+    ("bilqr", 16, torch.float32, torch.float16, None),
+    ("qmr", 16, torch.float64, None, 40),
+    ("qmr", 16, torch.float64, None, 64),
+    ("qmr", 17, torch.float64, None, 64),
+    ("qmr", 16, torch.float32, torch.bfloat16, 40),
+])
+def test_two_sided_fused_design_matches_plain_on_card(kernel, N, dtype, pdt,
+                                                      itmax):
+    """The QMR and BiLQR kernels of the fused design against their plain
+    versions, as test_slice6_kernels_match_plain_on_card holds them:
+    n = 15^3 and 17^3, no multiple of the rows a thread owns, so the
+    stencil's scalar path and its masked rows run; bf16 and f16 diagonals
+    with f32 vectors (8 rows a thread); and QMR stopped by itmax in the
+    middle of its first 64-iteration chunk (40) and on its last
+    iteration (64), so that the finishing launch applies the late
+    direction and x update at both ends (QMR takes 90 iterations at 16^3
+    and 97 at 17^3 in f64).  BiLQR in f32 is held to its status and
+    flags only, as there.  f32 QMR at 17^3 and f32 BiLQR on bf16
+    diagonals are not held: there the kernel and the plain version stop
+    hundreds of iterations apart on estimates that have lost their
+    accuracy, as the earlier four-launch kernel did (which the fused one
+    repeats bit for bit at 16^3 and 17^3 on f32 and f64 diagonals;
+    PERF.md section 7)."""
+    _card()
+    A = kt.convdiff_dia(N, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+    if pdt is not None:
+        pd, pda = pd.to(pdt), pda.to(pdt)
+    ot = offsets_tensor(A.offsets, "cuda")
+    ota = offsets_tensor(offa, "cuda")
+    rng = np.random.default_rng(16)
+    b = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    c = torch.as_tensor(rng.standard_normal(n)).to("cuda", dtype)
+    f32 = dtype == torch.float32
+    tol = (0.0, 1e-6 if f32 else 1e-10, itmax or 2 * n)
+    wrapper = getattr(cf, kernel + "_dia_fused")
+    ref = getattr(cf, kernel + "_dia_fused_ref")
+    args = (pd, pda, ot, ota, b) + ((c,) + tol + (True,)
+                                    if kernel == "bilqr" else tol)
+    before = wrapper.launches
+    k = wrapper(*args)
+    assert wrapper.launches > before
+    r = ref(*args)
+    if itmax is not None:
+        assert int(k[1]) == int(r[1]) == itmax
+    _hold_two_sided(k, r, n, f32, status_only=f32 and kernel == "bilqr")
+
+
+@pytest.mark.cuda
+def test_bilqr_dual_runs_on_after_pq_breakdown_on_card():
+    """BiLQR where <p, q> reaches exactly 0 in its first iteration, which
+    also solves the primal system (the BiCG point), while the dual runs
+    on: A = 2 I as one diagonal, b = 1 and c = 1 on the first four rows,
+    c = 0.5 on the next four, so every sum is exact and q = p = 0.  The
+    second iteration takes v_2 = v_1 and u_2 = u_1 (the stencil's copy
+    path) and solves the dual system (status 15 after 2 iterations in the
+    plain version).  Held to the plain version as
+    test_slice6_kernels_match_plain_on_card holds BiLQR in f64."""
+    _card()
+    n = 16 ** 3
+    pd = torch.full((1, n), 2.0, dtype=torch.float64, device="cuda")
+    ot = offsets_tensor((0,), "cuda")
+    b = torch.zeros(n, dtype=torch.float64, device="cuda")
+    b[:4] = 1.0
+    c = b.clone()
+    c[4:8] = 0.5
+    args = (pd, pd, ot, ot, b, c, 0.0, 1e-10, 2 * n, True)
+    before = cf.bilqr_dia_fused.launches
+    k = cf.bilqr_dia_fused(*args)
+    assert cf.bilqr_dia_fused.launches > before
+    r = cf.bilqr_dia_fused_ref(*args)
+    assert (int(r[2]), int(r[5])) == (2, 15)
+    _hold_two_sided(k, r, n, False)
+    assert _rel(k[1], c / 2) <= 1e-12
 
 
 @pytest.mark.cuda
