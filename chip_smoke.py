@@ -109,6 +109,21 @@ def event_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def case_times(kernel_call, plain_call, timed, niter):
+    """A phase case's times, taken only for a case whose numbers go into
+    the kernels line (the others are held to their plain versions
+    untimed, to keep the run inside TOTAL_LIMIT_S): the kernel's median
+    ms of three calls and the plain version's ms of one, each warmed up
+    by its result call, and the text for the case's line; (None, None,
+    "") for an untimed case."""
+    if not timed:
+        return None, None, ""
+    ms = event_ms(kernel_call, reps=3, warmup=0)
+    plain_ms = event_ms(plain_call, reps=1, warmup=0)
+    return ms, plain_ms, (f"; ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                          f"({1e3 * ms / max(niter, 1):.1f} us/iter)")
+
+
 def host_us(fn, calls=100, batches=10):
     """Host time per call of fn in microseconds: a host clock around
     batches of ``calls`` calls with no synchronise inside a batch (the
@@ -945,10 +960,10 @@ def main():
             rel = err / max(float(r[0].abs().max()), 1e-300)
             f32 = dt == torch.float32
             label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
-            ms = event_ms(lambda: kernel(pd, ot, b, *args, **kw), reps=3,
-                          warmup=1)
-            plain_ms = event_ms(lambda: plain(pd, ot, b, *args, **kw),
-                                reps=1, warmup=0)
+            ms, plain_ms, times = case_times(
+                lambda: kernel(pd, ot, b, *args, **kw),
+                lambda: plain(pd, ot, b, *args, **kw), name not in report,
+                kints[0])
             if callable(nvec):
                 bound_bytes = nvec(kints, pd.numel() * pd.element_size(),
                                    n * b.element_size())
@@ -971,10 +986,9 @@ def main():
             bound_ms = bound_bytes / bw * 1e3
             print(f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
                   f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err"
-                  f"(x)={err:.3e} rel={rel:.3e}; ms={ms:.3f} plain_ms="
-                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
-                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
-                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+                  f"(x)={err:.3e} rel={rel:.3e}; bound_ms={bound_ms:.3f} "
+                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]})"
+                  f"{times}", flush=True)
             npass = name in ("gmres_dia", "fom_dia") and f32
             check(kints[1:len(kints) - npass] == rints[1:len(rints) - npass],
                   f"{label}: same status and flags as the plain version")
@@ -1261,9 +1275,10 @@ def main():
                 res_p.append(true_rel_residual(pda, ota, c, r[1]))
             f32 = dt == torch.float32
             label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
-            ms = event_ms(lambda: kernel(*head, *args), reps=3, warmup=1)
-            plain_ms = event_ms(lambda: plain(*head, *args), reps=1,
-                                warmup=0)
+            to_report = to_report and (name == "trunc_dia" or not f32)
+            ms, plain_ms, times = case_times(
+                lambda: kernel(*head, *args), lambda: plain(*head, *args),
+                to_report, kints[0])
             pd_bytes, vbytes = pd.numel() * pd.element_size(), \
                 n * b.element_size()
             if callable(nvec):
@@ -1275,11 +1290,9 @@ def main():
                   f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err="
                   f"{err:.3e} rel={rel:.3e}; true_res kernel "
                   f"{[f'{v:.3e}' for v in res_k]} plain "
-                  f"{[f'{v:.3e}' for v in res_p]}; ms={ms:.3f} plain_ms="
-                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                  f"{[f'{v:.3e}' for v in res_p]}; bound_ms={bound_ms:.3f} "
                   f"({bound_bytes / max(kints[0], 1) / 1e6:.1f} MB per "
-                  f"iteration x {kints[0]}; "
-                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+                  f"iteration x {kints[0]}){times}", flush=True)
             if name != "trunc_dia" and f32:
                 # the two-sided kernels in f32 stop on residual estimates
                 # that have lost all accuracy, far apart from their plain
@@ -1308,7 +1321,7 @@ def main():
             check(all(a <= 1.5 * p + slack for a, p in zip(res_k, res_p)),
                   f"{label}: true residuals no worse than 1.5 x the plain "
                   f"version's")
-            if to_report and (name == "trunc_dia" or not f32):
+            if to_report:
                 report[name] = dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by="bytes", library_ms=None)
@@ -1403,10 +1416,9 @@ def main():
                                           c_eff, v) for v in (k, r))
             f32 = dt == torch.float32
             label = f"{name} {label} {N}^3 {'f32' if f32 else 'f64'}"
-            ms = event_ms(lambda: kernel(*head, *args, **kw), reps=3,
-                          warmup=1)
-            plain_ms = event_ms(lambda: plain(*head, *args, **kw), reps=1,
-                                warmup=0)
+            ms, plain_ms, times = case_times(
+                lambda: kernel(*head, *args, **kw),
+                lambda: plain(*head, *args, **kw), to_report, kints[0])
             it_bytes = (2 * pd.numel() * pd.element_size()
                         + nvec * n * b.element_size())
             bound_ms = kints[0] * it_bytes / bw * 1e3
@@ -1414,10 +1426,9 @@ def main():
                   f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err="
                   f"{err:.3e} rel={rel:.3e}; true_res kernel "
                   f"{[f'{v:.3e}' for v in res_k]} plain "
-                  f"{[f'{v:.3e}' for v in res_p]}; ms={ms:.3f} plain_ms="
-                  f"{plain_ms:.3f} bound_ms={bound_ms:.3f} "
-                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
-                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+                  f"{[f'{v:.3e}' for v in res_p]}; bound_ms={bound_ms:.3f} "
+                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]})"
+                  f"{times}", flush=True)
             check(kints[1:] == rints[1:],
                   f"{label}: same status and flags as the plain version")
             check(abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0]),
@@ -1503,10 +1514,10 @@ def main():
             label = (f"{method}_dia {kw or 'default'}"
                      f"{' b = 0' if zero_rhs else ''} {N}^3 "
                      f"{'f32' if f32 else 'f64'}")
-            ms = event_ms(lambda: kernel(*head, *args, **kwargs), reps=3,
-                          warmup=1)
-            plain_ms = event_ms(lambda: plain(*head, *args, **kwargs),
-                                reps=1, warmup=0)
+            to_report = to_report and f32
+            ms, plain_ms, times = case_times(
+                lambda: kernel(*head, *args, **kwargs),
+                lambda: plain(*head, *args, **kwargs), to_report, kints[0])
             it_bytes = (2 * pd.numel() * pd.element_size()
                         + nvecs[method] * n * b.element_size())
             bound_ms = kints[0] * it_bytes / bw * 1e3
@@ -1514,10 +1525,9 @@ def main():
                   f"plain niter={rints[0]} codes={rints[1:]}; max_abs_err="
                   f"{err:.3e} rel={rel:.3e}; true_res kernel "
                   f"{res_k[0]:.3e} plain {res_p[0]:.3e}; ||A^H r|| kernel "
-                  f"{res_k[1]:.3e} plain {res_p[1]:.3e}; ms={ms:.3f} "
-                  f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} "
-                  f"({it_bytes / 1e6:.1f} MB per iteration x {kints[0]}; "
-                  f"{1e3 * ms / max(kints[0], 1):.1f} us/iter)", flush=True)
+                  f"{res_k[1]:.3e} plain {res_p[1]:.3e}; bound_ms="
+                  f"{bound_ms:.3f} ({it_bytes / 1e6:.1f} MB per iteration x "
+                  f"{kints[0]}){times}", flush=True)
             if f32:
                 check(kints[1] == rints[1],
                       f"{label}: same status as the plain version")
@@ -1540,7 +1550,7 @@ def main():
             if want_code is not None:
                 check(kints[1] == want_code,
                       f"{label}: stopped on code {want_code}")
-            if to_report and f32:
+            if to_report:
                 report[method + "_dia"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by="bytes", library_ms=None)
@@ -1564,7 +1574,8 @@ def main():
         # method must read and write -- CRAIG u, v, x, w, y; CRAIGMR also
         # d, w_bar; LNLQ u, v, x, y, w_bar; CGNE/CRMR p, r, x; each read
         # and written, and with lambda w2, q or s besides (the headers of
-        # csrc/*.cu).  ms, plain ms and the bound for the default cases.
+        # csrc/*.cu).  ms, plain ms and the bound for the default f32
+        # cases.
         ln_nvecs = {"craig": 10, "craigmr": 14, "lnlq": 10, "cgne_crmr": 6}
         ln_cases = {"craig": ("craig", {}), "craigmr": ("craigmr", {}),
                     "lnlq": ("lnlq", {}),
@@ -1628,7 +1639,7 @@ def main():
                      f"{'lam = 0.3 ' if lam else ''}"
                      f"{'b = 0 ' if zero_rhs else ''}{N}^3 "
                      f"{'f32' if f32 else 'f64'}")
-            timed = not (kw or lam or zero_rhs)
+            timed = f32 and not (kw or lam or zero_rhs)
             line = (f"  {label}: kernel niter={kints[0]} codes={kints[1:]}; "
                     f"plain niter={rints[0]} codes={rints[1:]}; "
                     f"max_abs_err={err:.3e} rel={rel:.3e}")
@@ -1638,7 +1649,7 @@ def main():
                 line += f"; true_res kernel {res_k:.3e} plain {res_p:.3e}"
             if timed:
                 ms = event_ms(lambda: kernel(*head, *args, **kwargs), reps=3,
-                              warmup=1)
+                              warmup=0)
                 plain_ms = event_ms(lambda: plain(*head, *args, **kwargs),
                                     reps=1, warmup=0)
                 it_bytes = (2 * pd.numel() * pd.element_size()
@@ -1665,7 +1676,7 @@ def main():
                 if not f32:
                     check(rel <= 1e-6, f"{label}: x agrees ({rel:.2e} <= "
                           "1e-6)")
-            if timed and f32 and method != "crmr":
+            if timed and method != "crmr":
                 report[kernel_name + "_dia"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by="bytes", library_ms=None)
@@ -1816,7 +1827,7 @@ def main():
             line += f"; true_res kernel {res_k:.3e} plain {res_p:.3e}"
             if timed:
                 ms = event_ms(lambda: kernel(*head, *args), reps=3,
-                              warmup=1)
+                              warmup=0)
                 plain_ms = event_ms(lambda: plain(*head, *args), reps=1,
                                     warmup=0)
                 vec = n * b.element_size()
@@ -1989,7 +2000,7 @@ def main():
             timed = f32 and variant in (None, 0.5)
             if timed:
                 ms = event_ms(lambda: kernel(*head, *args, **kw), reps=3,
-                              warmup=1)
+                              warmup=0)
                 plain_ms = event_ms(lambda: plain(*head, *args, **kw),
                                     reps=1, warmup=0)
                 vec = n * dt.itemsize
@@ -2102,7 +2113,7 @@ def main():
             timed = f32 and basis is None
             if timed:
                 ms = event_ms(lambda: cf.block_gmres_dia_fused(*args), reps=3,
-                              warmup=1)
+                              warmup=0)
                 plain_ms = event_ms(lambda: cf.block_gmres_dia_fused_ref(
                     *args), reps=1, warmup=0)
                 bound_bytes = bg_bound_bytes(A, n, 4, mem, it_k, dt)
@@ -3774,13 +3785,15 @@ def import_root(root):
 
 def two_sided_main(root):
     """``python3 chip_smoke.py --two-sided ROOT``: the BiLQ, QMR and BiLQR
-    kernels of the krylov_tpu_torch in checkout ROOT at 128^3 f64 on
-    phase 3f's inputs (convdiff_dia(128), its seeded b and c, rtol
-    1e-10, itmax 2n), as one JSON line: each solve's ms by CUDA events
-    (one warm-up, three timed), niter, status code and us per iteration,
-    and from one profiled solve the device's busy share and each kernel's
-    device us and calls.  ``--compare`` runs it in a process of its own,
-    whose profiler traces keep their records (PERF.md section 7)."""
+    kernels of the krylov_tpu_torch in checkout ROOT at 128^3 f64, and its
+    DQGMRES and DIOM kernels at 128^3 f32 with memory 20, on phase 3f's
+    inputs (convdiff_dia(128), its seeded b and c, rtol 1e-10 in f64 and
+    1e-6 in f32, itmax 2n), as one JSON line: each solve's ms by CUDA
+    events (one warm-up, three timed), niter, status code and us per
+    iteration, and from one profiled solve the device's busy share and
+    each kernel's device us and calls.  ``--compare`` runs it in a
+    process of its own, whose profiler traces keep their records
+    (PERF.md section 7)."""
     _, kt = import_root(root)
     from krylov_tpu_torch import _build
     from krylov_tpu_torch.ops import cuda_fused as cf
@@ -3788,23 +3801,36 @@ def two_sided_main(root):
     _build.library()
     # phase 3f's draws: b and c of 128^3, of 64^3, then of 128^3 in f64
     gen = np.random.default_rng(SEED + 8)
-    for n in (128 ** 3, 128 ** 3, 64 ** 3, 64 ** 3):
-        gen.standard_normal(n)
     n = 128 ** 3
+    b32 = torch.as_tensor(gen.standard_normal(n)).to("cuda", torch.float32)
+    for m in (128 ** 3, 64 ** 3, 64 ** 3):
+        gen.standard_normal(m)
     dt = torch.float64
     b = torch.as_tensor(gen.standard_normal(n)).to("cuda", dt)
     c = torch.as_tensor(gen.standard_normal(n)).to("cuda", dt)
-    A = kt.convdiff_dia(128, dtype=dt)
-    pd = dia_align(A.data, A.offsets, n)
-    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
-    ot, ota = offsets_tensor(A.offsets, "cuda"), offsets_tensor(offa, "cuda")
-    del A
+    systems = {}
+    for sdt in (torch.float64, torch.float32):
+        A = kt.convdiff_dia(128, dtype=sdt)
+        pd = dia_align(A.data, A.offsets, n)
+        pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+        systems[sdt] = (pd, pda, offsets_tensor(A.offsets, "cuda"),
+                        offsets_tensor(offa, "cuda"))
+        del A
+    pd, pda, ot, ota = systems[dt]
+    pd32, _, ot32, _ = systems[torch.float32]
     tol = (0.0, 1e-10, 2 * n)
+    tol32 = (0.0, 1e-6, 2 * n, 20)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
-    for name, args in (("bilq", (pd, pda, ot, ota, b) + tol + (True,)),
-                       ("qmr", (pd, pda, ot, ota, b) + tol),
-                       ("bilqr", (pd, pda, ot, ota, b, c) + tol + (True,))):
-        kernel = getattr(cf, name + "_dia_fused")
+    for name, kernel, args in (
+            ("bilq", cf.bilq_dia_fused,
+             (pd, pda, ot, ota, b) + tol + (True,)),
+            ("qmr", cf.qmr_dia_fused, (pd, pda, ot, ota, b) + tol),
+            ("bilqr", cf.bilqr_dia_fused,
+             (pd, pda, ot, ota, b, c) + tol + (True,)),
+            ("dqgmres", cf.trunc_dia_fused,
+             (pd32, ot32, b32) + tol32 + ("dqgmres",)),
+            ("diom", cf.trunc_dia_fused,
+             (pd32, ot32, b32) + tol32 + ("diom",))):
         res = kernel(*args)
         two = name == "bilqr"
         niter = int(res[2 if two else 1])
@@ -3853,7 +3879,8 @@ def compare_main(root):
     ms and host us, the public wrapper's host us, the library's BSR
     product's ms and the byte bound, and the kernel's largest difference
     from the BSR product relative to max |y|; and, under "two-sided",
-    ``two_sided_main``'s line: BiLQ, QMR and BiLQR at 128^3 f64."""
+    ``two_sided_main``'s line: BiLQ, QMR and BiLQR at 128^3 f64, DQGMRES
+    and DIOM at 128^3 f32, memory 20."""
     root, kt = import_root(root)
     from krylov_tpu_torch import _build
     from krylov_tpu_torch.ops import cuda_sell as csell

@@ -129,23 +129,21 @@ _SIGNATURES = {
     **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 5
        + (_L, _I, _I, _I, _P) for k in ("bicgstab", "cgs") for t in _PAIRS},
     # (b, V, P, x, partial, sc, st, n, grid, mem, mP, stream) and (pd,
-    # offsets, nd, w, V, P, x, partial, sc, st, n, grid, mem, mP, diom,
-    # iters, cap, stream)
+    # offsets, nd, lo, hi, w, V, P, x, partial, sc, st, n, grid, mem, mP,
+    # diom, iters, cap, stream)
     **{f"ktt_trunc_dia_init_{t}": (_P,) * 7 + (_L, _I, _I, _I, _P)
        for t in ("f32", "f64")},
-    **{f"ktt_trunc_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 7
+    **{f"ktt_trunc_dia_iterate_{t}": (_P, _P, _I, _L, _L) + (_P,) * 7
        + (_L, _I, _I, _I, _I, _I, _I, _P) for t in _PAIRS},
     # (b, c, work, partial, sc, st, n, grid, stream), (pd, offsets, nd,
-    # pd_adj, offsets_adj, nd_adj[, lo, hi, lo_adj, hi_adj], work,
-    # partial, sc, st, n, grid, flag, iters, cap, stream), the interiors
-    # for QMR and BiLQR, and (work, sc, st, n, grid, stream)
+    # pd_adj, offsets_adj, nd_adj, lo, hi, lo_adj, hi_adj, work, partial,
+    # sc, st, n, grid, flag, iters, cap, stream) and (work, sc, st, n,
+    # grid, stream)
     **{f"ktt_{k}_dia_init_{t}": (_P,) * 6 + (_L, _I, _P)
        for k in ("bilq", "qmr", "bilqr") for t in ("f32", "f64")},
-    **{f"ktt_bilq_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 4
-       + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
     **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_L,) * 4
        + (_P,) * 4 + (_L, _I, _I, _I, _I, _P)
-       for k in ("qmr", "bilqr") for t in _PAIRS},
+       for k in ("bilq", "qmr", "bilqr") for t in _PAIRS},
     **{f"ktt_{k}_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
        for k in ("bilq", "qmr", "bilqr") for t in ("f32", "f64")},
     # the SSY kernels (csrc/ssy.cuh): (b, c, work, partial, sc, st, n, grid,

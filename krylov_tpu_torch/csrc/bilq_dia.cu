@@ -11,25 +11,34 @@
 // point solved / 36 the BiCG point solved / 38 <u_{k+1}, v_{k+1}> = 0).
 //
 // Bound on an H100 SXM: memory bandwidth.  An iteration applies A and
-// A^H once each (2 x 28 B per row in f32 for the 7-point stencil) and
-// must read v_k, u_k, v_{k-1}, u_{k-1}, x and d_bar and write v_{k+1},
-// u_{k+1}, x and d_bar: (56 + 40) B per row, 96 B.
+// A^H once each (2 x 7 diagonals for the 7-point stencil) and must read
+// v_k, u_k, v_{k-1}, u_{k-1}, x and d_bar and write v_{k+1}, u_{k+1}, x
+// and d_bar: 14 + 10 words per row, 96 B in f32, 192 B in f64.
 //
-// Design: the launches of bilanczos.cuh (the two stencils with the
-// alpha partials, then the q/p update with the <p, q> partials), then
-//   3. bq_next    (grid)     beta_{k+1}, gamma_{k+1}; x += zeta c d_bar
-//                            + zeta s v_k and d_bar = s d_bar - c v_k
-//                            with this iteration's rotation (which needs
-//                            only the last iteration's scalars),
-//                            v_{k+1} and u_{k+1} in place of q and p,
-//                            partials of <v_k, v_{k+1}> and
-//                            ||v_{k+1}||^2
-//   4. bq_scalars (1 block)  the rest of the LQ chain, the residual
-//                            estimates and the status, in one thread,
-//                            branch for branch as the TPU kernel
+// Design: the launches of bilanczos.cuh (its note says where v_{k+1} and
+// u_{k+1} are normalised and in which order the dots are summed), four
+// per iteration:
+//   1. two_sided_stencil (grid)  q, p, partials of <u_k, q>
+//   2. bq_fused     (grid)     alpha; q -= alpha v_k, p -= alpha u_k;
+//                              partials of <p, q>, <v_k, q>, ||q||^2 and
+//                              ||v_k||^2; x += zeta c d_bar + zeta s v_k
+//                              and d_bar = s d_bar - c v_k with this
+//                              iteration's rotation (from the last
+//                              iteration's scalars, in one thread of each
+//                              block)
+//   3. bl_normalise (grid)     v_{k+1} and u_{k+1} in place of q and p
+//   4. bq_scalars   (1 block)  beta_{k+1}, gamma_{k+1}; <v_k, v_{k+1}>
+//                              and ||v_{k+1}||^2 from the sums; the rest
+//                              of the LQ chain, the residual estimates
+//                              and the status, in one thread, branch for
+//                              branch as the TPU kernel
 // and one finishing launch after the loop, x += zeta_bar d_bar where the
-// BiCG point stopped the solve.  Per iteration this design moves
-// (56 + 24) + 24 + (40 + 8) B per row in f32: 152 B.
+// BiCG point stopped the solve.  Bytes per row and iteration: the
+// stencil 2 x 7 diagonals, v_k, u_k, v_{k-1}, u_{k-1} read and q, p
+// written (20 words), the fused launch q, p, v_k, u_k, x, d_bar read and
+// q, p, x, d_bar written (10 words), the normalising launch q and p read
+// and written (4 words): 136 B in f32 (bound 96), 272 B in f64 (bound
+// 192).
 #include "bilanczos.cuh"
 
 namespace {
@@ -39,8 +48,8 @@ using namespace bilanczos;
 // slots of the scalar arrays after the shared ones; ATOL and RTOL are
 // set by the host
 enum ScalarSlot {
-  EPS_LIM = GAMMA1 + 1, C_KM1, S_KM1, DBAR_KM1, ZETA_KM1, ZETA_KM2, ETA_KM1,
-  ZETABAR, NORM_VK, RNORM, CK, SK, ZKM1N, NSC
+  EPS_LIM = GAMMA1 + 1, C_KM1, S_KM1, DBAR_KM1, ZETA_KM1, ZETA_KM2,
+  ETA_KM1, ZETABAR, NORM_VK, RNORM, CK, SK, ZKM1N, NSC
 };
 enum IntSlot { CGFLAG = GO + 1, NST };
 // the method's own rows of the vector workspace
@@ -49,8 +58,9 @@ enum OwnRow { X = NSHARED_ROWS, DBAR, NROWS };
 // ||b||, b'c = ||b||^2, beta_1, gamma_1 and the starting state.
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-bq_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st) {
-  const T bb = sum_partials(partial + PUQ * nparts, nparts);
+bq_init_scalars(const Dot* __restrict__ partial, int nparts, T* sc,
+                int* st) {
+  const T bb = sum_partials_in<T>(partial + PUQ * nparts, nparts);
   if (threadIdx.x != 0) return;
   const T bnorm = sqrt(bb);
   const T chb = bnorm * bnorm;          // c = b on the fused path
@@ -58,7 +68,7 @@ bq_init_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st) {
   const T eps_lim = sc[ATOL] + sc[RTOL] * bnorm;
   sc[BETA] = beta;
   sc[GAMMA] = chb / safe(beta);
-  sc[ALPHA] = sc[PHQ] = sc[BETA1] = sc[GAMMA1] = T(0);
+  sc[ALPHA] = T(0);
   sc[EPS_LIM] = eps_lim;
   sc[C_KM1] = T(-1);
   sc[S_KM1] = sc[DBAR_KM1] = sc[ZETA_KM1] = sc[ZETA_KM2] = T(0);
@@ -92,17 +102,16 @@ __device__ __forceinline__ Rotation<T> rotation(const T* sc, int it) {
   return r;
 }
 
-// 3. beta_{k+1}, gamma_{k+1}, the x and d_bar updates, v_{k+1} and
-// u_{k+1}, partials of <v_k, v_{k+1}> and ||v_{k+1}||^2.
+// 2. alpha, q and p, the partials of <p, q>, <v_k, q>, ||q||^2 and
+// ||v_k||^2; the x and d_bar updates.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bq_next(T* __restrict__ work, T* __restrict__ partial, T* sc, const int* st,
-        long long n) {
+bq_fused(T* __restrict__ work, Dot* __restrict__ partial, T* sc,
+         const int* st, long long n) {
   if (!st[GO]) return;
-  T phq, beta1, gamma1;
-  bi_next_scalars(partial, sc, phq, beta1, gamma1);
   const int it0 = st[IT];
   const int it = it0 + 1;
+  const AlphaRows<T> lz(work, partial, sc, it0, n);
   __shared__ Rotation<T> rot;
   if (threadIdx.x == 0) rot = rotation(sc, it);
   __syncthreads();
@@ -116,42 +125,40 @@ bq_next(T* __restrict__ work, T* __restrict__ partial, T* sc, const int* st,
   }
   const T a = x_add * ck;
   const T bcoef = x_add * sk;
-  const T* vk = row(work, V0 + cur(it0), n);
   T* x = row(work, X, n);
   T* dbar = row(work, DBAR, n);
-  T svv = T(0);
-  T snn = T(0);
+  T t[3] = {T(0), T(0), T(0)};
+  Dot qq = Dot(0);
   for (long long i = first_row(); i < n; i += row_stride()) {
-    const T vi = vk[i];
+    const auto lv = lz.load(i);
     const T di = dbar[i];
-    x[i] = x[i] + a * di + bcoef * vi;
+    const T xi = x[i];
+    const T vi = lz.step(i, lv, t, qq);
+    x[i] = xi + a * di + bcoef * vi;
     dbar[i] = it == 1 ? vi : sk * di - ck * vi;
-    const T vn = bi_next_row(work, it0, n, i, phq, beta1, gamma1);
-    svv += vi * vn;
-    snn += vn * vn;
   }
-  const int nparts = gridDim.x;
-  store_partials(svv, partial + PVV * nparts, snn, partial + PNN * nparts);
+  store_alpha_partials(t, qq, partial);
 }
 
-// 4. The rest of the LQ chain, the LQ and BiCG residual estimates and the
-// status (pallas_fused.py:4636-4698).
+// 3. beta_{k+1}, gamma_{k+1}, the rest of the LQ chain, the LQ and BiCG
+// residual estimates and the status (pallas_fused.py:4636-4698).
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-bq_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
+bq_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
            int transfer_to_bicg) {
   if (!st[GO]) return;
-  const T vhv = sum_partials(partial + PVV * nparts, nparts);
-  __syncthreads();
-  const T nn = sum_partials(partial + PNN * nparts, nparts);
+  const LanczosSums<T> sums = lanczos_sums<T>(partial, nparts);
   if (threadIdx.x != 0) return;
-  const int it = st[IT] + 1;
+  const int it0 = st[IT];
+  const int it = it0 + 1;
+  const T phq = sc[PHQ];
+  const T beta1 = sc[BETA1];
+  const T vhv = next_dot(sums, phq, beta1);
+  const T nn = next_norm2(sums, phq, beta1);
   const bool is1 = it == 1;
   const bool is2 = it == 2;
   const T beta = sc[BETA];
   const T alpha = sc[ALPHA];
-  const T phq = sc[PHQ];
-  const T beta1 = sc[BETA1];
   const T c_km1 = sc[C_KM1];
   const T s_km1 = sc[S_KM1];
   const T ck = sc[CK];
@@ -190,8 +197,6 @@ bq_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
   if (breakdown) code = UV_BREAKDOWN;
   if (solved_lq) code = SOLVED_LQ;
   if (solved_cg && !solved_lq) code = SOLVED_CG;
-  sc[BETA] = beta1;
-  sc[GAMMA] = sc[GAMMA1];
   sc[C_KM1] = ck;
   sc[S_KM1] = sk;
   sc[DBAR_KM1] = dbar_k;
@@ -201,6 +206,7 @@ bq_scalars(const T* __restrict__ partial, int nparts, T* sc, int* st,
   sc[ZETABAR] = zetabar;
   sc[NORM_VK] = norm_vkp1;
   sc[RNORM] = rnorm_lq;
+  commit_lanczos(sc);
   st[CGFLAG] = solved_cg && !solved_lq ? 1 : 0;
   st[IT] = it;
   st[STATUS] = code;
@@ -224,17 +230,17 @@ struct Bilq {
   static constexpr int kRows = NROWS - NSHARED_ROWS;
   static constexpr int kWithUU = 0;
   template <typename T>
-  static void init_scalars(T* partial, int grid, T* sc, int* st,
+  static void init_scalars(Dot* partial, int grid, T* sc, int* st,
                            cudaStream_t s) {
     bq_init_scalars<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st);
   }
   template <typename T>
-  static void next(T* work, T* partial, T* sc, int* st, long long n,
-                   int grid, int, cudaStream_t s) {
-    bq_next<T><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n);
+  static void fused(T* work, Dot* partial, T* sc, int* st, long long n,
+                    int grid, cudaStream_t s) {
+    bq_fused<T><<<grid, kThreads, 0, s>>>(work, partial, sc, st, n);
   }
   template <typename T>
-  static void scalars(T* partial, int grid, T* sc, int* st, int flag,
+  static void scalars(Dot* partial, int grid, T* sc, int* st, int flag,
                       cudaStream_t s) {
     bq_scalars<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st, flag);
   }
@@ -262,12 +268,13 @@ int finish(void* work, const void* sc, const void* st, long long n, int grid,
 #define KTT_BQ_ITERATE(NAME, T, P)                                            \
   extern "C" int NAME(const void* pd, const void* offsets, int nd,           \
                       const void* pda, const void* offsets_a, int nda,       \
-                      void* work, void* partial, void* sc, void* st,         \
-                      long long n, int grid, int flag, int iters, int cap,   \
-                      void* stream) {                                        \
-    return bilanczos::iterate<T, P, Bilq>(pd, offsets, nd, pda, offsets_a,   \
-                                          nda, work, partial, sc, st, n,     \
-                                          grid, flag, iters, cap, stream);   \
+                      long long lo, long long hi, long long lo_a,            \
+                      long long hi_a, void* work, void* partial, void* sc,   \
+                      void* st, long long n, int grid, int flag, int iters,  \
+                      int cap, void* stream) {                               \
+    return bilanczos::iterate<T, P, Bilq>(                                   \
+        pd, offsets, nd, pda, offsets_a, nda, lo, hi, lo_a, hi_a, work,      \
+        partial, sc, st, n, grid, flag, iters, cap, stream);                 \
   }
 
 #define KTT_BQ_FINISH(NAME, T)                                                \

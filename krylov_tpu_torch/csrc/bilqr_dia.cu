@@ -19,11 +19,11 @@
 // v_{k+1}, u_{k+1}, x, d_bar, y and w_{k-1}: 14 + 15 words per row,
 // 116 B in f32, 232 B in f64.
 //
-// Design: the fused launches of bilanczos.cuh (its note says where
-// v_{k+1} and u_{k+1} are normalised and in which order the dots are
-// summed; the stencil also takes the partials of <u_k, u_k> for the
-// dual residual), three per iteration:
-//   1. fused_stencil (grid)     q, p, partials of <u_k, q>, <u_k, u_k>
+// Design: the launches of bilanczos.cuh (its note says where v_{k+1}
+// and u_{k+1} are normalised and in which order the dots are summed;
+// the stencil also takes the partials of <u_k, u_k> for the dual
+// residual), four per iteration:
+//   1. two_sided_stencil (grid) q, p, partials of <u_k, q>, <u_k, u_k>
 //   2. br_fused      (grid)     alpha; q -= alpha v_k, p -= alpha u_k;
 //                               partials of <p, q>, <v_k, q>, ||q||^2
 //                               and ||v_k||^2; this iteration's rotation
@@ -31,7 +31,8 @@
 //                               one thread of each block); the primal x
 //                               and d_bar updates; the dual direction
 //                               w_{k-1} from u_{k-1} and y
-//   3. br_scalars    (1 block)  beta_{k+1}, gamma_{k+1}; <v_k, v_{k+1}>
+//   3. bl_normalise  (grid)     v_{k+1} and u_{k+1} in place of q and p
+//   4. br_scalars    (1 block)  beta_{k+1}, gamma_{k+1}; <v_k, v_{k+1}>
 //                               = <v_k, q> / beta_{k+1} and
 //                               ||v_{k+1}||^2 = ||q||^2 / beta_{k+1}^2
 //                               (||v_k||^2 for both where <p, q> = 0);
@@ -41,14 +42,14 @@
 // and one finishing launch after the loop, x += zeta_bar d_bar where the
 // BiCG point solved the primal system.  Where <p, q> = 0 after the
 // primal system is solved, the dual goes on with v_{k+1} = v_k and
-// u_{k+1} = u_k, which the next stencil copies (bilanczos.cuh).  w_{k-1}
-// overwrites w_{k-3} in its buffer row by row, so two buffers hold the
-// dual recurrence.  Bytes per row and iteration: the stencil 2 x 7
-// diagonals, v_k, u_k, v_{k-1}, u_{k-1} read and q, p written (20
+// u_{k+1} = u_k, which the normalising launch copies (bilanczos.cuh).
+// w_{k-1} overwrites w_{k-3} in its buffer row by row, so two buffers
+// hold the dual recurrence.  Bytes per row and iteration: the stencil 2 x
+// 7 diagonals, v_k, u_k, v_{k-1}, u_{k-1} read and q, p written (20
 // words), the fused launch q, p, v_k, u_k, x, d_bar, u_{k-1}, w_{k-2},
-// w_{k-3}, y read and q, p, x, d_bar, w_{k-1}, y written (16 words):
-// 144 B in f32 (bound 116), 288 B in f64 (bound 232).  On BiLQ's
-// four launches BiLQR would move 368 B in f64.
+// w_{k-3}, y read and q, p, x, d_bar, w_{k-1}, y written (16 words), the
+// normalising launch q and p read and written (4 words): 160 B in f32
+// (bound 116), 320 B in f64 (bound 232).
 #include "bilanczos.cuh"
 
 namespace {
@@ -56,12 +57,12 @@ namespace {
 using namespace bilanczos;
 
 enum ScalarSlot {
-  EPSL = NFUSED_SLOTS, EPSQ, C_KM1, S_KM1, DBAR_KM1, ZETA_KM1, ZETA_KM2,
+  EPSL = GAMMA1 + 1, EPSQ, C_KM1, S_KM1, DBAR_KM1, ZETA_KM1, ZETA_KM2,
   ETA_KM1, ZETABAR, PSIBAR_KM1, EPS_KM3, LAM_KM2, NORM_VK, TAU, RNORM, SNORM,
   CK, SK, ZKM1N, NSC
 };
 enum IntSlot {
-  SP = NFUSED_INTS, SD, LQ_T, LQ_M, CG_T, CG_M, QR_T, QR_M, CGFLAG, BRK, NST
+  SP = GO + 1, SD, LQ_T, LQ_M, CG_T, CG_M, QR_T, QR_M, CGFLAG, BRK, NST
 };
 enum OwnRow { X = NSHARED_ROWS, Y, DBAR, W0, W1, NROWS };
 
@@ -87,8 +88,7 @@ br_init_scalars(const Dot* __restrict__ partial, int nparts, T* sc,
   const T beta = sqrt(fabs(chb));
   sc[BETA] = beta;
   sc[GAMMA] = chb / safe(beta);
-  sc[ALPHA] = sc[PHQ] = sc[BETA1] = sc[GAMMA1] = T(0);
-  fused_init_state(sc, st);
+  sc[ALPHA] = T(0);
   sc[EPSL] = sc[ATOL] + sc[RTOL] * bnorm;
   sc[EPSQ] = sc[ATOL] + sc[RTOL] * cnorm;
   sc[C_KM1] = T(-1);
@@ -158,8 +158,6 @@ br_fused(T* __restrict__ work, Dot* __restrict__ partial, T* sc,
   const T lam_km2 = sc[LAM_KM2];
   const T eps_km3 = sc[EPS_KM3];
   const T* ukm1 = row(work, U0 + prev(it0), n);
-  const DividedBy<T> fum(sc[DU0 + prev(it0)]);
-  const DividedBy<T> fd(d);
   const T* wkm2 = row(work, wkm2_row(it0), n);
   T* wkm3 = row(work, wkm3_row(it0), n);
   T* x = row(work, X, n);
@@ -178,10 +176,9 @@ br_fused(T* __restrict__ work, Dot* __restrict__ partial, T* sc,
     const T vi = lz.step(i, lv, t, qq);
     x[i] = xi + a * di + bcoef * vi;
     if (pm) dbar[i] = it == 1 ? vi : sk * di - ck * vi;
-    const T ui = fum(um);
-    const T w = fd(it == 2 ? ui
-                   : (it == 3 ? ui - lam_km2 * w2i
-                              : ui - lam_km2 * w2i - eps_km3 * w3i));
+    const T w = (it == 2 ? um
+                 : (it == 3 ? um - lam_km2 * w2i
+                            : um - lam_km2 * w2i - eps_km3 * w3i)) / d;
     y[i] = yi + y_add * w;
     // w_{k-3} <- w_{k-2}, w_{k-2} <- w_{k-1} from the second iteration on
     wkm3[i] = it >= 2 ? w : w3i;
@@ -201,17 +198,10 @@ br_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
   const int it0 = st[IT];
   const int it = it0 + 1;
   const T uu = sums.uu;
-  const T phq = sums.phq;
-  const T beta1 = sqrt(fabs(phq));
-  const T gamma1 = phq / safe(beta1);
-  // <v_k, v_{k+1}> = <v_k, q> / beta_{k+1} and ||v_{k+1}||^2 =
-  // ||q||^2 / beta_{k+1}^2 (in double), ||v_k||^2 for both where
-  // <p, q> = 0
-  const bool nz = phq != T(0);
-  const T b1 = safe(beta1);
-  const Dot bd = b1;
-  const T vhv = nz ? sums.vq / b1 : sums.vv;
-  const T nn = nz ? static_cast<T>(sums.qq / (bd * bd)) : sums.vv;
+  const T phq = sc[PHQ];
+  const T beta1 = sc[BETA1];
+  const T vhv = next_dot(sums, phq, beta1);
+  const T nn = next_norm2(sums, phq, beta1);
   const bool is1 = it == 1;
   const bool is2 = it == 2;
   const T beta = sc[BETA];
@@ -301,7 +291,7 @@ br_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
   st[QR_M] = qr_m;
   st[CGFLAG] = cgflag;
   st[BRK] = brk ? 1 : 0;
-  commit_lanczos(sc, st, it0, phq, beta1, gamma1);
+  commit_lanczos(sc);
   st[IT] = it;
   st[STATUS] = code;
 }
@@ -355,7 +345,7 @@ int finish(void* work, const void* sc, const void* st, long long n, int grid,
   extern "C" int NAME(const void* b, const void* c, void* work,              \
                       void* partial, void* sc, void* st, long long n,        \
                       int grid, void* stream) {                              \
-    return bilanczos::init<T, Bilqr, Dot>(b, c, work, partial, sc, st, n,    \
+    return bilanczos::init<T, Bilqr>(b, c, work, partial, sc, st, n,    \
                                           grid, stream);                     \
   }
 
@@ -366,7 +356,7 @@ int finish(void* work, const void* sc, const void* st, long long n, int grid,
                       long long hi_a, void* work, void* partial, void* sc,   \
                       void* st, long long n, int grid, int flag, int iters,  \
                       int cap, void* stream) {                               \
-    return bilanczos::iterate_fused<T, P, Bilqr>(                              \
+    return bilanczos::iterate<T, P, Bilqr>(                                  \
         pd, offsets, nd, pda, offsets_a, nda, lo, hi, lo_a, hi_a, work,      \
         partial, sc, st, n, grid, flag, iters, cap, stream);                 \
   }

@@ -1,8 +1,8 @@
 // Helpers shared by the port's CUDA kernels: element conversions, the
-// masked DIA stencil row, the wide DIA rows of dia_spmv.cu and the
-// two-sided stencil of bilanczos.cuh, and block-wide sums whose order is
-// fixed by the grid and block shape alone, so that two runs of a kernel
-// give the same bits.
+// masked DIA stencil row, the wide DIA rows of dia_spmv.cu, trunc_dia.cu
+// and the two-sided stencil of bilanczos.cuh, and block-wide sums whose
+// order is fixed by the grid and block shape alone, so that two runs of a
+// kernel give the same bits.
 #pragma once
 
 #include <cfloat>
@@ -161,6 +161,33 @@ __device__ __forceinline__ void st_vec(T* p, const T (&v)[R]) {
   for (int q = 0; q < W; ++q) reinterpret_cast<uint4*>(p)[q] = w[q];
 }
 
+// Rows p[0 .. R - 1] of a vector with `left` rows from p on, 16 bytes at a
+// time with VEC (then R rows are there and p is 16-byte aligned), else
+// element by element, 0 past the end.
+template <bool VEC, typename T, int R>
+__device__ __forceinline__ void load_rows(const T* p, long long left,
+                                          T (&v)[R]) {
+  if (VEC) {
+    ld_vec(p, v);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = r < left ? ld_ro(p + r) : T(0);
+  }
+}
+
+template <bool VEC, typename T, int R>
+__device__ __forceinline__ void store_rows(T* p, long long left,
+                                           const T (&v)[R]) {
+  if (VEC) {
+    st_vec(p, v);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < left) p[r] = v[r];
+    }
+  }
+}
+
 // The rows a thread owns in the wide DIA kernels: as many as one 16-byte
 // load of the diagonal type holds.
 template <typename P>
@@ -171,19 +198,6 @@ __host__ __device__ constexpr int rows_per_thread() {
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
-
-// How a DIA kernel reads x: as it is stored, or divided by d as it is
-// read (the two-sided kernels keep v_{k+1} = q / beta_{k+1} as q).
-struct AsStored {
-  template <typename X>
-  __device__ __forceinline__ X operator()(X v) const { return v; }
-};
-template <typename T>
-struct DividedBy {
-  T d;
-  __device__ __forceinline__ explicit DividedBy(T d_) : d(d_) {}
-  __device__ __forceinline__ T operator()(T v) const { return v / d; }
-};
 
 // Diagonals staged in shared memory at a time by the wide DIA rows.
 constexpr int kDiaTile = 256;
@@ -206,10 +220,10 @@ __device__ __forceinline__ void stage_offsets(Ix* offs,
 // either end of x.  Each row sums its diagonals in order, skipping those
 // that leave [0, n), as stencil_row_acc does.
 template <int R, bool VEC, typename AT, typename PT, typename XT,
-          typename Ix, typename F>
+          typename Ix>
 __device__ __forceinline__ void dia_tile_rows(
     const PT* __restrict__ pt, const Ix* offs, int dn,
-    const XT* __restrict__ x, Ix i0, Ix n, bool inner, bool x_aligned, F f,
+    const XT* __restrict__ x, Ix i0, Ix n, bool inner, bool x_aligned,
     AT (&acc)[R]) {
   if (inner) {
 #pragma unroll 4
@@ -231,7 +245,7 @@ __device__ __forceinline__ void dia_tile_rows(
         for (int r = 0; r < R; ++r) xv[r] = ld_ro(x + i0 + k + r);
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = madd(acc[r], pv[r], f(xv[r]));
+      for (int r = 0; r < R; ++r) acc[r] = madd(acc[r], pv[r], xv[r]);
     }
   } else {
     for (int dd = 0; dd < dn; ++dd) {
@@ -242,7 +256,7 @@ __device__ __forceinline__ void dia_tile_rows(
         const Ix i = i0 + r;
         const Ix j = i + k;
         if (i < n && j >= 0 && j < n) {
-          acc[r] = madd(acc[r], ld_ro(prow + r), f(ld_ro(x + j)));
+          acc[r] = madd(acc[r], ld_ro(prow + r), ld_ro(x + j));
         }
       }
     }
@@ -255,11 +269,11 @@ __device__ __forceinline__ void dia_tile_rows(
 // is staged here between barriers.  Every thread of the block calls it
 // the same number of times, rows past n included.
 template <int R, bool VEC, typename AT, typename PT, typename XT,
-          typename Ix, typename F>
+          typename Ix>
 __device__ __forceinline__ void dia_rows(
     const PT* __restrict__ pd, const long long* __restrict__ offsets, int nd,
     Ix* offs, const XT* __restrict__ x, Ix i0, Ix n, Ix lo, Ix hi,
-    bool x_aligned, F f, AT (&acc)[R]) {
+    bool x_aligned, AT (&acc)[R]) {
   const bool live = i0 < n;
   const bool inner = i0 >= lo && i0 + R <= hi;
   for (int d0 = 0; d0 < nd; d0 += kDiaTile) {
@@ -271,7 +285,7 @@ __device__ __forceinline__ void dia_rows(
     }
     if (live) {
       dia_tile_rows<R, VEC>(pd + static_cast<Ix>(d0) * n + i0, offs, dn, x,
-                            i0, n, inner, x_aligned, f, acc);
+                            i0, n, inner, x_aligned, acc);
     }
   }
 }

@@ -62,7 +62,7 @@ dia_spmv_kernel(const PT* __restrict__ pd,
     __syncthreads();
   }
   dia_rows<R, VEC>(pd, offsets, nd, offs, x, i0, n, lo, hi, x_aligned != 0,
-                   AsStored(), acc);
+                   acc);
   if (i0 >= n) return;
   XT out[R];
 #pragma unroll

@@ -13,10 +13,10 @@
 // v_k, u_k, v_{k-1}, u_{k-1}, w_{k-1}, w_{k-2} and x and write v_{k+1},
 // u_{k+1}, w_k and x: 14 + 11 words per row, 100 B in f32, 200 B in f64.
 //
-// Design: the fused launches of bilanczos.cuh (its note says where
-// v_{k+1} and u_{k+1} are normalised and how the stencil keeps BiLQ's
-// order of the dots), three per iteration:
-//   1. fused_stencil  (grid)     q, p, partials of <u_k, q>
+// Design: the launches of bilanczos.cuh (its note says where v_{k+1}
+// and u_{k+1} are normalised and in which order the dots are summed),
+// four per iteration:
+//   1. two_sided_stencil (grid)  q, p, partials of <u_k, q>
 //   2. qm_fused       (grid)     alpha; q -= alpha v_k, p -= alpha u_k;
 //                                partials of <p, q>, ||q||^2 and
 //                                ||v_k||^2; and the last iteration's
@@ -24,7 +24,8 @@
 //                                w_{k-1} = (v_{k-1} - lambda w_{k-2}
 //                                - eps w_{k-3}) / d_{k-1} and
 //                                x += zeta_{k-1} w_{k-1}
-//   3. qm_scalars     (1 block)  beta_{k+1}, gamma_{k+1}; the QR step
+//   3. bl_normalise   (grid)     v_{k+1} and u_{k+1} in place of q and p
+//   4. qm_scalars     (1 block)  beta_{k+1}, gamma_{k+1}; the QR step
 //                                (the rotation of d_bar_k against
 //                                beta_{k+1}) and the coefficients of this
 //                                iteration's late update; tau,
@@ -39,9 +40,9 @@
 // the recurrence; neither is read with neighbours.  Bytes per row and
 // iteration: the stencil 2 x 7 diagonals, v_k, u_k, v_{k-1}, u_{k-1}
 // read and q, p written (20 words), the fused launch q, p, v_k, u_k,
-// v_{k-1}, w_{k-1}, w_{k-2}, x read and q, p, w, x written (12 words):
-// 128 B in f32 (bound 100), 256 B in f64 (bound 200).  On BiLQ's
-// four launches QMR would move 148 B in f32 and 296 B in f64.
+// v_{k-1}, w_{k-1}, w_{k-2}, x read and q, p, w, x written (12 words),
+// the normalising launch q and p read and written (4 words): 144 B in
+// f32 (bound 100), 288 B in f64 (bound 200).
 #include "bilanczos.cuh"
 
 namespace {
@@ -49,10 +50,10 @@ namespace {
 using namespace bilanczos;
 
 enum ScalarSlot {
-  EPS_LIM = NFUSED_SLOTS, C_KM2, S_KM2, C_KM1, S_KM1, ZETABAR, TAU, RNORM,
+  EPS_LIM = GAMMA1 + 1, C_KM2, S_KM2, C_KM1, S_KM1, ZETABAR, TAU, RNORM,
   LAM, EPS, DK, ZETA, NSC
 };
-enum IntSlot { NST = NFUSED_INTS };
+enum IntSlot { NST = GO + 1 };
 enum OwnRow { X = NSHARED_ROWS, W0, W1, NROWS };
 
 // ||b||, b'c = ||b||^2, beta_1, gamma_1, zeta_bar_1 = beta_1, tau and the
@@ -70,8 +71,7 @@ qm_init_scalars(const Dot* __restrict__ partial, int nparts, T* sc,
   const T abeta = safe(static_cast<T>(fabs(beta)));
   sc[BETA] = beta;
   sc[GAMMA] = chb / safe(beta);
-  sc[ALPHA] = sc[PHQ] = sc[BETA1] = sc[GAMMA1] = T(0);
-  fused_init_state(sc, st);
+  sc[ALPHA] = T(0);
   sc[EPS_LIM] = eps_lim;
   sc[C_KM2] = sc[S_KM2] = sc[C_KM1] = sc[S_KM1] = T(0);
   sc[ZETABAR] = beta;
@@ -114,19 +114,18 @@ __device__ __forceinline__ QrStep<T> qr_step(const T* sc, int it, T beta1) {
 // The direction update of the iteration before it0 (0-based), from the
 // coefficients its scalar launch stored: w = (v - lambda w_{k-1}
 // - eps w_{k-2}) / d_k over w_{k-2}'s buffer, x += zeta w.  v is that
-// iteration's v_k, now in buffer prev(it0) with its divisor.
+// iteration's v_k, now in buffer prev(it0).
 template <typename T>
 struct LateUpdate {
   const T* v;
   const T* wkm1;
   T* wk;
   T* x;
-  DividedBy<T> fv, fd;
-  T lam, eps, zeta;
+  T d, lam, eps, zeta;
 
   __device__ __forceinline__ LateUpdate(T* work, const T* sc, int it0,
                                         long long n)
-      : fv(sc[DV0 + prev(it0)]), fd(safe(sc[DK])) {
+      : d(safe(sc[DK])) {
     const int upd = it0 >= 1 ? it0 - 1 : 0;   // none before it0 = 1
     v = row(work, V0 + prev(it0), n);
     wkm1 = row(work, W0 + (upd + 1) % 2, n);
@@ -145,7 +144,7 @@ struct LateUpdate {
   }
 
   __device__ __forceinline__ void step(long long i, const Vals& a) const {
-    const T w = fd(fv(a.v) - lam * a.w1 - eps * a.w2);
+    const T w = (a.v - lam * a.w1 - eps * a.w2) / d;
     wk[i] = w;
     x[i] = a.x + zeta * w;
   }
@@ -188,14 +187,10 @@ qm_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
   const LanczosSums<T> sums = lanczos_sums<T>(partial, nparts);
   if (threadIdx.x != 0) return;
   const int it0 = st[IT];
-  const T phq = sums.phq;
-  const T beta1 = sqrt(fabs(phq));
-  const T gamma1 = phq / safe(beta1);
+  const T phq = sc[PHQ];
+  const T beta1 = sc[BETA1];
   const QrStep<T> qr = qr_step(sc, it0 + 1, beta1);
-  // ||v_{k+1}||^2 = ||q||^2 / beta_{k+1}^2 in double, ||v_k||^2 where
-  // <p, q> = 0
-  const Dot b1 = safe(beta1);
-  const T nn = phq != T(0) ? static_cast<T>(sums.qq / (b1 * b1)) : sums.vv;
+  const T nn = next_norm2(sums, phq, beta1);
   const T zetabar = qr.sk * sc[ZETABAR];
   const T tau = sc[TAU] + nn;
   const T rnorm = static_cast<T>(fabs(zetabar)) * sqrt(tau);
@@ -215,7 +210,7 @@ qm_scalars(const Dot* __restrict__ partial, int nparts, T* sc, int* st,
   sc[ZETABAR] = zetabar;
   sc[TAU] = tau;
   sc[RNORM] = rnorm;
-  commit_lanczos(sc, st, it0, phq, beta1, gamma1);
+  commit_lanczos(sc);
   st[IT] = it0 + 1;
   st[STATUS] = code;
 }
@@ -268,7 +263,7 @@ int finish(void* work, const void* sc, const void* st, long long n, int grid,
   extern "C" int NAME(const void* b, const void* c, void* work,              \
                       void* partial, void* sc, void* st, long long n,        \
                       int grid, void* stream) {                              \
-    return bilanczos::init<T, Qmr, Dot>(b, c, work, partial, sc, st, n,      \
+    return bilanczos::init<T, Qmr>(b, c, work, partial, sc, st, n,      \
                                         grid, stream);                       \
   }
 
@@ -279,7 +274,7 @@ int finish(void* work, const void* sc, const void* st, long long n, int grid,
                       long long hi_a, void* work, void* partial, void* sc,   \
                       void* st, long long n, int grid, int flag, int iters,  \
                       int cap, void* stream) {                               \
-    return bilanczos::iterate_fused<T, P, Qmr>(                              \
+    return bilanczos::iterate<T, P, Qmr>(                                    \
         pd, offsets, nd, pda, offsets_a, nda, lo, hi, lo_a, hi_a, work,      \
         partial, sc, st, n, grid, flag, iters, cap, stream);                 \
   }

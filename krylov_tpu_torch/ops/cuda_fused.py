@@ -163,19 +163,19 @@ _BS_RNORM, _BS_NSC, _BS_NST, _BS_NPART = 4, 8, 3, 5
 _CGS_RNORM, _CGS_NSC, _CGS_NST, _CGS_NPART = 4, 7, 3, 3
 # DIOM and DQGMRES (csrc/trunc_dia.cu): NSC fixed scalars, then the window
 # dots hs (mem), the column H (mem + 2), L and S (mem each) and the P-ring
-# coefficients (mem)
+# coefficients (mem); the blocks per SM of its grid launches
 _TR_RNORM, _TR_NSC, _TR_NST = 3, 8, 4
+_TR_BLOCKS_PER_SM = 4
 # BiLQ, QMR and BiLQR (csrc/bilanczos.cuh): the partial rows, and the work
 # row of x (after v and u, three rows each); BiLQR's y follows x and its
-# snorm follows rnorm.  QMR's and BiLQR's slots follow the six divisor
-# slots and the copy flag of the fused design.
+# snorm follows rnorm.
 _BI_NPART, _BI_X = 6, 6
 _BQ_RNORM, _BQ_NSC, _BQ_NST = 17, 21, 4
-_QM_RNORM, _QM_NSC, _QM_NST = 21, 26, 4
-_BR_RNORM, _BR_NSC, _BR_NST = 28, 33, 14
+_QM_RNORM, _QM_NSC, _QM_NST = 15, 20, 3
+_BR_RNORM, _BR_NSC, _BR_NST = 22, 27, 13
 # BiLQR's int slots of lq_tol, lq_mach, cg_tol, cg_mach, qr_tol, qr_mach,
 # solved_primal, solved_dual and breakdown
-_BR_FLAGS = (6, 7, 8, 9, 10, 11, 4, 5, 13)
+_BR_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
 # USYMLQ, USYMQR, TriLQR and USYMLQR (csrc/ssy.cuh): the partial rows, and
 # the first work row of the method's own (after v and u, three rows
 # each): x, then TriLQR's and USYMLQR's y; each scalar and int array ends
@@ -312,6 +312,8 @@ def gpmr_dia_fused_supported(offsets_a, offsets_b, n, dtype, mem,
 
 # the rings live in device memory, so any mem ≥ 2 has a kernel
 trunc_dia_fused_supported = cg_dia_fused_supported
+
+
 # the Krylov panel's types the GMRES kernel stores (None: b's own)
 _BASIS = {torch.float32: "f32", torch.float64: "f64",
           torch.bfloat16: "bf16", torch.float16: "f16"}
@@ -4438,8 +4440,8 @@ def trunc_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20,
 
     Circular V (mem) and P (mem − 1 for DIOM, mem for DQGMRES) rings in
     device memory, zeroed at the start; per iteration the stencil with
-    every window dot's partials, the dots summed in one block, the window
-    subtraction with the ‖w‖ partials, the Hessenberg column in one
+    every window dot's partials, the window subtraction (each block sums
+    the dots) with the ‖w‖ partials, the Hessenberg column in one
     thread, and the P-ring, x and V-ring update.
     Returns (x, niter, rnorm, status_code) as tensors on b's device;
     status 100 means itmax was reached.
@@ -4457,20 +4459,29 @@ def trunc_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20,
     pair = _pair("DIOM/DQGMRES", b, pd)
     diom = variant == "diom"
     mP = mem - 1 if diom else mem
-    n, grid = b.shape[0], _grid(b)
+    n = b.shape[0]
+    # a few blocks per SM, each thread 16 bytes of diagonals a row group
+    nsm = torch.cuda.get_device_properties(b.device).multi_processor_count
+    rows = _THREADS * (16 // pd.element_size())
+    grid = max(1, min(-(-n // rows), _TR_BLOCKS_PER_SM * nsm))
     sc = _host_scalars(_TR_NSC + 5 * mem + 2, b, {0: atol, 1: rtol})
     # the init launch zeroes the rings and x before any read
     V = torch.empty((mem, n), dtype=b.dtype, device=b.device)
     P = torch.empty((mP, n), dtype=b.dtype, device=b.device)
     w, x = torch.empty_like(b), torch.empty_like(b)
-    partial = torch.empty((mem + 1, grid), dtype=b.dtype, device=b.device)
+    # the partial rows of the window dots and of <w, w>, then room for
+    # every warp's sums of the window slots the stencil keeps out of its
+    # registers
+    partial = torch.empty((mem + 1 + mem * _THREADS // 32) * grid,
+                          dtype=b.dtype, device=b.device)
     st = torch.zeros(_TR_NST, dtype=torch.int32, device=b.device)
     bufs = (V.data_ptr(), P.data_ptr(), x.data_ptr(), partial.data_ptr(),
             sc.data_ptr(), st.data_ptr(), n, grid, mem, mP)
     _run(trunc_dia_fused, b, f"ktt_trunc_dia_init_{pair[:3]}",
          (b.data_ptr(),) + bufs, f"ktt_trunc_dia_iterate_{pair}",
-         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], w.data_ptr())
-         + bufs + (int(diom),), st, itmax)
+         (pd.data_ptr(), offsets.data_ptr(), pd.shape[0],
+          *_tensor_span(offsets, n)[:2], w.data_ptr()) + bufs
+         + (int(diom),), st, itmax)
     return x, st[_IT], sc[_TR_RNORM], st[_STATUS]
 
 
@@ -4481,20 +4492,19 @@ def _bi_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
               rtol, itmax, nvec, nsc, nst, flag):
     """The buffers and launches shared by the BiLQ, QMR and BiLQR kernels
     (``csrc/bilanczos.cuh``): the work rows (v and u in three buffers
-    each, then the method's own vectors), the block partials, the
-    scalars and the flags; QMR's and BiLQR's stencils also take the
-    interiors of A's and Aᴴ's offsets, read on the host once per solve
-    (kept on the offsets tensors), and their partials are doubles.
+    each, then the method's own vectors), the block partials (doubles),
+    the scalars and the flags; the stencil also takes the interiors of
+    A's and Aᴴ's offsets, read on the host once per solve (kept on the
+    offsets tensors).
     Returns (work, sc, st)."""
     pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
-    spans = () if kind == "bilq" else (
-        *_tensor_span(offsets, n)[:2], *_tensor_span(offsets_adj, n)[:2])
+    spans = (*_tensor_span(offsets, n)[:2],
+             *_tensor_span(offsets_adj, n)[:2])
     sc = _host_scalars(nsc, b, {0: atol, 1: rtol})
     # the init launch writes every row an iteration reads before it does
     work = torch.empty((nvec, n), dtype=b.dtype, device=b.device)
-    partial = torch.empty((_BI_NPART, grid),
-                          dtype=b.dtype if kind == "bilq" else torch.float64,
+    partial = torch.empty((_BI_NPART, grid), dtype=torch.float64,
                           device=b.device)
     st = torch.zeros(nst, dtype=torch.int32, device=b.device)
     bufs = (work.data_ptr(), partial.data_ptr(), sc.data_ptr(),

@@ -2,10 +2,12 @@
 
 ``CSRMatrix`` keeps the COO row index array ``rows`` beside ``indptr``,
 as the JAX package does: the products are a gather of x by column and a
-sum into rows with ``index_add_`` (the JAX package's sorted
-``segment_sum``).  The structure is built on the host with numpy;
-constructors put the arrays on the card unless ``device="cpu"`` is
-passed, as the other constructors of the port do.
+sum into rows (the JAX package's sorted ``segment_sum``): ``index_add_``
+on the CPU, ``segment_reduce`` over the row lengths on the card, where
+``index_add_``'s atomics would change the bits from call to call.  The
+structure is built on the host with numpy; constructors put the arrays
+on the card unless ``device="cpu"`` is passed, as the other
+constructors of the port do.
 """
 
 import numpy as np
@@ -104,16 +106,32 @@ def csr_from_dense(A, tol=0.0, device=None):
     return csr_from_coo(rows, cols, A[rows, cols], A.shape, device=device)
 
 
+def _row_sums(A, prod):
+    """The products ``prod`` (one row per stored entry) summed into A's
+    rows.  On the CPU ``index_add_``, which adds them in order; on the
+    card ``index_add_`` adds with atomics, in an order that changes from
+    call to call, so each row is summed by ``segment_reduce`` over
+    indptr's row lengths, in an order fixed by the matrix alone (complex
+    products as their real and imaginary parts)."""
+    out = torch.zeros((A.shape[0],) + prod.shape[1:], dtype=prod.dtype,
+                      device=prod.device)
+    if prod.device.type == "cpu" or prod.shape[0] == 0:
+        return out.index_add_(0, A.rows, prod)
+    lengths = A.indptr[1:] - A.indptr[:-1]
+    if prod.is_complex():
+        sums = torch.segment_reduce(torch.view_as_real(prod), "sum",
+                                    lengths=lengths, unsafe=True)
+        return torch.view_as_complex(sums.contiguous())
+    return torch.segment_reduce(prod, "sum", lengths=lengths, unsafe=True)
+
+
 def spmv(A, x):
     """y = A x: a gather of x by column and a sum into rows."""
-    y = torch.zeros(A.shape[0], dtype=torch.promote_types(A.dtype, x.dtype),
-                    device=x.device)
-    return y.index_add_(0, A.rows, A.data * x[A.indices])
+    dt = torch.promote_types(A.dtype, x.dtype)
+    return _row_sums(A, (A.data * x[A.indices]).to(dt))
 
 
 def spmm(A, X):
     """Y = A X for a block of column vectors."""
-    Y = torch.zeros((A.shape[0], X.shape[1]),
-                    dtype=torch.promote_types(A.dtype, X.dtype),
-                    device=X.device)
-    return Y.index_add_(0, A.rows, A.data[:, None] * X[A.indices, :])
+    dt = torch.promote_types(A.dtype, X.dtype)
+    return _row_sums(A, (A.data[:, None] * X[A.indices, :]).to(dt))

@@ -38,8 +38,8 @@ from ..ops.cuda_fused import (INCONS_FOM, fom_dia_fused,
 from ..ops.kops import knorm, sym_givens
 from ..stats import SimpleStats
 from .cr import _check_square, _fused_ready, _no_double_word, _trim
-from .gmres import (arnoldi_drive, back_substitute, first_basis, host_dtypes,
-                    orthogonalize)
+from .gmres import (arnoldi_drive, back_substitute, fc_round, first_basis,
+                    host_dtype, host_dtypes, host_numpy, orthogonalize)
 
 _FOM_STATUS = {INCONS_FOM: "inconsistent linear system"}
 
@@ -74,6 +74,10 @@ def _fom_core(
     dev = b.device
     btol = torch.finfo(T).eps ** 0.75
     np_fc, np_t = host_dtypes(FC)
+    HC = host_dtype(FC)
+
+    def rnd(v):
+        return fc_round(v, FC)
 
     def M_apply(u):
         return precond_apply(M, u, ldiv)
@@ -89,14 +93,14 @@ def _fom_core(
         eps_lim = float(np_t.type(atol) + np_t.type(rtol) * np_t.type(beta))
         status = (rt.ZERO_RESIDUAL if beta == 0
                   else rt.SOLVED if beta <= eps_lim else rt.RUNNING)
-        z = torch.zeros(mem, dtype=FC)
+        z = torch.zeros(mem, dtype=HC)
         z[0] = beta
         hist = rt.hist_init(hist_len, T, dev)
         rt.hist_write(hist, torch.tensor(0, device=dev),
                       torch.tensor(beta, dtype=T, device=dev), history)
         state_in = FomState(
-            x=x, V=V, U=torch.zeros((mem, mem), dtype=FC),
-            l=torch.zeros(mem, dtype=FC), z=z, inner_k=0, iter=0, npass=1,
+            x=x, V=V, U=torch.zeros((mem, mem), dtype=HC),
+            l=torch.zeros(mem, dtype=HC), z=z, inner_k=0, iter=0, npass=1,
             rNorm=beta, eps_lim=eps_lim, status=status, inconsistent=False,
             hist_r=hist, f_resid=False, f_break=False)
 
@@ -105,15 +109,15 @@ def _fom_core(
         q = M_apply(A.matvec(N_apply(s.V[k])))
         q, hcol = orthogonalize(s.V, q, reorthogonalization)
         hbis = knorm(q)
-        u = torch.cat([hcol, hbis.reshape(1).to(FC)]).cpu().numpy()
+        u = host_numpy(torch.cat([hcol, hbis.reshape(1).to(FC)]))
         hbis = u[mem].real.astype(np_t)
         l, z, U = s.l.numpy(), s.z.numpy(), s.U.numpy()
         for i in range(1, k + 1):
-            u[i] = u[i] - l[i - 1] * u[i - 1]
+            u[i] = rnd(u[i] - l[i - 1] * u[i - 1])
         safe_u = u[k] if u[k] != 0 else np_fc.type(1)
         if k >= 1:
-            z[k] = -l[k - 1] * z[k - 1]
-        l[k] = np_fc.type(hbis) / safe_u
+            z[k] = rnd(-l[k - 1] * z[k - 1])
+        l[k] = rnd(np_fc.type(hbis) / safe_u)
         U[:k + 1, k] = u[:k + 1]
         rnorm = float(hbis * np.abs(z[k] / safe_u).astype(np_t))
         it, kk = s.iter + 1, k + 1
@@ -135,8 +139,8 @@ def _fom_core(
     def epilogue(s):
         tired = s.iter >= itmax
         glob_done = s.f_resid or s.f_break or tired
-        y, _ = back_substitute(s.U, s.z, s.inner_k)
-        xr = s.V.T @ y.to(dev)
+        y, _ = back_substitute(s.U, s.z, s.inner_k, FC=FC)
+        xr = s.V.T @ y.to(dev, FC)
         if not NisI:
             xr = N_apply(xr)
         x = s.x + xr
@@ -270,22 +274,26 @@ def _ring_window_dots(V, w, k, mem):
     return h, i_idx, valid
 
 
-def _trunc_column(diom, H, Haux, L, Ssin, xi, k, mem, np_fc, np_t):
+def _trunc_column(diom, H, Haux, L, Ssin, xi, k, mem, np_fc, np_t, FC):
     """The Hessenberg column's recurrence on the host, in place on the
     column H (mem + 2, diagonal-indexed: H[k − i + 1] is row i) and the
     rings L, Ssin (krylov_tpu/solvers/fom.py:467-541, as a sequential
-    loop).  Returns (gamma_step, rNorm, xi_next, denom)."""
+    loop), each stored value rounded to FC (``fc_round``).  Returns
+    (gamma_step, rNorm, xi_next, denom)."""
+    def rnd(v):
+        return fc_round(v, FC)
+
     it1 = k + 1
     if diom:
         # LU column update (reference src/diom.jl:251-266)
         for i in range(max(2, it1 - mem + 2), it1 + 1):
             diag = it1 - i + 1
-            H[diag] = H[diag] - L[(i - 1) % (mem - 1)] * H[diag + 1]
+            H[diag] = rnd(H[diag] - L[(i - 1) % (mem - 1)] * H[diag + 1])
         if it1 >= 2:
-            xi = -L[(it1 - 1) % (mem - 1)] * xi
+            xi = rnd(-L[(it1 - 1) % (mem - 1)] * xi)
         ukk = H[1]
         safe_u = np_fc.type(1) if ukk == 0 else ukk
-        L[it1 % (mem - 1)] = np_fc.type(Haux) / safe_u
+        L[it1 % (mem - 1)] = rnd(np_fc.type(Haux) / safe_u)
         rnorm = Haux * np.abs(xi / safe_u).astype(np_t)
         return xi, rnorm, xi, safe_u
     # previous rotations (reference src/dqgmres.jl:257-266): row i sits
@@ -295,16 +303,16 @@ def _trunc_column(diom, H, Haux, L, Ssin, xi, k, mem, np_fc, np_t):
         diag = it1 - i
         ci, si = L[slot], Ssin[slot]
         hi, hi1 = H[diag + 1], H[diag]
-        H[diag + 1] = ci * hi + si * hi1
-        H[diag] = np.conj(si) * hi - ci * hi1
-    ck, sk, rkk = sym_givens(torch.tensor(H[1]),
-                             torch.tensor(np_fc.type(Haux)))
+        H[diag + 1] = rnd(ci * hi + si * hi1)
+        H[diag] = rnd(np.conj(si) * hi - ci * hi1)
+    ck, sk, rkk = sym_givens(torch.tensor(H[1]).to(FC),
+                             torch.tensor(np_fc.type(Haux)).to(FC))
     ck, sk, rkk = ck.real.item(), sk.item(), rkk.item()
     H[1] = rkk
     L[k % mem] = ck
     Ssin[k % mem] = sk
-    gamma_next = np.conj(np_fc.type(sk)) * xi
-    gamma_k = np_fc.type(ck) * xi
+    gamma_next = rnd(np.conj(np_fc.type(sk)) * xi)
+    gamma_k = rnd(np_fc.type(ck) * xi)
     rnorm = np.abs(gamma_next).astype(np_t)
     denom = np_fc.type(1) if H[1] == 0 else H[1]
     return gamma_k, rnorm, gamma_next, denom
@@ -363,16 +371,17 @@ def _trunc_core(
             h_slots = h_slots + h2
             w = w - s.V.T @ h2
         Haux = knorm(w)
-        hv = torch.cat([h_slots, Haux.reshape(1).to(FC)]).cpu().numpy()
+        hv = host_numpy(torch.cat([h_slots, Haux.reshape(1).to(FC)]))
         Haux = hv[mem].real.astype(np_t)
 
         # diagonal-indexed column H[diag], diag = k − i + 1 ∈ [1, mem]
         H = np.zeros(mem + 2, np_fc)
         for j in range(mem):
             if valid[j]:
-                H[k - i_idx[j] + 1] += hv[j]
+                H[k - i_idx[j] + 1] = fc_round(H[k - i_idx[j] + 1] + hv[j],
+                                               FC)
         gamma_step, rnorm, xi_next, denom = _trunc_column(
-            diom, H, Haux, s.L, s.Ssin, s.xi, k, mem, np_fc, np_t)
+            diom, H, Haux, s.L, s.Ssin, s.xi, k, mem, np_fc, np_t, FC)
 
         # direction pₖ from the P ring (sum over the window)
         jP = np.arange(mP)
@@ -380,7 +389,7 @@ def _trunc_core(
         lowP = (k - mem + 1) if diom else (k - mem)
         validP = (iP >= 0) & (iP >= lowP) & (iP <= k - 1)
         coef = np.where(validP, H[np.where(validP, k - iP + 1, 0)], 0)
-        psum = s.P.T @ torch.as_tensor(coef.astype(np_fc), device=dev)
+        psum = s.P.T @ torch.as_tensor(coef.astype(np_fc), device=dev).to(FC)
         p_new = (z - psum) / torch.tensor(denom, device=dev)
         s.P[k % mP] = p_new
         x = s.x + torch.tensor(gamma_step, device=dev) * p_new

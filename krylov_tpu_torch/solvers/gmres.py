@@ -71,11 +71,12 @@ def orthogonalize(V, q, extra_pass):
     return q, h
 
 
-def back_substitute(R, z, k, btol=None):
+def back_substitute(R, z, k, btol=None, FC=None):
     """Solve R[:k, :k] y = z[:k] from the last row up, on the host; the
     result has R's length with zeros past k.  With ``btol`` a pivot of
     modulus ≤ btol gives yᵢ = 0 and sets the returned flag (reference
-    src/gmres.jl:330-345); without it a zero pivot divides by 1 (FOM)."""
+    src/gmres.jl:330-345); without it a zero pivot divides by 1 (FOM).
+    Each yᵢ is rounded to ``FC`` (``fc_round``)."""
     Rn, zn = R.numpy(), z.numpy()
     y = np.zeros(R.shape[0], dtype=Rn.dtype)
     sing = False
@@ -86,7 +87,7 @@ def back_substitute(R, z, k, btol=None):
             y[i] = 0
             sing = True
         else:
-            y[i] = acc / (1 if diag == 0 else diag)
+            y[i] = fc_round(acc / (1 if diag == 0 else diag), FC)
     return torch.from_numpy(y), sing
 
 
@@ -124,9 +125,33 @@ def first_basis(M_apply, w, mem):
 
 
 def host_dtypes(FC):
-    """numpy's (FC, T) for the scalars the host keeps."""
+    """numpy's (FC, T) for the scalars the host keeps.  numpy has no
+    bfloat16, so a bf16 solve keeps them in float32 and rounds each to
+    bf16 where the JAX core stores it in FC (``fc_round``)."""
+    if FC == torch.bfloat16:
+        return np.dtype(np.float32), np.dtype(np.float32)
     np_fc = torch.empty(0, dtype=FC).numpy().dtype
     return np_fc, np.empty(0, np_fc).real.dtype
+
+
+def host_dtype(FC):
+    """The torch dtype of the host's tensors of FC scalars (float32 for
+    bfloat16, as ``host_dtypes``)."""
+    return torch.float32 if FC == torch.bfloat16 else FC
+
+
+def host_numpy(t):
+    """A tensor's values on the host as numpy, in ``host_dtype``."""
+    return t.cpu().to(host_dtype(t.dtype)).numpy()
+
+
+def fc_round(v, FC):
+    """v (a numpy scalar or array the host keeps for FC) rounded to FC
+    where the host's type is wider (bfloat16 in float32); else v."""
+    if FC != torch.bfloat16:
+        return v
+    r = torch.as_tensor(np.asarray(v, np.float32)).to(FC).float().numpy()
+    return r if np.ndim(v) else np.float32(r)
 
 
 def _gmres_core(
@@ -141,6 +166,10 @@ def _gmres_core(
     dev = b.device
     btol = torch.finfo(T).eps ** 0.75
     np_fc, np_t = host_dtypes(FC)
+    HC, HT = host_dtype(FC), host_dtype(T)
+
+    def rnd(v):
+        return fc_round(v, FC)
 
     def M_apply(u):
         return precond_apply(M, u, ldiv)
@@ -156,7 +185,7 @@ def _gmres_core(
         eps_lim = float(np_t.type(atol) + np_t.type(rtol) * np_t.type(beta))
         status = (rt.ZERO_RESIDUAL if beta == 0
                   else rt.SOLVED if beta <= eps_lim else rt.RUNNING)
-        z = torch.zeros(mem + 1, dtype=FC)
+        z = torch.zeros(mem + 1, dtype=HC)
         z[0] = beta
         hist = rt.hist_init(hist_len, T, dev)
         rt.hist_write(hist, torch.tensor(0, device=dev),
@@ -165,8 +194,8 @@ def _gmres_core(
             x=x, V=V,
             Z=torch.zeros((mem, n) if flexible else (0,), dtype=FC,
                           device=dev),
-            R=torch.zeros((mem, mem), dtype=FC),
-            c=torch.zeros(mem, dtype=T), s=torch.zeros(mem, dtype=FC),
+            R=torch.zeros((mem, mem), dtype=HC),
+            c=torch.zeros(mem, dtype=HT), s=torch.zeros(mem, dtype=HC),
             z=z, inner_k=0, iter=0, npass=1, rNorm=beta, eps_lim=eps_lim,
             status=status, inconsistent=False, hist_r=hist,
             f_resid=False, f_break=False)
@@ -177,20 +206,20 @@ def _gmres_core(
         q = M_apply(A.matvec(p))
         q, hcol = orthogonalize(s.V, q, reorthogonalization)
         hbis = knorm(q)
-        h = torch.cat([hcol, hbis.reshape(1).to(FC)]).cpu().numpy()
+        h = host_numpy(torch.cat([hcol, hbis.reshape(1).to(FC)]))
         hbis = h[mem].real.astype(np_t)
         c, sn, z, R = s.c.numpy(), s.s.numpy(), s.z.numpy(), s.R.numpy()
         # previous rotations Ω₀..Ω_{k-1} on the new column
         for i in range(k):
             hi, hi1 = h[i], h[i + 1]
-            h[i] = c[i] * hi + sn[i] * hi1
-            h[i + 1] = np.conj(sn[i]) * hi - c[i] * hi1
-        ck, sk, rkk = sym_givens(torch.tensor(h[k]),
+            h[i] = rnd(c[i] * hi + sn[i] * hi1)
+            h[i + 1] = rnd(np.conj(sn[i]) * hi - c[i] * hi1)
+        ck, sk, rkk = sym_givens(torch.tensor(h[k]).to(FC),
                                  torch.tensor(hbis).to(FC))
         c[k], sn[k], h[k] = ck.real.item(), sk.item(), rkk.item()
         R[:k + 1, k] = h[:k + 1]
-        zeta_next = np.conj(sn[k]) * z[k]
-        z[k] = np_fc.type(c[k]) * z[k]
+        zeta_next = rnd(np.conj(sn[k]) * z[k])
+        z[k] = rnd(np_fc.type(c[k]) * z[k])
         rnorm = float(np.abs(zeta_next).astype(np_t))
         it, kk = s.iter + 1, k + 1
         resid = rnorm <= s.eps_lim or (np_t.type(rnorm) + 1) <= 1
@@ -215,8 +244,8 @@ def _gmres_core(
     def epilogue(s):
         tired = s.iter >= itmax
         glob_done = s.f_resid or s.f_break or tired
-        y, sing = back_substitute(s.R, s.z, s.inner_k, btol)
-        y = y.to(dev)
+        y, sing = back_substitute(s.R, s.z, s.inner_k, btol, FC)
+        y = y.to(dev, FC)
         if flexible:
             xr = s.Z.T @ y
         else:

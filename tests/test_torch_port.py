@@ -237,11 +237,9 @@ def test_nonsymmetric_wrapper_slots_match_kernel_enums(source, slots):
 def test_slice6_wrapper_slots_match_kernel_enums(source, slots):
     """The slots the truncated and two-sided wrappers set and read and the
     array sizes they allocate are the kernels' enum values.  The two-sided
-    kernels' enums continue those of csrc/bilanczos.cuh (ATOL .. GAMMA1,
-    IT .. GO, the six rows of v and u; QMR's and BiLQR's after the fused
-    design's divisor slots and copy flag, DV0 .. NFUSED_SLOTS and COPY ..
-    NFUSED_INTS), and the shared header's partial rows are the wrapper's
-    count."""
+    kernels' enums continue those of csrc/bilanczos.cuh (ATOL .. ALPHA,
+    IT .. GO, the six rows of v and u), and the shared header's partial
+    rows are the wrapper's count."""
     for enum, want in slots.items():
         if source == "trunc_dia.cu":
             members = _enum(source, enum)
@@ -251,18 +249,13 @@ def test_slice6_wrapper_slots_match_kernel_enums(source, slots):
         for name, slot in want.items():
             assert got[name] == slot, (source, name)
     shared = {e: _enum_values(None, e, header="bilanczos.cuh")
-              for e in ("SharedSlot", "SharedInt", "FusedSlot", "FusedInt")}
-    first = {"bilq_dia.cu": (len(shared["SharedSlot"]),
-                             len(shared["SharedInt"])),
-             "qmr_dia.cu": (shared["FusedSlot"]["NFUSED_SLOTS"],
-                            shared["FusedInt"]["NFUSED_INTS"])}
-    first["bilqr_dia.cu"] = first["qmr_dia.cu"]
-    if source in first:
-        for enum, start in zip(("ScalarSlot", "IntSlot"), first[source]):
+              for e in ("SharedSlot", "SharedInt")}
+    if source != "trunc_dia.cu":
+        for enum, start in zip(("ScalarSlot", "IntSlot"),
+                               (len(shared["SharedSlot"]),
+                                len(shared["SharedInt"]))):
             assert min(_enum_values(source, enum,
                                     header="bilanczos.cuh").values()) == start
-    assert shared["FusedSlot"]["DV0"] == len(shared["SharedSlot"])
-    assert shared["FusedInt"]["COPY"] == len(shared["SharedInt"])
     assert _enum("bilanczos.cuh", "Part")[-1] == "NPART"
     assert len(_enum("bilanczos.cuh", "Part")) - 1 == cf._BI_NPART
     assert _enum("bilanczos.cuh", "SharedSlot")[:2] == ["ATOL", "RTOL"]
@@ -1178,8 +1171,8 @@ def _hold_two_sided(k, r, n, f32, status_only=False):
 ])
 def test_two_sided_fused_design_matches_plain_on_card(kernel, N, dtype, pdt,
                                                       itmax):
-    """The QMR and BiLQR kernels of the fused design against their plain
-    versions, as test_slice6_kernels_match_plain_on_card holds them:
+    """The QMR and BiLQR kernels against their plain versions, as
+    test_slice6_kernels_match_plain_on_card holds them:
     n = 15^3 and 17^3, no multiple of the rows a thread owns, so the
     stencil's scalar path and its masked rows run; bf16 and f16 diagonals
     with f32 vectors (8 rows a thread); and QMR stopped by itmax in the
@@ -1190,9 +1183,9 @@ def test_two_sided_fused_design_matches_plain_on_card(kernel, N, dtype, pdt,
     flags only, as there.  f32 QMR at 17^3 and f32 BiLQR on bf16
     diagonals are not held: there the kernel and the plain version stop
     hundreds of iterations apart on estimates that have lost their
-    accuracy, as the earlier four-launch kernel did (which the fused one
-    repeats bit for bit at 16^3 and 17^3 on f32 and f64 diagonals;
-    PERF.md section 7)."""
+    accuracy, as the earlier kernels did (whose iterates these repeat bit
+    for bit at 15^3 to 64^3 on f32 and f64 diagonals; PERF.md section
+    7)."""
     _card()
     A = kt.convdiff_dia(N, dtype=dtype)
     n = A.shape[0]
@@ -1246,6 +1239,195 @@ def test_bilqr_dual_runs_on_after_pq_breakdown_on_card():
     assert (int(r[2]), int(r[5])) == (2, 15)
     _hold_two_sided(k, r, n, False)
     assert _rel(k[1], c / 2) <= 1e-12
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts one element past a
+    16-byte boundary, so the kernels take their element-wise paths."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _true_res(pd, ot, b, x):
+    """‖b − Ax‖ / ‖b‖ in f64 from the plain SpMV (0 where b = 0)."""
+    r = b.double() - dia_spmv_aligned_ref(pd.double(), ot, x.double())
+    nb = float(b.double().norm())
+    return float(r.norm()) / nb if nb else float(r.norm())
+
+
+def _hold_to_plain(k, r, pd, ot, b, f64):
+    """Status (and flags) equal, niter within ±max(2, 10%), and a true
+    residual no worse than 1.5 times the plain version's (with 1e-9 of
+    slack in f64, where both sit near rounding level)."""
+    ints = [(v, w) for v, w in zip(k, r) if v.dtype == torch.int32]
+    kints = [i for v, _ in ints for i in v.reshape(-1).tolist()]
+    rints = [i for _, w in ints for i in w.reshape(-1).tolist()]
+    assert kints[1:] == rints[1:]
+    assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+    slack = 1e-9 if f64 else 0.0
+    assert _true_res(pd, ot, b, k[0]) <= \
+        1.5 * _true_res(pd, ot, b, r[0]) + slack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype,transfer,unaligned", [
+    (15, torch.float64, True, False),
+    (17, torch.float64, False, True),
+    (16, torch.float64, True, True),
+    (16, torch.float64, False, False),
+])
+def test_bilq_three_launches_match_plain_on_card(N, dtype, transfer,
+                                                 unaligned):
+    """BiLQ on the two-sided stencil, its fused launch and the normalising
+    launch, with and without the BiCG transfer, at n = 15^3 and 17^3 (no
+    multiple of the rows a thread owns, so the masked rows run) and with
+    diagonals one element past a 16-byte boundary (the element-wise
+    path), against its plain version in f64: status, niter within
+    ±max(2, 10%), true residual no worse than 1.5 times the plain
+    version's.  (In f32 at 16^3, on other right-hand sides than
+    test_slice6_kernels_match_plain_on_card's, the plain version stops
+    on an estimate that has lost its accuracy, at a true residual of 11,
+    where the kernel stops at 3.6e-4: PERF.md section 7.)"""
+    _card()
+    A = kt.convdiff_dia(N, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
+    if unaligned:
+        pd, pda = _unaligned(pd), _unaligned(pda)
+    ot = offsets_tensor(A.offsets, "cuda")
+    ota = offsets_tensor(offa, "cuda")
+    b = torch.as_tensor(np.random.default_rng(19).standard_normal(n)).to(
+        "cuda", dtype)
+    f64 = dtype == torch.float64
+    args = (pd, pda, ot, ota, b, 0.0, 1e-10 if f64 else 1e-6, 2 * n,
+            transfer)
+    before = cf.bilq_dia_fused.launches
+    k = cf.bilq_dia_fused(*args)
+    assert cf.bilq_dia_fused.launches > before
+    _hold_to_plain(k, cf.bilq_dia_fused_ref(*args), pd, ot, b, f64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transfer", [True, False])
+def test_bilq_pq_breakdown_on_card(transfer):
+    """BiLQ where <p, q> reaches exactly 0 in its first iteration: A = 2 I
+    as one diagonal and b = 1 on the first four rows, so q = p = 0.  With
+    the transfer the BiCG point solves it (status 36, x = b / 2), without
+    it the solve stops on the breakdown (38); both as the plain
+    version."""
+    _card()
+    n = 16 ** 3
+    pd = torch.full((1, n), 2.0, dtype=torch.float64, device="cuda")
+    ot = offsets_tensor((0,), "cuda")
+    b = torch.zeros(n, dtype=torch.float64, device="cuda")
+    b[:4] = 1.0
+    args = (pd, pd, ot, ot, b, 0.0, 1e-10, 2 * n, transfer)
+    k = cf.bilq_dia_fused(*args)
+    r = cf.bilq_dia_fused_ref(*args)
+    assert (int(r[1]), int(r[3])) == (1, 36 if transfer else 38)
+    assert (int(k[1]), int(k[3])) == (int(r[1]), int(r[3]))
+    assert _rel(k[0], r[0]) <= 1e-12
+    if transfer:
+        assert _rel(k[0], b / 2) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["diom", "dqgmres"])
+@pytest.mark.parametrize("mem,N,dtype,pdt,unaligned", [
+    (2, 16, torch.float64, None, False),
+    (3, 16, torch.float64, None, False),
+    (8, 16, torch.float64, None, False),
+    (9, 16, torch.float64, None, False),
+    (20, 16, torch.float64, None, False),
+    (30, 16, torch.float64, None, False),
+    (20, 16, torch.float32, None, False),
+    (9, 15, torch.float32, None, False),
+    (20, 17, torch.float64, None, True),
+    (30, 15, torch.float32, None, True),
+    (20, 15, torch.float32, torch.bfloat16, False),
+    (30, 16, torch.float32, torch.bfloat16, False),
+    (20, 16, torch.float32, torch.float16, False),
+    (30, 15, torch.float32, torch.float16, False),
+])
+def test_trunc_kernel_memories_match_plain_on_card(variant, mem, N, dtype,
+                                                   pdt, unaligned):
+    """The DIOM/DQGMRES kernel at memory 2, 3, 8, 9, 20 and 30 (past the
+    24 window slots its stencil sums in registers, so the others take
+    each warp's sums in memory), at n = 15^3 and 17^3 (no multiple of
+    the rows a thread owns), with diagonals one element past a 16-byte
+    boundary (the element-wise path) and with bf16 and f16 diagonals
+    beside f32 vectors (8 rows a thread), against its plain version at
+    itmax 300: status, niter within ±max(2, 10%), true residual no worse
+    than 1.5 times the plain version's."""
+    _card()
+    A = kt.convdiff_dia(N, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    if pdt is not None:
+        pd = pd.to(pdt)
+    if unaligned:
+        pd = _unaligned(pd)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(20).standard_normal(n)).to(
+        "cuda", dtype)
+    f64 = dtype == torch.float64
+    args = (pd, ot, b, 0.0, 1e-10 if f64 else 1e-6, 300, mem, variant)
+    before = cf.trunc_dia_fused.launches
+    k = cf.trunc_dia_fused(*args)
+    assert cf.trunc_dia_fused.launches > before
+    _hold_to_plain(k, cf.trunc_dia_fused_ref(*args), pd, ot, b, f64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["diom", "dqgmres"])
+@pytest.mark.parametrize("mem", [600, 900])
+def test_trunc_kernel_large_memories_match_plain_on_card(variant, mem):
+    """Memories that the JAX package's gate admits at small n (2 mem + 5
+    vectors under 100 MB): at n = 8^3 in f64, 600 takes two chunks of
+    window dots in the subtraction launch, and 900 also runs the column
+    launch on its rings in place (past its shared-memory limit).  The
+    kernel against its plain version, as at the smaller memories, and
+    dqgmres/diom on a card operator take the kernel."""
+    _card()
+    A = kt.DIAOperator(kt.convdiff_dia(8, dtype=torch.float64))
+    b = torch.as_tensor(np.random.default_rng(21).standard_normal(512),
+                        device="cuda")
+    pd = dia_align(A.dia.data, A.dia.offsets, 512)
+    ot = offsets_tensor(A.dia.offsets, "cuda")
+    args = (pd, ot, b, 0.0, 1e-10, 300, mem, variant)
+    _hold_to_plain(cf.trunc_dia_fused(*args), cf.trunc_dia_fused_ref(*args),
+                   pd, ot, b, True)
+    n0 = kt.kernel_launches()
+    x, st = getattr(kt, variant)(A, b, memory=mem, rtol=1e-10)
+    n1 = kt.kernel_launches()
+    assert st.solved and n1["trunc_dia"] > n0["trunc_dia"]
+    assert _true_res(pd, ot, b, x) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_csr_products_on_card_repeat_their_bits():
+    """The CSR products on the card sum each row in a fixed order: two
+    calls of spmv and of spmm (real and complex) give equal bits, and so
+    do two CSROperator solves."""
+    _card()
+    rng = np.random.default_rng(33)
+    n = 1 << 13
+    csr = _spd_band_csr(rng, n, np.float64)
+    x = torch.as_tensor(rng.standard_normal(n), device="cuda")
+    X = torch.as_tensor(rng.standard_normal((n, 3)), device="cuda")
+    assert torch.equal(kt.spmv(csr, x), kt.spmv(csr, x))
+    assert torch.equal(kt.spmm(csr, X), kt.spmm(csr, X))
+    xc = x.to(torch.complex128) * (1 + 0.5j)
+    assert torch.equal(kt.spmv(csr, xc), kt.spmv(csr, xc))
+    assert _rel(kt.spmv(csr, x), csr.todense() @ x) <= 1e-12
+    op = kt.CSROperator(csr)
+    x1, s1 = kt.cg(op, x)
+    x2, s2 = kt.cg(op, x)
+    assert s1.solved and s1.niter == s2.niter
+    assert torch.equal(x1, x2)
 
 
 @pytest.mark.cuda
