@@ -3788,12 +3788,14 @@ def two_sided_main(root):
     kernels of the krylov_tpu_torch in checkout ROOT at 128^3 f64, and its
     DQGMRES and DIOM kernels at 128^3 f32 with memory 20, on phase 3f's
     inputs (convdiff_dia(128), its seeded b and c, rtol 1e-10 in f64 and
-    1e-6 in f32, itmax 2n), as one JSON line: each solve's ms by CUDA
-    events (one warm-up, three timed), niter, status code and us per
-    iteration, and from one profiled solve the device's busy share and
-    each kernel's device us and calls.  ``--compare`` runs it in a
-    process of its own, whose profiler traces keep their records
-    (PERF.md section 7)."""
+    1e-6 in f32, itmax 2n), and its GMRES (memory 20, memory 20 with a
+    bf16 panel, memory 512) and FOM (memory 20) kernels at 128^3 f32 on
+    phase 3c's inputs (the same stencil, that phase's first b, rtol 1e-6,
+    itmax 2n), as one JSON line: each solve's ms by CUDA events (one
+    warm-up, three timed), niter, status code and us per iteration, and
+    from one profiled solve the device's busy share and each kernel's
+    device us and calls.  ``--compare`` runs it in a process of its own,
+    whose profiler traces keep their records (PERF.md section 7)."""
     _, kt = import_root(root)
     from krylov_tpu_torch import _build
     from krylov_tpu_torch.ops import cuda_fused as cf
@@ -3820,6 +3822,10 @@ def two_sided_main(root):
     pd32, _, ot32, _ = systems[torch.float32]
     tol = (0.0, 1e-10, 2 * n)
     tol32 = (0.0, 1e-6, 2 * n, 20)
+    # phase 3c's first draw: the b of its 128^3 f32 cases
+    bn = torch.as_tensor(np.random.default_rng(SEED + 6).standard_normal(
+        n)).to("cuda", torch.float32)
+    arnoldi = (pd32, ot32, bn, 0.0, 1e-6, 2 * n)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
     for name, kernel, args in (
             ("bilq", cf.bilq_dia_fused,
@@ -3830,7 +3836,12 @@ def two_sided_main(root):
             ("dqgmres", cf.trunc_dia_fused,
              (pd32, ot32, b32) + tol32 + ("dqgmres",)),
             ("diom", cf.trunc_dia_fused,
-             (pd32, ot32, b32) + tol32 + ("diom",))):
+             (pd32, ot32, b32) + tol32 + ("diom",)),
+            ("gmres", cf.gmres_dia_fused, arnoldi + (20,)),
+            ("gmres bf16 panel", cf.gmres_dia_fused,
+             arnoldi + (20, torch.bfloat16)),
+            ("gmres memory 512", cf.gmres_dia_fused, arnoldi + (512,)),
+            ("fom", cf.fom_dia_fused, arnoldi + (20,))):
         res = kernel(*args)
         two = name == "bilqr"
         niter = int(res[2 if two else 1])
@@ -3880,7 +3891,8 @@ def compare_main(root):
     product's ms and the byte bound, and the kernel's largest difference
     from the BSR product relative to max |y|; and, under "two-sided",
     ``two_sided_main``'s line: BiLQ, QMR and BiLQR at 128^3 f64, DQGMRES
-    and DIOM at 128^3 f32, memory 20."""
+    and DIOM at 128^3 f32, memory 20, GMRES (memory 20, a bf16 panel,
+    memory 512) and FOM (memory 20) at 128^3 f32."""
     root, kt = import_root(root)
     from krylov_tpu_torch import _build
     from krylov_tpu_torch.ops import cuda_sell as csell

@@ -111,16 +111,17 @@ _SIGNATURES = {
     **{f"ktt_minares_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 4
        + (_L, _I, _I, _I, _P) for t in _PAIRS},
     # (b, V, x, partial, sc, st, n, grid, mem, itmax, stream) and (pd,
-    # offsets, nd, b, w, V, x, partial, sc, st, n, grid, mem[, confirm],
-    # iters, cap, stream); GMRES's names end in the Krylov panel's type
+    # offsets, nd, lo, hi, b, w, V, x, partial, sc, st, n, grid, mem[,
+    # confirm], iters, cap, stream); GMRES's names end in the Krylov
+    # panel's type
     **{f"ktt_gmres_dia_init_{t[:3]}_{v}": (_P,) * 6 + (_L, _I, _I, _I, _P)
        for t in ("f32", "f64") for v in (t, "bf16", "f16")},
-    **{f"ktt_gmres_dia_iterate_{t}_{v}": (_P, _P, _I) + (_P,) * 7
+    **{f"ktt_gmres_dia_iterate_{t}_{v}": (_P, _P, _I, _L, _L) + (_P,) * 7
        + (_L, _I, _I, _I, _I, _I, _P)
        for t in _PAIRS for v in (t[:3], "bf16", "f16")},
     **{f"ktt_fom_dia_init_{t}": (_P,) * 6 + (_L, _I, _I, _I, _P)
        for t in ("f32", "f64")},
-    **{f"ktt_fom_dia_iterate_{t}": (_P, _P, _I) + (_P,) * 7
+    **{f"ktt_fom_dia_iterate_{t}": (_P, _P, _I, _L, _L) + (_P,) * 7
        + (_L, _I, _I, _I, _I, _P) for t in _PAIRS},
     # (b, work, partial, sc, st, n, grid, stream) and (pd, offsets, nd, b,
     # work, partial, sc, st, n, grid, iters, cap, stream)

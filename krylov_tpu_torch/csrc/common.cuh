@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA kernels: element conversions, the
-// masked DIA stencil row, the wide DIA rows of dia_spmv.cu, trunc_dia.cu
-// and the two-sided stencil of bilanczos.cuh, and block-wide sums whose
+// masked DIA stencil row, the wide DIA rows of dia_spmv.cu, trunc_dia.cu,
+// the two-sided stencil of bilanczos.cuh and the Arnoldi stencil of
+// arnoldi.cuh, and block-wide sums whose
 // order is fixed by the grid and block shape alone, so that two runs of a
 // kernel give the same bits.
 #pragma once
@@ -95,6 +96,17 @@ __device__ __forceinline__ long long row_stride() {
   return static_cast<long long>(gridDim.x) * blockDim.x;
 }
 
+// The same loop over R consecutive rows a thread (the wide-row launches):
+// rows first_rows<R>() .. + R - 1, then a stride of rows_stride<R>().
+template <int R>
+__device__ __forceinline__ long long first_rows() {
+  return first_row() * R;
+}
+template <int R>
+__device__ __forceinline__ long long rows_stride() {
+  return row_stride() * R;
+}
+
 // Row i of A x from output-aligned diagonals, pd[d, i] * x[i + k_d] summed
 // over d in order in the accumulation type A.  The read of x is masked,
 // so nothing is loaded past either end of x; row and diagonal indices
@@ -139,26 +151,49 @@ __device__ __forceinline__ complex<double> ld_ro(const complex<double>* p) {
   return complex<double>(v.x, v.y);
 }
 
+// R elements as whole 16-byte words, or as one 8- or 4-byte word where R
+// elements of a narrow type (a bf16 or f16 Krylov panel) fill no more;
+// p is aligned to the words' size.
 template <typename T, int R>
 __device__ __forceinline__ void ld_vec(const T* p, T (&v)[R]) {
-  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
-  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
-  uint4 w[W];
+  constexpr size_t B = R * sizeof(T);
+  static_assert(B % 16 == 0 || B == 8 || B == 4, "whole words");
+  if constexpr (B % 16 == 0) {
+    constexpr int W = static_cast<int>(B / 16);
+    uint4 w[W];
 #pragma unroll
-  for (int q = 0; q < W; ++q) {
-    w[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    for (int q = 0; q < W; ++q) {
+      w[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    }
+    memcpy(&v[0], &w[0], sizeof(w));
+  } else if constexpr (B == 8) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    memcpy(&v[0], &w, sizeof(w));
+  } else {
+    const unsigned int w = __ldg(reinterpret_cast<const unsigned int*>(p));
+    memcpy(&v[0], &w, sizeof(w));
   }
-  memcpy(&v[0], &w[0], sizeof(w));
 }
 
 template <typename T, int R>
 __device__ __forceinline__ void st_vec(T* p, const T (&v)[R]) {
-  static_assert((R * sizeof(T)) % 16 == 0, "whole 16-byte words");
-  constexpr int W = static_cast<int>(R * sizeof(T) / 16);
-  uint4 w[W];
-  memcpy(&w[0], &v[0], sizeof(w));
+  constexpr size_t B = R * sizeof(T);
+  static_assert(B % 16 == 0 || B == 8 || B == 4, "whole words");
+  if constexpr (B % 16 == 0) {
+    constexpr int W = static_cast<int>(B / 16);
+    uint4 w[W];
+    memcpy(&w[0], &v[0], sizeof(w));
 #pragma unroll
-  for (int q = 0; q < W; ++q) reinterpret_cast<uint4*>(p)[q] = w[q];
+    for (int q = 0; q < W; ++q) reinterpret_cast<uint4*>(p)[q] = w[q];
+  } else if constexpr (B == 8) {
+    uint2 w;
+    memcpy(&w, &v[0], sizeof(w));
+    *reinterpret_cast<uint2*>(p) = w;
+  } else {
+    unsigned int w;
+    memcpy(&w, &v[0], sizeof(w));
+    *reinterpret_cast<unsigned int*>(p) = w;
+  }
 }
 
 // Rows p[0 .. R - 1] of a vector with `left` rows from p on, 16 bytes at a

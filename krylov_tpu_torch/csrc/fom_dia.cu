@@ -28,13 +28,13 @@ constexpr int INCONS_FOM = 28;
 // ||w||, the LU column k and the residual estimate ||w|| |zz_k / U_kk|.
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-fom_column(const T* __restrict__ partial, int nparts, T* sc, int* st,
+fom_column(const T* __restrict__ ww, int nparts, T* sc, int* st,
            int mem) {
   if (!st[GO]) return;
   const int k = st[K];
-  const T ww = ktt::sum_partials(partial + ((k + 1) & 1) * nparts, nparts);
+  const T wnorm2 = ktt::sum_partials(ww, nparts);
   if (threadIdx.x != 0) return;
-  const T hbis = sqrt(ww);
+  const T hbis = sqrt(wnorm2);
   T* h = sc + h_at(mem);
   T* l = sc + c_at(mem);
   T* zz = sc + zz_at(mem);
@@ -98,9 +98,9 @@ fom_restart(const T* __restrict__ partial, int nparts, T* sc, int* st,
 
 struct Fom {
   template <typename T>
-  static void column(T* partial, int grid, T* sc, int* st, int mem,
+  static void column(T* ww, int grid, T* sc, int* st, int mem,
                      cudaStream_t s) {
-    fom_column<T><<<1, kReduceThreads, 0, s>>>(partial, grid, sc, st, mem);
+    fom_column<T><<<1, kReduceThreads, 0, s>>>(ww, grid, sc, st, mem);
   }
   template <typename T>
   static void backsub(T* sc, int* st, int mem, cudaStream_t s) {
@@ -125,12 +125,13 @@ struct Fom {
 
 #define KTT_FOM_ITERATE(NAME, T, P)                                           \
   extern "C" int NAME(const void* pd, const void* offsets, int nd,           \
-                      const void* b, void* w, void* V, void* x,              \
-                      void* partial, void* sc, void* st, long long n,        \
-                      int grid, int mem, int iters, int cap, void* stream) { \
-    return arnoldi::iterate<T, P, T, Fom>(pd, offsets, nd, b, w, V, x,       \
-                                          partial, sc, st, n, grid, mem, 0,  \
-                                          iters, cap, stream);               \
+                      long long lo, long long hi, const void* b, void* w,    \
+                      void* V, void* x, void* partial, void* sc, void* st,   \
+                      long long n, int grid, int mem, int iters, int cap,    \
+                      void* stream) {                                        \
+    return arnoldi::iterate<T, P, T, Fom>(pd, offsets, nd, lo, hi, b, w, V,  \
+                                          x, partial, sc, st, n, grid, mem,  \
+                                          0, iters, cap, stream);            \
   }
 
 KTT_FOM_INIT(ktt_fom_dia_init_f32, float)

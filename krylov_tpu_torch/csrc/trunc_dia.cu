@@ -106,17 +106,6 @@ __host__ __device__ inline long long coef_at(int mem) {
 // a mod m in [0, m) for m > 0, as jnp.mod
 __device__ __forceinline__ int pmod(int a, int m) { return ((a % m) + m) % m; }
 
-// The first row a thread owns in a wide-row launch, and the stride of
-// its rows.
-template <int R>
-__device__ __forceinline__ long long first_rows() {
-  return (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * R;
-}
-template <int R>
-__device__ __forceinline__ long long rows_stride() {
-  return static_cast<long long>(gridDim.x) * kThreads * R;
-}
-
 // x = 0, both rings = 0, partials of b'b.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -204,8 +193,8 @@ tr_stencil(const P* __restrict__ pd, const long long* __restrict__ offsets,
   T acc[kReg];
 #pragma unroll
   for (int j = 0; j < kReg; ++j) acc[j] = T(0);
-  for (long long i0 = first_rows<R>(); i0 - threadIdx.x * R < n;
-       i0 += rows_stride<R>()) {
+  for (long long i0 = ktt::first_rows<R>(); i0 - threadIdx.x * R < n;
+       i0 += ktt::rows_stride<R>()) {
     const long long left = n - i0;
     T wv[R];
 #pragma unroll
@@ -274,7 +263,8 @@ tr_sub(const T* __restrict__ V, T* __restrict__ w, T* __restrict__ partial,
     }
     __syncthreads();
     const T* Vc = V + static_cast<long long>(j0) * n;
-    for (long long i0 = first_rows<R>(); i0 < n; i0 += rows_stride<R>()) {
+    for (long long i0 = ktt::first_rows<R>(); i0 < n;
+         i0 += ktt::rows_stride<R>()) {
       const long long left = n - i0;
       T wv[R];
       ktt::load_rows<VEC>(w + i0, left, wv);
@@ -426,7 +416,8 @@ tr_update(T* __restrict__ V, T* __restrict__ Pr, T* __restrict__ x,
   const T* vk = V + static_cast<long long>(k % mem) * n;
   T* pnew = Pr + static_cast<long long>(k % mP) * n;
   T* vnext = V + static_cast<long long>((k + 1) % mem) * n;
-  for (long long i0 = first_rows<R>(); i0 < n; i0 += rows_stride<R>()) {
+  for (long long i0 = ktt::first_rows<R>(); i0 < n;
+       i0 += ktt::rows_stride<R>()) {
     const long long left = n - i0;
     T acc[R];
 #pragma unroll

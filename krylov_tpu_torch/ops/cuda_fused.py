@@ -156,16 +156,18 @@ _QLP_RNORM, _QLP_ARNORM, _QLP_NSC, _QLP_INCON, _QLP_NST = 23, 24, 31, 2, 6
 _MNA_RNORM, _MNA_ARNORM, _MNA_NSC, _MNA_NST = 34, 35, 45, 7
 # GMRES and FOM (csrc/arnoldi.cuh): NSC fixed scalars, then the Hessenberg
 # column h (mem + 1), the rotations or LU multipliers c, s (mem each), zz
-# (mem + 1), y (mem) and R by rows (mem * mem)
+# (mem + 1), y (mem) and R by rows (mem * mem); the scratch array is
+# ``_ar_layout``'s
 _AR_RNORM, _AR_NSC = 4, 8
 _AR_INCONS, _AR_NPASS, _AR_NST = 5, 6, 11
 _BS_RNORM, _BS_NSC, _BS_NST, _BS_NPART = 4, 8, 3, 5
 _CGS_RNORM, _CGS_NSC, _CGS_NST, _CGS_NPART = 4, 7, 3, 3
 # DIOM and DQGMRES (csrc/trunc_dia.cu): NSC fixed scalars, then the window
 # dots hs (mem), the column H (mem + 2), L and S (mem each) and the P-ring
-# coefficients (mem); the blocks per SM of its grid launches
+# coefficients (mem); the blocks per SM of the grid launches on wide rows
+# (trunc_dia.cu, arnoldi.cuh)
 _TR_RNORM, _TR_NSC, _TR_NST = 3, 8, 4
-_TR_BLOCKS_PER_SM = 4
+_WIDE_BLOCKS_PER_SM = 4
 # BiLQ, QMR and BiLQR (csrc/bilanczos.cuh): the partial rows, and the work
 # row of x (after v and u, three rows each); BiLQR's y follows x and its
 # snorm follows rnorm.
@@ -1205,21 +1207,59 @@ def minares_dia_fused_ref(pd, offsets, b, atol, rtol, artol, lam, itmax):
 # GMRES and FOM: the plain versions
 # ---------------------------------------------------------------------------
 
-def _arnoldi_step_ref(pd, offsets, V, k, T):
-    """w = A vₖ, orthogonalised against v₀..vₖ by sequential MGS in T
-    (pallas_fused.py:1995-2010); V[k+1] = w/‖w‖ in the panel's type.
-    Returns the column h₀..hₖ and ‖w‖ as 0-d tensors on the host, where
-    the Hessenberg's scalar recurrences run."""
-    w = dia_spmv_aligned_ref(pd, offsets, V[k].to(T))
+def _mgs_ref(V, k, w, T):
+    """w orthogonalised against v₀..vₖ by sequential MGS in T
+    (pallas_fused.py:1995-2010): (h₀..hₖ, w′)."""
     hs = []
     for i in range(k + 1):
         vi = V[i].to(T)
         hij = torch.sum(vi * w)
         hs.append(hij)
         w = w - hij * vi
+    return torch.stack(hs), w
+
+
+class _GramMGS:
+    """MGS's coefficients as ``csrc/arnoldi.cuh`` computes them, in plain
+    PyTorch: cⱼ = ⟨vⱼ, w⟩ against the unmodified w (j ≤ k), the Gram row
+    G[k, j] = ⟨vₖ, vⱼ⟩ (j < k; the rows of the pass's earlier iterations
+    kept), hᵢ = cᵢ − Σ_{j<i} G[i, j] hⱼ by forward substitution, then
+    w −= hⱼvⱼ for j = 0..k in order: the same h and w′ as ``_mgs_ref`` in
+    exact arithmetic.  A step function of ``_arnoldi_ref``; nothing on
+    the card's path uses it."""
+
+    def __init__(self, mem):
+        self.mem, self.G = mem, None
+
+    def __call__(self, V, k, w, T):
+        if self.G is None:
+            self.G = torch.zeros((self.mem, self.mem), dtype=T,
+                                 device=w.device)
+        vs = [V[j].to(T) for j in range(k + 1)]
+        c = [torch.sum(v * w) for v in vs]
+        for j in range(k):
+            self.G[k, j] = torch.sum(vs[k] * vs[j])
+        h = []
+        for i in range(k + 1):
+            acc = c[i]
+            for j in range(i):
+                acc = acc - self.G[i, j] * h[j]
+            h.append(acc)
+        for j in range(k + 1):
+            w = w - h[j] * vs[j]
+        return torch.stack(h), w
+
+
+def _arnoldi_step_ref(pd, offsets, V, k, T, step=_mgs_ref):
+    """w = A vₖ, orthogonalised against v₀..vₖ in T by ``step`` (sequential
+    MGS by default); V[k+1] = w/‖w‖ in the panel's type.  Returns the
+    column h₀..hₖ and ‖w‖ as 0-d tensors on the host, where the
+    Hessenberg's scalar recurrences run."""
+    w = dia_spmv_aligned_ref(pd, offsets, V[k].to(T))
+    h, w = step(V, k, w, T)
     hbis = torch.sqrt(torch.sum(w * w))
     V[k + 1] = (w / _safe(hbis, _scalar(1, w))).to(V.dtype)
-    return torch.stack(hs).cpu(), hbis.cpu()
+    return h.cpu(), hbis.cpu()
 
 
 def _restart_ref(pd, offsets, b, x, V):
@@ -1262,7 +1302,7 @@ def _back_substitute_ref(R, zz, kk, btol=None):
 
 
 def _arnoldi_ref(pd, offsets, b, atol, rtol, itmax, mem, basis_dtype,
-                 column):
+                 column, step=_mgs_ref):
     """The restarted Arnoldi solve shared by GMRES and FOM, as the TPU
     kernels run it (pallas_fused.py:1956-2136, 4970-5090).  The vectors
     stay on b's device; the Hessenberg column's scalars run on the host
@@ -1270,7 +1310,9 @@ def _arnoldi_ref(pd, offsets, b, atol, rtol, itmax, mem, basis_dtype,
     iteration runs only while status == RUNNING and it < itmax, so
     niter is what the kernel's chunks give.  ``column(k, h, hbis)``
     updates the factorisation and returns ‖rₖ‖; ``column.finish(kk)``
-    back-substitutes and returns (y, singular)."""
+    back-substitutes and returns (y, singular).  ``step`` orthogonalises
+    w (``_arnoldi_step_ref``): sequential MGS, or ``_GramMGS(mem)``, the
+    kernel's arithmetic."""
     T = b.dtype
     BT = T if basis_dtype is None else basis_dtype
     confirm = basis_dtype is not None
@@ -1289,7 +1331,7 @@ def _arnoldi_ref(pd, offsets, b, atol, rtol, itmax, mem, basis_dtype,
     prev_tr = torch.tensor(math.inf, dtype=T)
     column.zz[0] = beta0
     while status == RUNNING and it < itmax:
-        h, hbis = _arnoldi_step_ref(pd, offsets, V, k, T)
+        h, hbis = _arnoldi_step_ref(pd, offsets, V, k, T, step)
         rnorm_n = column(k, h, hbis)
         it, kk = it + 1, k + 1
         resid = bool((rnorm_n <= eps_lim) | ((rnorm_n + 1.0) <= 1.0))
@@ -3915,6 +3957,14 @@ def _grid(b):
     return max(1, min(-(-b.shape[0] // _THREADS), _BLOCKS_PER_SM * nsm))
 
 
+def _wide_grid(b, pd):
+    """The grid of a launch on wide rows: a few blocks per SM, each
+    thread 16 bytes of diagonals a row group."""
+    nsm = torch.cuda.get_device_properties(b.device).multi_processor_count
+    rows = _THREADS * (16 // pd.element_size())
+    return max(1, min(-(-b.shape[0] // rows), _WIDE_BLOCKS_PER_SM * nsm))
+
+
 def _host_scalars(nsc, b, values):
     """The kernel's scalar array, on b's device, with ``values`` (slot →
     value) set; each value is rounded to b's dtype, as the TPU kernels
@@ -4304,26 +4354,38 @@ def minares_dia_fused(pd, offsets, b, atol, rtol, artol, lam, itmax):
 minares_dia_fused.launches = 0
 
 
+def _ar_layout(mem, grid):
+    """(the row of the ‖w‖² partials, the Gram rows, the size) of the
+    GMRES and FOM kernels' scratch array (csrc/arnoldi.cuh, struct
+    Layout): rows of ``grid`` block partials, of cⱼ = ⟨vⱼ, w⟩ (mem rows),
+    of the Gram row gⱼ = ⟨vₖ, vⱼ⟩ (mem rows) and of ⟨w, w⟩, then the Gram
+    rows G[i, j] = ⟨vᵢ, vⱼ⟩ (mem × mem)."""
+    ww = 2 * mem * grid
+    return ww, ww + grid, ww + grid + mem * mem
+
+
 def _arnoldi_fused(wrapper, kind, pd, offsets, b, atol, rtol, itmax, mem,
                    basis_dtype=None):
     """The buffers and launches shared by the GMRES and FOM kernels
     (``csrc/arnoldi.cuh``): the Krylov panel V (mem + 1, n) in its own
-    type, the Arnoldi vector w, x, two rows of block partials (the MGS
-    launches alternate between them), the scalars and the flags."""
+    type, the Arnoldi vector w, x, the block partials of the dots and the
+    Gram rows (zeroed here), the scalars and the flags; the stencil also
+    takes the interior of the offsets."""
     pair = _pair(kind.upper(), b, pd)
     bt = b.dtype if basis_dtype is None else basis_dtype
-    n, grid = b.shape[0], _grid(b)
+    n, grid = b.shape[0], _wide_grid(b, pd)
     sc = _host_scalars(_AR_NSC + 5 * mem + 2 + mem * mem, b, dict(
         enumerate((atol, rtol, torch.finfo(b.dtype).eps ** 0.75))))
     V = torch.zeros((mem + 1, n), dtype=bt, device=b.device)
     w, x = torch.zeros_like(b), torch.zeros_like(b)
-    partial = torch.zeros((2, grid), dtype=b.dtype, device=b.device)
+    partial = torch.zeros(_ar_layout(mem, grid)[2], dtype=b.dtype,
+                          device=b.device)
     st = torch.zeros(_AR_NST, dtype=torch.int32, device=b.device)
     bufs = (V.data_ptr(), x.data_ptr(), partial.data_ptr(), sc.data_ptr(),
             st.data_ptr(), n, grid, mem)
     suffix = "" if kind == "fom" else "_" + _BASIS[bt]
-    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], b.data_ptr(),
-            w.data_ptr()) + bufs
+    head = (pd.data_ptr(), offsets.data_ptr(), pd.shape[0],
+            *_tensor_span(offsets, n)[:2], b.data_ptr(), w.data_ptr()) + bufs
     _run(wrapper, b, f"ktt_{kind}_dia_init_{pair[:3]}{suffix}",
          (b.data_ptr(),) + bufs + (int(itmax),),
          f"ktt_{kind}_dia_iterate_{pair}{suffix}",
@@ -4337,9 +4399,11 @@ def gmres_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20,
                     basis_dtype=None):
     """Full restarted GMRES(mem) solve of A x = b for a DIA matrix.
 
-    Sequential MGS Arnoldi (one launch per basis vector, the dot of each
-    summed redundantly by every block of the next), Givens QR and the
-    back substitution in one thread, restarts from b − Ax on the card.
+    MGS Arnoldi in five launches an iteration (the stencil with every
+    dot of w and the Gram row, the coefficients by forward substitution
+    in one block, the ordered update, the column, the normalise), Givens
+    QR and the back substitution in one thread, restarts from b − Ax on
+    the card.
     ``basis_dtype`` (bf16 or f16) stores the Krylov panel compressed
     while the arithmetic stays in b's dtype; a stop is then confirmed
     on the true residual.
@@ -4459,11 +4523,7 @@ def trunc_dia_fused(pd, offsets, b, atol, rtol, itmax, mem=20,
     pair = _pair("DIOM/DQGMRES", b, pd)
     diom = variant == "diom"
     mP = mem - 1 if diom else mem
-    n = b.shape[0]
-    # a few blocks per SM, each thread 16 bytes of diagonals a row group
-    nsm = torch.cuda.get_device_properties(b.device).multi_processor_count
-    rows = _THREADS * (16 // pd.element_size())
-    grid = max(1, min(-(-n // rows), _TR_BLOCKS_PER_SM * nsm))
+    n, grid = b.shape[0], _wide_grid(b, pd)
     sc = _host_scalars(_TR_NSC + 5 * mem + 2, b, {0: atol, 1: rtol})
     # the init launch zeroes the rings and x before any read
     V = torch.empty((mem, n), dtype=b.dtype, device=b.device)

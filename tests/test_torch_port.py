@@ -211,6 +211,23 @@ def test_nonsymmetric_wrapper_slots_match_kernel_enums(source, slots):
             assert members.index(name) == slot, (source, name)
 
 
+@pytest.mark.parametrize("mem,grid", [(1, 1), (20, 528), (512, 528),
+                                      (900, 33)])
+def test_arnoldi_wrapper_layout_matches_kernel(mem, grid):
+    """The GMRES and FOM wrapper's scratch array (``_ar_layout``) is
+    arnoldi.cuh's ``struct Layout``: the partial rows of the dots cⱼ and
+    of the Gram row (mem each), the ‖w‖² row, then the Gram rows (mem ×
+    mem); and the wrapper's grid is the wide rows' (four blocks per SM)."""
+    got = _layout_offsets("arnoldi.cuh", mem=mem, grid=grid)
+    assert got["g_row"] == mem * grid
+    assert (got["ww_row"], got["gram"], got["size"]) == \
+        cf._ar_layout(mem, grid)
+    assert cf._WIDE_BLOCKS_PER_SM == 4
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / "arnoldi.cuh").read_text()
+    assert "constexpr int kThreads = 256;" in text
+    assert cf._THREADS == 256
+
+
 @pytest.mark.parametrize("source,slots", [
     ("trunc_dia.cu", {"ScalarSlot": {"ATOL": 0, "RTOL": 1,
                                      "RNORM": cf._TR_RNORM,
@@ -1065,6 +1082,181 @@ def test_nonsymmetric_kernels_match_plain_on_card(kernel, dtype):
         assert kints == rints
         assert _rel(k[0], r[0]) <= 1e-8 if rints[0] else \
             bool((k[0] == 0).all())
+
+
+def _hold_arnoldi(k, r, f32):
+    """The assertions of test_nonsymmetric_kernels_match_plain_on_card on
+    a GMRES or FOM kernel's outputs: status and the inconsistent flag
+    equal; niter within ±max(2, 10%) and x to 1e-2 relative in f32; every
+    int output equal and x to 1e-8 relative in f64."""
+    kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+    rints = [int(v) for v in r[1:] if v.dtype == torch.int32]
+    assert kints[1:3] == rints[1:3]
+    if f32:
+        assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
+        assert _rel(k[0], r[0]) <= 1e-2
+    else:
+        assert kints == rints
+        assert _rel(k[0], r[0]) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("panel", [torch.bfloat16, torch.float16])
+def test_gmres_kernel_panels_match_plain_on_card(panel, dtype):
+    """GMRES with a bf16 and an f16 Krylov panel (the stencil reads it 8
+    or 4 bytes a thread, the dots and the update widen it to T, the
+    normalise narrows v_{k+1}) against its plain version on the 16^3
+    convection-diffusion stencil, memory 20, as
+    test_nonsymmetric_kernels_match_plain_on_card holds its bf16 case."""
+    _card()
+    A = kt.convdiff_dia(16, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(15).standard_normal(n)).to(
+        "cuda", dtype)
+    f32 = dtype == torch.float32
+    args = (pd, ot, b, 0.0, 1e-6 if f32 else 1e-10, 2 * n, 20, panel)
+    before = cf.gmres_dia_fused.launches
+    k = cf.gmres_dia_fused(*args)
+    assert cf.gmres_dia_fused.launches > before
+    _hold_arnoldi(k, cf.gmres_dia_fused_ref(*args), f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gmres", "fom"])
+@pytest.mark.parametrize("mem", [600, 900])
+def test_arnoldi_kernel_large_memories_match_plain_on_card(method, mem):
+    """Memories past the stencil's registers at n = 8^3 in f64: the dots
+    go in groups of 12 basis vectors, the block walking its rows again
+    for each group.  The kernel against its plain version, as
+    test_nonsymmetric_kernels_match_plain_on_card holds f64, and
+    gmres/fom on a card operator take the kernel."""
+    _card()
+    A = kt.DIAOperator(kt.convdiff_dia(8, dtype=torch.float64))
+    b = torch.as_tensor(np.random.default_rng(21).standard_normal(512),
+                        device="cuda")
+    pd = dia_align(A.dia.data, A.dia.offsets, 512)
+    ot = offsets_tensor(A.dia.offsets, "cuda")
+    args = (pd, ot, b, 0.0, 1e-10, 300, mem)
+    _hold_arnoldi(getattr(cf, method + "_dia_fused")(*args),
+                  getattr(cf, method + "_dia_fused_ref")(*args), False)
+    n0 = kt.kernel_launches()
+    x, st = getattr(kt, method)(A, b, memory=mem, rtol=1e-10)
+    n1 = kt.kernel_launches()
+    assert st.solved and n1[method + "_dia"] > n0[method + "_dia"]
+    assert _true_res(pd, ot, b, x) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mem", [900, 4200])
+def test_gmres_kernel_long_pass_matches_plain_on_card(mem):
+    """One long pass of GMRES in f64 on the 16^3 Poisson stencil with the
+    first half of its main diagonal negated (an indefinite system; the
+    plain version stops at 572 iterations on the CPU): past k = 512 the
+    update takes its h in two chunks, and at memory 4200 the coefficient
+    launch builds h in place in the scalar array (past its shared
+    memory).  Held as the truncated kernels are (_hold_to_plain): status
+    and flags equal, niter within ±max(2, 10%) and a true residual no
+    worse than 1.5 times the plain version's, since a stop after some 570
+    steps on an indefinite system moves with the order of the sums even
+    in f64."""
+    _card()
+    A = kt.poisson_dia(16, dtype=torch.float64)
+    data = A.data.clone()
+    data[A.offsets.index(0), :2048] *= -1.0
+    pd = dia_align(data, A.offsets, 4096)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(23).standard_normal(4096),
+                        device="cuda")
+    args = (pd, ot, b, 0.0, 1e-10, 600, mem)
+    _hold_to_plain(cf.gmres_dia_fused(*args), cf.gmres_dia_fused_ref(*args),
+                   pd, ot, b, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fom_kernel_breakdown_on_card(dtype):
+    """FOM's breakdown without convergence ("inconsistent linear
+    system", status 28) on the card: a diagonal of 1, 2, 0, 3 repeated
+    (16^3 rows) with b = 1 exhausts its Krylov space at the fourth step
+    while b keeps a part in the null space.  Status, niter and the
+    inconsistent flag equal to the plain version's; x grows along the
+    null space by a rounding-dependent amount and is not compared, as
+    tests/test_torch_fom.py holds the same case."""
+    _card()
+    n = 16 ** 3
+    data = torch.tensor([1.0, 2.0, 0.0, 3.0], dtype=dtype,
+                        device="cuda").repeat(n // 4)[None]
+    pd = dia_align(data, (0,), n)
+    ot = offsets_tensor((0,), "cuda")
+    b = torch.ones(n, dtype=dtype, device="cuda")
+    args = (pd, ot, b, 0.0, 1e-6 if dtype == torch.float32 else 1e-10, 100,
+            20)
+    k = cf.fom_dia_fused(*args)
+    r = cf.fom_dia_fused_ref(*args)
+    kints = [int(v) for v in k[1:] if v.dtype == torch.int32]
+    assert kints == [int(v) for v in r[1:] if v.dtype == torch.int32]
+    assert kints[1:3] == [28, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [15, 17])
+@pytest.mark.parametrize("method,mem", [("gmres", 20), ("gmres", 512),
+                                        ("fom", 20)])
+def test_arnoldi_kernel_row_tails_match_plain_on_card(method, mem, N, dtype):
+    """GMRES at memory 20 and 512 and FOM at n = 15^3 and 17^3, no
+    multiple of the rows a thread owns (4 in f32, 2 in f64), so the
+    stencil, update and normalise take their element-wise rows with the
+    masked tails; against the plain versions on the convection-diffusion
+    stencil as test_nonsymmetric_kernels_match_plain_on_card holds them
+    (_hold_arnoldi)."""
+    _card()
+    A = kt.convdiff_dia(N, dtype=dtype)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(15).standard_normal(n)).to(
+        "cuda", dtype)
+    f32 = dtype == torch.float32
+    args = (pd, ot, b, 0.0, 1e-6 if f32 else 1e-10, 2 * n, mem)
+    wrapper = getattr(cf, method + "_dia_fused")
+    before = wrapper.launches
+    k = wrapper(*args)
+    assert wrapper.launches > before
+    _hold_arnoldi(k, getattr(cf, method + "_dia_fused_ref")(*args), f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("method,panel", [("gmres", None),
+                                          ("gmres", torch.bfloat16),
+                                          ("fom", None)])
+def test_arnoldi_kernel_narrow_diagonals_match_plain_on_card(method, panel,
+                                                             pdt):
+    """GMRES (an f32 and a bf16 panel) and FOM with bf16 and f16
+    diagonals beside f32 vectors on the 16^3 convection-diffusion
+    stencil, memory 20: 8 rows a thread on the wide rows, the group's
+    dots in registers beside them.  Against the plain versions on the
+    same narrow diagonals as test_nonsymmetric_kernels_match_plain_on_card
+    holds f32 (_hold_arnoldi)."""
+    _card()
+    A = kt.convdiff_dia(16, dtype=torch.float32)
+    n = A.shape[0]
+    pd = dia_align(A.data, A.offsets, n).to(pdt)
+    ot = offsets_tensor(A.offsets, "cuda")
+    b = torch.as_tensor(np.random.default_rng(15).standard_normal(n)).to(
+        "cuda", torch.float32)
+    args = (pd, ot, b, 0.0, 1e-6, 2 * n, 20)
+    if panel is not None:
+        args += (panel,)
+    wrapper = getattr(cf, method + "_dia_fused")
+    before = wrapper.launches
+    k = wrapper(*args)
+    assert wrapper.launches > before
+    _hold_arnoldi(k, getattr(cf, method + "_dia_fused_ref")(*args), True)
 
 
 @pytest.mark.cuda
