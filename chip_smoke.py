@@ -3785,47 +3785,87 @@ def import_root(root):
 
 def two_sided_main(root):
     """``python3 chip_smoke.py --two-sided ROOT``: the BiLQ, QMR and BiLQR
-    kernels of the krylov_tpu_torch in checkout ROOT at 128^3 f64, and its
-    DQGMRES and DIOM kernels at 128^3 f32 with memory 20, on phase 3f's
-    inputs (convdiff_dia(128), its seeded b and c, rtol 1e-10 in f64 and
-    1e-6 in f32, itmax 2n), and its GMRES (memory 20, memory 20 with a
+    kernels of the krylov_tpu_torch in checkout ROOT at 128^3 f64 and f32
+    and with f32 vectors on bf16 diagonals (itmax 1000), and its DQGMRES
+    and DIOM kernels at 128^3 f32 with memory 20, on phase 3f's inputs
+    (convdiff_dia(128), its seeded b and c, rtol 1e-10 in f64 and 1e-6 in
+    f32, itmax 2n), its GMRES (memory 20, memory 20 with a
     bf16 panel, memory 512) and FOM (memory 20) kernels at 128^3 f32 on
     phase 3c's inputs (the same stencil, that phase's first b, rtol 1e-6,
-    itmax 2n), as one JSON line: each solve's ms by CUDA events (one
-    warm-up, three timed), niter, status code and us per iteration, and
-    from one profiled solve the device's busy share and each kernel's
-    device us and calls.  ``--compare`` runs it in a process of its own,
-    whose profiler traces keep their records (PERF.md section 7)."""
+    itmax 2n), its TriLQR, USYMLQR, USYMLQ and USYMQR kernels at 128^3
+    f32 on phase 3g's (convdiff_dia(128) + 0.5 I, that phase's seeded b
+    and c, rtol 1e-6, itmax 2n) and its TriCG and TriMR kernels at 128^3
+    f32 on phase 3j's and 3k's (poisson_dia(128), tau = 1, nu = -1, each
+    phase's seeded b and c, the default tolerances, itmax 2n), as one
+    JSON line: each solve's ms by CUDA events (one warm-up, three timed),
+    niter, status code, us per iteration and a digest of the bytes of x
+    (and y), and from one profiled solve the device's busy share, device
+    us, the launched iterations (the most calls of one kernel), device us
+    per launched iteration and each kernel's device us and calls.
+    ``--compare`` runs it in a process of its own, whose profiler traces
+    keep their records (PERF.md section 7)."""
+    import hashlib
     _, kt = import_root(root)
     from krylov_tpu_torch import _build
+    from krylov_tpu_torch import _runtime as rt
     from krylov_tpu_torch.ops import cuda_fused as cf
     from krylov_tpu_torch.ops.cuda_dia import dia_align, offsets_tensor
     _build.library()
     # phase 3f's draws: b and c of 128^3, of 64^3, then of 128^3 in f64
     gen = np.random.default_rng(SEED + 8)
     n = 128 ** 3
-    b32 = torch.as_tensor(gen.standard_normal(n)).to("cuda", torch.float32)
-    for m in (128 ** 3, 64 ** 3, 64 ** 3):
+    b32, c32 = (torch.as_tensor(gen.standard_normal(n)).to(
+        "cuda", torch.float32) for _ in range(2))
+    for m in (64 ** 3, 64 ** 3):
         gen.standard_normal(m)
     dt = torch.float64
     b = torch.as_tensor(gen.standard_normal(n)).to("cuda", dt)
     c = torch.as_tensor(gen.standard_normal(n)).to("cuda", dt)
-    systems = {}
-    for sdt in (torch.float64, torch.float32):
-        A = kt.convdiff_dia(128, dtype=sdt)
+
+    def aligned(A):
         pd = dia_align(A.data, A.offsets, n)
         pda, offa = kt.dia_align_adjoint(pd, A.offsets, n)
-        systems[sdt] = (pd, pda, offsets_tensor(A.offsets, "cuda"),
-                        offsets_tensor(offa, "cuda"))
-        del A
+        return (pd, pda, offsets_tensor(A.offsets, "cuda"),
+                offsets_tensor(offa, "cuda"))
+
+    def seeded_pair(seed, skip):
+        """b and c in f32: the draws after ``skip`` of a phase's seed."""
+        g = np.random.default_rng(seed)
+        g.standard_normal(skip)
+        return tuple(torch.as_tensor(g.standard_normal(n)).to(
+            "cuda", torch.float32) for _ in range(2))
+
+    systems = {sdt: aligned(kt.convdiff_dia(128, dtype=sdt))
+               for sdt in (torch.float64, torch.float32)}
     pd, pda, ot, ota = systems[dt]
-    pd32, _, ot32, _ = systems[torch.float32]
+    pd32, pda32, ot32, ota32 = systems[torch.float32]
     tol = (0.0, 1e-10, 2 * n)
+    # phase 3f's f32 BiLQ, QMR and BiLQR, and the same on the diagonals
+    # rounded to bf16 (at most 1000 iterations)
+    two32 = (pd32, pda32, ot32, ota32, b32, c32, 0.0, 1e-6, 2 * n)
+    two16 = (pd32.to(torch.bfloat16), pda32.to(torch.bfloat16), ot32, ota32,
+             b32, c32, 0.0, 1e-6, 1000)
     tol32 = (0.0, 1e-6, 2 * n, 20)
     # phase 3c's first draw: the b of its 128^3 f32 cases
     bn = torch.as_tensor(np.random.default_rng(SEED + 6).standard_normal(
         n)).to("cuda", torch.float32)
     arnoldi = (pd32, ot32, bn, 0.0, 1e-6, 2 * n)
+    # phase 3g's system and its first two draws; phases 3j's and 3k's
+    # Poisson system and the draws of their 128^3 f32 TriCG and TriMR
+    # cases (after 64^3 x 4 and 128^3 x 2 draws in 3j, 64^3 x 10 in 3k)
+    S = kt.convdiff_dia(128, dtype=torch.float32)
+    S.data[S.offsets.index(0)] += 0.5
+    ssy = aligned(S) + seeded_pair(SEED + 11, 0) + (0.0, 1e-6, 2 * n)
+    del S
+    poisson = aligned(kt.poisson_dia(128, dtype=torch.float32))
+    ptol = rt.default_tol(None, torch.float32)
+    tri = (1.0, -1.0, ptol, ptol, 2 * n)
+    tricg_rhs = seeded_pair(SEED + 18, 4 * 64 ** 3 + 2 * n)
+    trimr_rhs = seeded_pair(SEED + 20, 10 * 64 ** 3)
+    # (niter, status) positions of the outputs that differ from
+    # (x, niter, rnorm, status); two solutions where niter is third
+    where = {"bilqr": (2, 5), "trilqr": (2, 5), "usymlqr": (2, 5),
+             "tricg": (2, 4), "trimr": (2, 4), "usymqr": (1, 4)}
     out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
     for name, kernel, args in (
             ("bilq", cf.bilq_dia_fused,
@@ -3833,6 +3873,13 @@ def two_sided_main(root):
             ("qmr", cf.qmr_dia_fused, (pd, pda, ot, ota, b) + tol),
             ("bilqr", cf.bilqr_dia_fused,
              (pd, pda, ot, ota, b, c) + tol + (True,)),
+            ("bilq f32", cf.bilq_dia_fused, two32[:5] + two32[6:] + (True,)),
+            ("qmr f32", cf.qmr_dia_fused, two32[:5] + two32[6:]),
+            ("bilqr f32", cf.bilqr_dia_fused, two32 + (True,)),
+            ("bilq bf16 diagonals", cf.bilq_dia_fused,
+             two16[:5] + two16[6:] + (True,)),
+            ("qmr bf16 diagonals", cf.qmr_dia_fused, two16[:5] + two16[6:]),
+            ("bilqr bf16 diagonals", cf.bilqr_dia_fused, two16 + (True,)),
             ("dqgmres", cf.trunc_dia_fused,
              (pd32, ot32, b32) + tol32 + ("dqgmres",)),
             ("diom", cf.trunc_dia_fused,
@@ -3841,20 +3888,32 @@ def two_sided_main(root):
             ("gmres bf16 panel", cf.gmres_dia_fused,
              arnoldi + (20, torch.bfloat16)),
             ("gmres memory 512", cf.gmres_dia_fused, arnoldi + (512,)),
-            ("fom", cf.fom_dia_fused, arnoldi + (20,))):
+            ("fom", cf.fom_dia_fused, arnoldi + (20,)),
+            ("trilqr", cf.trilqr_dia_fused, ssy + (True,)),
+            ("usymlqr", cf.usymlqr_dia_fused, ssy),
+            ("usymlq", cf.usymlq_dia_fused, ssy + (True,)),
+            ("usymqr", cf.usymqr_dia_fused, ssy),
+            ("tricg", cf.tricg_dia_fused, poisson + tricg_rhs + tri),
+            ("trimr", cf.trimr_dia_fused, poisson + trimr_rhs + tri)):
         res = kernel(*args)
-        two = name == "bilqr"
-        niter = int(res[2 if two else 1])
+        i_niter, i_status = where.get(name.split()[0], (1, 3))
+        niter = int(res[i_niter])
+        digest = hashlib.sha256(b"".join(
+            v.cpu().numpy().tobytes() for v in res[:i_niter])).hexdigest()
         ms = event_ms(lambda: kernel(*args), reps=3, warmup=1)
         prof = solve_profile(lambda: (None, kernel(*args)))
-        row = dict(ms=ms, niter=niter, status=int(res[5 if two else 3]),
-                   us_per_iter=1e3 * ms / max(niter, 1))
+        row = dict(ms=ms, niter=niter, status=int(res[i_status]),
+                   us_per_iter=1e3 * ms / max(niter, 1), digest=digest[:16])
         if prof is not None:
             _, wall_us, busy_us, rows = prof
+            launched = max(count for _, count, _ in rows)
             row.update(busy_share=busy_us / wall_us, device_us=busy_us,
+                       launched_iters=launched,
+                       device_us_per_launched_iter=busy_us / launched,
                        kernels={key[:80]: [dev_us, count]
                                 for dev_us, count, key in rows[:8]})
         out[name] = row
+        del res
     print(json.dumps(out), flush=True)
 
 
@@ -3890,9 +3949,11 @@ def compare_main(root):
     ms and host us, the public wrapper's host us, the library's BSR
     product's ms and the byte bound, and the kernel's largest difference
     from the BSR product relative to max |y|; and, under "two-sided",
-    ``two_sided_main``'s line: BiLQ, QMR and BiLQR at 128^3 f64, DQGMRES
+    ``two_sided_main``'s line: BiLQ, QMR and BiLQR at 128^3 f64, f32 and
+    on bf16 diagonals, DQGMRES
     and DIOM at 128^3 f32, memory 20, GMRES (memory 20, a bf16 panel,
-    memory 512) and FOM (memory 20) at 128^3 f32."""
+    memory 512) and FOM (memory 20), TriLQR, USYMLQR, USYMLQ, USYMQR,
+    TriCG and TriMR at 128^3 f32."""
     root, kt = import_root(root)
     from krylov_tpu_torch import _build
     from krylov_tpu_torch.ops import cuda_sell as csell

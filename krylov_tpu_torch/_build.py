@@ -152,8 +152,9 @@ _SIGNATURES = {
     # n, grid, stream)
     **{f"ktt_{k}_dia_init_{t}": (_P,) * 6 + (_L, _I, _I, _P)
        for k in _SSY for t in ("f32", "f64")},
-    **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_P,) * 4
-       + (_L, _I, _I, _I, _I, _P) for k in _SSY for t in _PAIRS},
+    **{f"ktt_{k}_dia_iterate_{t}": (_P, _P, _I, _P, _P, _I) + (_L,) * 4
+       + (_P,) * 4 + (_L, _I, _I, _I, _I, _P)
+       for k in _SSY for t in _PAIRS},
     **{f"ktt_{k}_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
        for k in ("usymlq", "trilqr", "usymlqr") for t in ("f32", "f64")},
     # the Golub-Kahan kernels (csrc/gk.cuh): (pd_adj, offsets_adj, nd_adj,

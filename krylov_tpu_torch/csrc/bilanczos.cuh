@@ -42,9 +42,10 @@
 // neighbour as it is read, with or without a shared tile of divided
 // values, cost the stencil more than that pass (PERF.md section 6).
 //
-// The stencil is dia_spmv.cu's design (common.cuh dia_rows): a thread
-// owns R = 16 / sizeof(pd element) consecutive rows, pd read 16 bytes at
-// a time and x where i + k_d is a multiple of R, the offsets in shared
+// The stencil is common.cuh's pair_stencil, which it shares with
+// ssy.cuh, on dia_spmv.cu's design (common.cuh dia_rows): a thread
+// owns R = 2 consecutive rows (kPairRows), pd read R entries at a time
+// and x where i + k_d is a multiple of R, the offsets in shared
 // memory, an interior [lo, hi) for each of A and A^H, computed on the
 // host once per solve, with no bounds branch, masked rows outside it, a
 // scalar path where n is no multiple of R or a buffer is not 16-byte
@@ -58,13 +59,13 @@
 // the shuffle tree a 256-thread block would take (store_spread_partial).
 // Then the per-block partials are summed in a kThreads block's strides
 // (alpha in every block of the fused launch; <p, q> in every block of
-// launch 3; <u_k, u_k> in the scalar launch's strides).  So q, p and every dot are bit for bit those of a
-// one-row-a-thread grid, and no launch hands a value from thread to
-// thread.  Every dot is summed in T, as the TPU kernel
-// sums them, but ||q||^2, summed in double (Dot).  <v_k, v_{k+1}> and
-// ||v_{k+1}||^2 are <v_k, q> / beta_{k+1} and ||q||^2 / beta_{k+1}^2
-// (||v_k||^2 for both where <p, q> = 0): a division after the sum in
-// place of a sum over v_{k+1}'s rows.
+// launch 3; <u_k, u_k> in the scalar launch's strides).  So q, p and
+// every dot are bit for bit those of a one-row-a-thread grid, and no
+// launch hands a value from thread to thread.  Every dot is summed in T,
+// as the TPU kernel sums them, but ||q||^2, summed in double (Dot).
+// <v_k, v_{k+1}> and ||v_{k+1}||^2 are <v_k, q> / beta_{k+1} and
+// ||q||^2 / beta_{k+1}^2 (||v_k||^2 for both where <p, q> = 0): a
+// division after the sum in place of a sum over v_{k+1}'s rows.
 #pragma once
 
 #include "common.cuh"
@@ -201,47 +202,14 @@ __device__ __forceinline__ void commit_lanczos(T* sc) {
   sc[GAMMA] = sc[GAMMA1];
 }
 
-// The sum block_sum takes over a kThreads block whose thread t holds
-// v_t, here with v_{threadIdx.x R + r} = c[r] in a block of kThreads / R
-// threads, stored as Dot at partial[blockIdx.x]: each group of 32
-// consecutive v_t summed by a warp's shuffle tree, then the kThreads / 32
-// group sums by one more, in block_sum's order, so the bits are those of
-// a kThreads block.
-template <int R, typename T>
-__device__ __forceinline__ void store_spread_partial(const T (&c)[R],
-                                                     Dot* partial) {
-  constexpr int kGroups = kThreads / 32;
-  __shared__ T vals[kThreads];
-  __shared__ T group_sums[kGroups];
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < R; ++r) vals[threadIdx.x * R + r] = c[r];
-  __syncthreads();
-  for (int g = threadIdx.x >> 5; g < kGroups; g += blockDim.x >> 5) {
-    T v = vals[g * 32 + lane];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) group_sums[g] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    T v = lane < kGroups ? group_sums[lane] : T(0);
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) partial[blockIdx.x] = static_cast<Dot>(v);
-  }
-  __syncthreads();
-}
-
 // 1. Decide whether this iteration runs (GO, read by every later launch
 // of the iteration), then q and p, each written once, and the partials
-// of <u_k, q> (and of <u_k, u_k> with with_uu).  A block of kThreads / R
-// threads walks the 256-row chunks of a kThreads block a grid stride
-// apart, each thread R consecutive rows of a chunk, always the same R of
-// the 256, and keeps R running sums for them in the order the rows come,
-// those of the kThreads threads that would own one row each.  [lo, hi)
-// and [lo_a, hi_a) are the interiors of A's and A^H's offsets; with VEC,
-// pd, pda and the work rows are 16-byte aligned and n is a multiple of R.
+// of <u_k, q> (and of <u_k, u_k> with with_uu), on common.cuh's
+// pair_stencil in blocks of kThreads / R threads.  [lo, hi) and
+// [lo_a, hi_a) are the interiors of A's and A^H's offsets; with VEC, pd,
+// pda and the work rows are 16-byte aligned and n is a multiple of R.
 template <typename T, typename P, bool VEC>
-__global__ void __launch_bounds__(kThreads / rows_per_thread<P>())
+__global__ void __launch_bounds__(kThreads / kPairRows)
 two_sided_stencil(const P* __restrict__ pd,
                   const long long* __restrict__ offsets, int nd,
                   const P* __restrict__ pda,
@@ -249,67 +217,19 @@ two_sided_stencil(const P* __restrict__ pd,
                   long long lo, long long hi, long long lo_a, long long hi_a,
                   T* __restrict__ work, Dot* __restrict__ partial,
                   const T* sc, int* st, long long n, int cap, int with_uu) {
-  constexpr int R = rows_per_thread<P>();
   const int it0 = st[IT];
   const bool go = st[STATUS] == RUNNING && it0 < cap;
   if (blockIdx.x == 0 && threadIdx.x == 0) st[GO] = go ? 1 : 0;
   if (!go) return;
-  __shared__ long long offs[kDiaTile];
-  __shared__ long long offs_a[kDiaTile];
-  if (nd <= kDiaTile) stage_offsets(offs, offsets, nd);
-  if (nda <= kDiaTile) stage_offsets(offs_a, offsets_a, nda);
-  __syncthreads();
-  const T* vk = row(work, V0 + cur(it0), n);
   const T* uk = row(work, U0 + cur(it0), n);
-  const T* vkm1 = row(work, V0 + prev(it0), n);
-  const T* ukm1 = row(work, U0 + prev(it0), n);
-  T* q = row(work, V0 + next(it0), n);
-  T* p = row(work, U0 + next(it0), n);
-  const T gamma = sc[GAMMA];
-  const T beta = sc[BETA];
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  T suq[R];
-  T suu[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) suq[r] = suu[r] = T(0);
-  for (long long base = static_cast<long long>(blockIdx.x) * kThreads;
-       base < n; base += stride) {
-    const long long i0 = base + threadIdx.x * R;
-    T aq[R];
-    T ap[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) aq[r] = ap[r] = T(0);
-    dia_rows<R, VEC>(pd, offsets, nd, offs, vk, i0, n, lo, hi, VEC, aq);
-    dia_rows<R, VEC>(pda, offsets_a, nda, offs_a, uk, i0, n, lo_a, hi_a, VEC,
-                     ap);
-    if (i0 < n) {
-      const long long left = n - i0;
-      T vm[R];
-      T um[R];
-      T uc[R];
-      load_rows<VEC>(vkm1 + i0, left, vm);
-      load_rows<VEC>(ukm1 + i0, left, um);
-      load_rows<VEC>(uk + i0, left, uc);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        // q = A v_k - gamma v_{k-1} as one fused multiply-add
-        aq[r] = fused_madd(-gamma, vm[r], aq[r]);
-        ap[r] = fused_madd(-beta, um[r], ap[r]);
-      }
-      store_rows<VEC>(q + i0, left, aq);
-      store_rows<VEC>(p + i0, left, ap);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r < left) {
-          suq[r] = fused_madd(uc[r], aq[r], suq[r]);
-          suu[r] = fused_madd(uc[r], uc[r], suu[r]);
-        }
-      }
-    }
-  }
   const int nparts = gridDim.x;
-  store_spread_partial(suq, partial + PUQ * nparts);
-  if (with_uu) store_spread_partial(suu, partial + PUU * nparts);
+  pair_stencil<T, P, VEC>(
+      pd, offsets, nd, pda, offsets_a, nda, lo, hi, lo_a, hi_a,
+      row(work, V0 + cur(it0), n), uk, row(work, V0 + prev(it0), n),
+      sc[GAMMA], row(work, U0 + prev(it0), n), sc[BETA], uk,
+      row(work, V0 + next(it0), n), row(work, U0 + next(it0), n),
+      partial + PUQ * nparts, with_uu ? partial + PUU * nparts : nullptr, n,
+      NoRows{});
 }
 
 // 2. The head and the Lanczos rows of a method's fused launch: alpha =
@@ -482,7 +402,7 @@ int steps(const P* pd, const long long* offs, int nd, const P* pda,
           long long lo_a, long long hi_a, T* work, Dot* partial, T* sc,
           int* st, long long n, int grid, int flag, int iters, int cap,
           cudaStream_t s) {
-  constexpr int kStencilThreads = kThreads / rows_per_thread<P>();
+  constexpr int kStencilThreads = kThreads / kPairRows;
   for (int j = 0; j < iters; ++j) {
     two_sided_stencil<T, P, VEC><<<grid, kStencilThreads, 0, s>>>(
         pd, offs, nd, pda, offs_a, nda, lo, hi, lo_a, hi_a, work, partial,
@@ -508,7 +428,7 @@ int iterate(const void* pd_, const void* offsets_, int nd, const void* pda_,
             long long lo_a, long long hi_a, void* work_, void* partial_,
             void* sc_, void* st_, long long n, int grid, int flag, int iters,
             int cap, void* stream) {
-  constexpr int R = rows_per_thread<P>();
+  constexpr int R = kPairRows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const P* pd = static_cast<const P*>(pd_);
   const long long* offs = static_cast<const long long*>(offsets_);

@@ -1,7 +1,7 @@
 // Helpers shared by the port's CUDA kernels: element conversions, the
-// masked DIA stencil row, the wide DIA rows of dia_spmv.cu, trunc_dia.cu,
-// the two-sided stencil of bilanczos.cuh and the Arnoldi stencil of
-// arnoldi.cuh, and block-wide sums whose
+// masked DIA stencil row, the wide DIA rows of dia_spmv.cu, trunc_dia.cu
+// and the Arnoldi stencil of arnoldi.cuh, the Lanczos pair stencil of
+// bilanczos.cuh and ssy.cuh on those rows, and block-wide sums whose
 // order is fixed by the grid and block shape alone, so that two runs of a
 // kernel give the same bits.
 #pragma once
@@ -480,6 +480,141 @@ __device__ __forceinline__ void sum_partial_rows(const T* partial, int nparts,
     }
     __syncthreads();
   }
+}
+
+// The threads of a block of the one-row-a-thread grid whose order the
+// wide-row Lanczos stencil's dots keep.
+constexpr int kRowBlock = 256;
+
+// The sum block_sum takes over a kRowBlock block whose thread t holds
+// v_t, here with v_{threadIdx.x R + r} = c[r] in a block of kRowBlock / R
+// threads, stored as D at partial[blockIdx.x]: each group of 32
+// consecutive v_t summed by a warp's shuffle tree, then the kRowBlock / 32
+// group sums by one more, in block_sum's order, so the bits are those of
+// a kRowBlock block.
+template <int R, typename T, typename D>
+__device__ __forceinline__ void store_spread_partial(const T (&c)[R],
+                                                     D* partial) {
+  constexpr int kGroups = kRowBlock / 32;
+  __shared__ T vals[kRowBlock];
+  __shared__ T group_sums[kGroups];
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) vals[threadIdx.x * R + r] = c[r];
+  __syncthreads();
+  for (int g = threadIdx.x >> 5; g < kGroups; g += blockDim.x >> 5) {
+    T v = vals[g * 32 + lane];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) group_sums[g] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    T v = lane < kGroups ? group_sums[lane] : T(0);
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) partial[blockIdx.x] = static_cast<D>(v);
+  }
+  __syncthreads();
+}
+
+// The rows a thread owns in pair_stencil: two, whatever the types.  The
+// dot order fixes the grid at one block per 256 rows a grid stride apart
+// (8 blocks an SM at 128^3), so a thread owning 16 bytes of f32 diagonals
+// (four rows) left 16 warps an SM; two rows keep 32, as f64 has them
+// (PERF.md section 6).
+constexpr int kPairRows = 2;
+
+// No row updates beside a pair stencil's products.
+struct NoRows {
+  __device__ __forceinline__ void operator()(long long, long long) const {}
+};
+
+// The pair of products of a Lanczos-type process on the wide rows,
+//   q = A xa - cq qm,  p = A^H xh - cp pm,
+// each written once, with the block partials of <d, q> (and of <d, d>
+// where partial_dd is not null), stored as D.  The two-sided process
+// (bilanczos.cuh) takes xa = v_k, xh = u_k, d = u_k; the Saunders-Simon-
+// Yip process (ssy.cuh) xa = u_k, xh = v_k, d = v_k; both qm = v_{k-1},
+// pm = u_{k-1}.  A block of kRowBlock / R threads walks the kRowBlock-row
+// chunks of a kRowBlock-thread block a grid stride apart, each thread R
+// consecutive rows of a chunk, always the same R of the chunk, and keeps R
+// running sums for them in the order the rows come, those of the
+// kRowBlock threads that would own one row each; store_spread_partial
+// sums the block's partial in that block's shuffle tree.  So q, p and the
+// dots are bit for bit those of a one-row-a-thread grid.  [lo, hi) and
+// [lo_a, hi_a) are the interiors of A's and A^H's offsets; with VEC, pd,
+// pda and the vectors are 16-byte aligned and n is a multiple of R.
+// rows(i0, left) runs the caller's row updates on the thread's R rows
+// (left of them below n) after q and p are stored.
+template <typename T, typename P, bool VEC, typename D, typename Rows>
+__device__ __forceinline__ void pair_stencil(
+    const P* __restrict__ pd, const long long* __restrict__ offsets, int nd,
+    const P* __restrict__ pda, const long long* __restrict__ offsets_a,
+    int nda, long long lo, long long hi, long long lo_a, long long hi_a,
+    const T* xa, const T* xh, const T* qm, T cq, const T* pm, T cp,
+    const T* d, T* q, T* p, D* partial_dq, D* partial_dd, long long n,
+    const Rows& rows) {
+  constexpr int R = kPairRows;
+  // In f32 the rows read beside the products are loaded before them, in
+  // flight with the diagonals; in f64 after them: each order was the
+  // faster by 9 to 12 us a call at 128^3 on an H100 (PERF.md section 6).
+  constexpr bool kRowsFirst = sizeof(T) == 4;
+  __shared__ long long offs[kDiaTile];
+  __shared__ long long offs_a[kDiaTile];
+  if (nd <= kDiaTile) stage_offsets(offs, offsets, nd);
+  if (nda <= kDiaTile) stage_offsets(offs_a, offsets_a, nda);
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * kRowBlock;
+  T sdq[R];
+  T sdd[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) sdq[r] = sdd[r] = T(0);
+  for (long long base = static_cast<long long>(blockIdx.x) * kRowBlock;
+       base < n; base += stride) {
+    const long long i0 = base + threadIdx.x * R;
+    const long long left = n - i0;
+    T aq[R];
+    T ap[R];
+    T qmv[R];
+    T pmv[R];
+    T dv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) aq[r] = ap[r] = T(0);
+    if constexpr (kRowsFirst) {
+      if (i0 < n) {
+        load_rows<VEC>(qm + i0, left, qmv);
+        load_rows<VEC>(pm + i0, left, pmv);
+        load_rows<VEC>(d + i0, left, dv);
+      }
+    }
+    dia_rows<R, VEC>(pd, offsets, nd, offs, xa, i0, n, lo, hi, VEC, aq);
+    dia_rows<R, VEC>(pda, offsets_a, nda, offs_a, xh, i0, n, lo_a, hi_a, VEC,
+                     ap);
+    if (i0 < n) {
+      if constexpr (!kRowsFirst) {
+        load_rows<VEC>(qm + i0, left, qmv);
+        load_rows<VEC>(pm + i0, left, pmv);
+        load_rows<VEC>(d + i0, left, dv);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // q = A xa - cq qm as one fused multiply-add
+        aq[r] = fused_madd(-cq, qmv[r], aq[r]);
+        ap[r] = fused_madd(-cp, pmv[r], ap[r]);
+      }
+      store_rows<VEC>(q + i0, left, aq);
+      store_rows<VEC>(p + i0, left, ap);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < left) {
+          sdq[r] = fused_madd(dv[r], aq[r], sdq[r]);
+          sdd[r] = fused_madd(dv[r], dv[r], sdd[r]);
+        }
+      }
+      rows(i0, left);
+    }
+  }
+  store_spread_partial(sdq, partial_dq);
+  if (partial_dd != nullptr) store_spread_partial(sdd, partial_dd);
 }
 
 }  // namespace ktt

@@ -17,13 +17,25 @@
 // d_bar and write v_{k+1}, u_{k+1}, x, y, r, z, w_k and d_bar: (56 + 76)
 // B per row, 132 B.
 //
-// Design: the launches of ssy.cuh, with
-//   3. the update: the QR step of T_{k+1,k} and both sweeps' scalars in
-//      thread 0 of every block; w_k into the buffer of w_{k-2}, y, r, x,
-//      z and d_bar row by row; a zero norm zeroes the new basis vector
-// and one finishing launch after the loop for the composition.  Per
-// iteration this design moves (56 + 24) + 24 + (68 + 32) B per row in
-// f32: 204 B.
+// Design: the launches of ssy.cuh, each row update in the earliest pass
+// that has its scalars and already reads its vectors:
+//   1. the stencil: q, p, the partials of <v_k, q>; the least-norm x and
+//      d_bar, whose coefficients (x_add c_{k-1}, x_add s_{k-1}, c_{k-1},
+//      s_{k-1}) come from the committed state alone (Usymlqr::pre in
+//      thread 0 of every block, Usymlqr::early_rows on each thread's R
+//      rows) and whose vector v_k the pass already reads
+//   2. alpha
+//   3. the update: the QR step of T_{k+1,k} (delta from
+//      sym_givens(delta_bar, beta_{k+1})) and both sweeps' scalars in
+//      thread 0 of every block; w_k into the buffer of w_{k-2}, y and r
+//      (the least-squares sweep needs delta, phi and the r factor), and
+//      z, which reads w_{k-1} as w_k does (Usymlqr::late_rows, 16 bytes
+//      of each vector a thread); a zero norm zeroes the new basis vector
+//   4. the commit
+// and one finishing launch after the loop for the composition.  Each
+// row's products and sums are those of the one-row update, in the same
+// order.  Per iteration this design moves (80 + 16) + 24 + (16 + 40) B
+// per row in f32: 176 B.
 #include "ssy.cuh"
 
 namespace {
@@ -53,10 +65,34 @@ struct Usymlqr {
   // r starts as b when the least-squares sweep runs
   static int b_row(int flag) { return flag & 1 ? static_cast<int>(R) : -1; }
 
+  static constexpr bool kSplit = true;
+
+  // The least-norm sweep's row coefficients, from the committed state,
+  // and what the step takes from them (pallas_fused.py:8104-8114).
+  template <typename T>
+  struct Pre {
+    T zeta_km1, x_add, xa, xb, c_km1, s_km1;
+    int aln, is1;
+  };
+
+  template <typename T>
+  __device__ static Pre<T> pre(const T* sc, const int* st, int it,
+                               int flag) {
+    const bool aln = (flag & 2) && st[SLN] == 0;
+    const T c_km1 = sc[C_KM1];
+    const T s_km1 = sc[S_KM1];
+    const T zeta_km1 = aln && it >= 2 ? sc[ETA_KM1] / safe(sc[DELTA_KM1])
+                                      : sc[ZETA_KM1];
+    const T x_add = aln && it >= 2 ? zeta_km1 : T(0);
+    return Pre<T>{zeta_km1, x_add, x_add * c_km1, x_add * s_km1, c_km1,
+                  s_km1, aln ? 1 : 0, it == 1 ? 1 : 0};
+  }
+
+  // The coefficients of the rows that wait for alpha and the norms.
   template <typename T>
   struct Coef {
-    T lam_km1, eps_km2, d, yfac, rfac, s2, xa, xb, zfac, c_km1, s_km1;
-    int als, aln, is1;
+    T lam_km1, eps_km2, d, yfac, rfac, s2, zfac;
+    int als;
   };
 
   // beta_1 = ||b||, gamma_1 = ||c||, the tolerances, the sweeps' flags and
@@ -88,7 +124,6 @@ struct Usymlqr {
                                  T beta1, T gamma1, int it, int flag, T* nsc,
                                  int* nst) {
     const bool ls = flag & 1;
-    const bool ln = flag & 2;
     const bool is1 = it == 1;
     const bool ge2 = it >= 2;
     const T gamma = sc[GAMMA];
@@ -122,14 +157,13 @@ struct Usymlqr {
                           : st[INCON];
 
     // least-norm sweep
-    const bool aln = ln && st[SLN] == 0;
-    const T zeta_km1 = aln && ge2 ? sc[ETA_KM1] / safe(sc[DELTA_KM1])
-                                  : sc[ZETA_KM1];
+    const Pre<T> e = pre<T>(sc, st, it, flag);
+    const bool aln = e.aln;
+    const T zeta_km1 = e.zeta_km1;
     const T zeta_km2 = aln && it >= 3 ? sc[ZETA_KM1] : sc[ZETA_KM2];
     const T eta =
         aln ? (is1 ? gamma : -eps_km2 * zeta_km2 - lam_km1 * zeta_km1)
             : sc[ETA_KM1];
-    const T x_add = aln && ge2 ? zeta_km1 : T(0);
     const T mu = gamma * (s_km2 * zeta_km2 - c_km2 * c_km1 * zeta_km1)
                  + alpha * s_km1 * zeta_km1;
     const T om = gamma1 * s_km1 * zeta_km1;
@@ -159,32 +193,73 @@ struct Usymlqr {
                     : incon == 1 ? INCONSISTENT : RUNNING;
     }
     return Coef<T>{lam_km1, eps_km2, safe(delta), (als ? T(1) : T(0)) * phi,
-                   rfac, sk * sk, x_add * c_km1, x_add * s_km1, x_add,
-                   c_km1, s_km1, als ? 1 : 0, aln ? 1 : 0, is1 ? 1 : 0};
+                   rfac, sk * sk, e.x_add, als ? 1 : 0};
   }
 
-  // w_k into the buffer of w_{k-2}; y and r (least squares); x, z and
-  // d_bar (least norm), from the old w_{k-1} (pallas_fused.py:8069-8144)
-  template <typename T>
-  __device__ static void update_row(T* work, const Coef<T>& k,
-                                    const Vecs<T>& v, int it0, long long n,
-                                    long long i) {
-    T* wkm2 = row(work, wkm2_row(it0), n);
-    T* x = row(work, X, n);
-    T* y = row(work, Y, n);
-    T* r = row(work, R, n);
-    T* z = row(work, Z, n);
-    T* dbar = row(work, DBAR, n);
-    const T w1 = row(work, wkm1_row(it0), n)[i];
-    const T w = (v.uk[i] - k.lam_km1 * w1 - k.eps_km2 * wkm2[i]) / k.d;
-    y[i] = y[i] + k.yfac * w;
-    if (k.als) r[i] = k.s2 * r[i] + k.rfac * v.q[i];
-    const T vi = v.vk[i];
-    const T di = dbar[i];
-    x[i] = x[i] + k.xa * di + k.xb * vi;
-    z[i] = z[i] - k.zfac * w1;
-    if (k.aln) dbar[i] = k.is1 ? vi : k.s_km1 * di - k.c_km1 * vi;
-    wkm2[i] = w;
+  // The least-norm x and d_bar on rows i0 .. i0 + NR - 1 (left of them
+  // below n), in the stencil's pass (pallas_fused.py:8115-8121)
+  template <int NR, bool VEC, typename T>
+  __device__ static void early_rows(T* work, const Pre<T>& k, int it0,
+                                    long long n, long long i0,
+                                    long long left) {
+    T* x = row(work, X, n) + i0;
+    T* dbar = row(work, DBAR, n) + i0;
+    T xv[NR];
+    T dv[NR];
+    T vv[NR];
+    load_rows<VEC>(x, left, xv);
+    load_rows<VEC>(dbar, left, dv);
+    load_rows<VEC>(row(work, V0 + cur(it0), n) + i0, left, vv);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const T vi = vv[r];
+      const T di = dv[r];
+      xv[r] = xv[r] + k.xa * di + k.xb * vi;
+      dv[r] = k.is1 ? vi : k.s_km1 * di - k.c_km1 * vi;
+    }
+    store_rows<VEC>(x, left, xv);
+    if (k.aln) store_rows<VEC>(dbar, left, dv);
+  }
+
+  // w_k into the buffer of w_{k-2}; y and r (least squares); z (least
+  // norm), from the old w_{k-1}, on rows i0 .. i0 + NR - 1 (left of them
+  // below n), before v_{k+1} goes over q (pallas_fused.py:8069-8144)
+  template <int NR, bool VEC, typename T>
+  __device__ static void late_rows(T* work, const Coef<T>& k, int it0,
+                                   long long n, long long i0,
+                                   long long left) {
+    T* wkm2 = row(work, wkm2_row(it0), n) + i0;
+    T* y = row(work, Y, n) + i0;
+    T* r = row(work, R, n) + i0;
+    T* z = row(work, Z, n) + i0;
+    T w1[NR];
+    T w2[NR];
+    T uv[NR];
+    T qv[NR];
+    T yv[NR];
+    T rv[NR];
+    T zv[NR];
+    load_rows<VEC>(row(work, wkm1_row(it0), n) + i0, left, w1);
+    load_rows<VEC>(wkm2, left, w2);
+    load_rows<VEC>(row(work, U0 + cur(it0), n) + i0, left, uv);
+    load_rows<VEC>(y, left, yv);
+    load_rows<VEC>(z, left, zv);
+    if (k.als) {
+      load_rows<VEC>(row(work, V0 + next(it0), n) + i0, left, qv);
+      load_rows<VEC>(r, left, rv);
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const T w = (uv[j] - k.lam_km1 * w1[j] - k.eps_km2 * w2[j]) / k.d;
+      yv[j] = yv[j] + k.yfac * w;
+      if (k.als) rv[j] = k.s2 * rv[j] + k.rfac * qv[j];
+      zv[j] = zv[j] - k.zfac * w1[j];
+      w2[j] = w;
+    }
+    store_rows<VEC>(y, left, yv);
+    if (k.als) store_rows<VEC>(r, left, rv);
+    store_rows<VEC>(z, left, zv);
+    store_rows<VEC>(wkm2, left, w2);
   }
 
   // After the loop: x = x^L + r, y = y + z (pallas_fused.py:8152-8155).

@@ -4652,13 +4652,17 @@ bilqr_dia_fused.launches = 0
 def _ssy_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
                rtol, itmax, nrows, nsc, nst, flag, finish, scalars=None):
     """The buffers and launches shared by the USYMLQ, USYMQR, TriLQR,
-    USYMLQR and TriCG kernels (``csrc/ssy.cuh``): the work rows (v and u
-    in three buffers each, then the method's own vectors), the block
-    partials, the scalars (``scalars``: the method's own host values, by
-    slot) and the ints with their staging copies.  Returns (work, sc,
+    USYMLQR, TriCG and TriMR kernels (``csrc/ssy.cuh``): the work rows (v
+    and u in three buffers each, then the method's own vectors), the
+    block partials, the scalars (``scalars``: the method's own host
+    values, by slot) and the ints with their staging copies; the stencil
+    also takes the interiors of A's and Aᴴ's offsets, read on the host
+    once per solve (kept on the offsets tensors).  Returns (work, sc,
     st)."""
     pair = _pair_adjoint(kind.upper(), b, pd, pd_adj, offsets_adj)
     n, grid = b.shape[0], _grid(b)
+    spans = (*_tensor_span(offsets, n)[:2],
+             *_tensor_span(offsets_adj, n)[:2])
     sc = _host_scalars(nsc, b, {0: atol, 1: rtol, **(scalars or {})})
     # the init launch writes every row and every state slot
     work = torch.empty((nrows, n), dtype=b.dtype, device=b.device)
@@ -4670,8 +4674,8 @@ def _ssy_fused(wrapper, kind, pd, pd_adj, offsets, offsets_adj, b, c, atol,
          (b.data_ptr(), c.data_ptr()) + bufs + (int(flag),),
          f"ktt_{kind}_dia_iterate_{pair}",
          (pd.data_ptr(), offsets.data_ptr(), pd.shape[0], pd_adj.data_ptr(),
-          offsets_adj.data_ptr(), pd_adj.shape[0]) + bufs + (int(flag),),
-         st, itmax)
+          offsets_adj.data_ptr(), pd_adj.shape[0]) + spans + bufs
+         + (int(flag),), st, itmax)
     if finish:
         _finish(wrapper, f"ktt_{kind}_dia_finish_{pair[:3]}", b,
                 (work.data_ptr(), sc.data_ptr(), st.data_ptr(), n, grid))

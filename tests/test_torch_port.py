@@ -362,6 +362,29 @@ def test_ssy_wrapper_slots_match_kernel_enums(source, slots):
     assert _enum_values_in("ssy.cuh", "Part", {})["NPART"] == cf._SSY_NPART
 
 
+_CTYPES = {"const void*": _build._P, "void*": _build._P, "int": _build._I,
+           "long long": _build._L}
+
+
+@pytest.mark.parametrize("kind", _build._SSY)
+def test_ssy_iterate_arguments_match_signature(kind):
+    """Each SSY kernel's iterate entry point, as ``ssy.cuh``'s
+    KTT_SSY_ITERATE defines it, takes the arguments ``_build`` binds, in
+    order (the interiors of A and Aᴴ after their diagonals): a pointer
+    bound as an int would be cut to 32 bits."""
+    text = (ROOT / "krylov_tpu_torch" / "csrc" / "ssy.cuh").read_text()
+    macro = re.search(r"#define KTT_SSY_ITERATE\(NAME, T, P, METHOD\)"
+                      r"(.*?)\{", text, re.S).group(1).replace("\\", " ")
+    params = re.search(r"NAME\((.*)\)", macro, re.S).group(1).split(",")
+    got = tuple(_CTYPES[" ".join(q.split()[:-1])] for q in params)
+    for pair in _build._PAIRS:
+        assert _build._SIGNATURES[f"ktt_{kind}_dia_iterate_{pair}"] == got
+    names = [q.split()[-1] for q in params]
+    assert names[6:10] == ["lo", "hi", "lo_a", "hi_a"]
+    src = (ROOT / "krylov_tpu_torch" / "csrc" / f"{kind}_dia.cu").read_text()
+    assert f"KTT_SSY_ITERATE(ktt_{kind}_dia_iterate_f32_f32" in src
+
+
 @pytest.mark.parametrize("source,slots", [
     ("lsqr_dia.cu", {"ScalarSlot": {"RNORM": cf._LQ_RNORM,
                                     "ARNORM": cf._LQ_ARNORM,
@@ -1661,49 +1684,148 @@ def _shifted_card(N, dtype):
             offsets_tensor(offa, "cuda"), b, c)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kernel", ["usymlq", "usymlq_lq", "usymqr",
-                                    "trilqr", "trilqr_lq", "usymlqr",
-                                    "usymlqr_ls", "usymlqr_ln",
-                                    "usymlq_zero_rhs", "usymlqr_zero_rhs"])
-def test_ssy_kernels_match_plain_on_card(kernel, dtype):
-    """The USYMLQ, USYMQR, TriLQR and USYMLQR kernels against their plain
-    versions on the 16^3 convection-diffusion stencil with 0.5 on its main
-    diagonal: same status and flags, niter within ±max(2, 10%), x (and y)
-    to 1e-2 of max(|x|, |b|) in f32 and to 1e-6 in f64 (the scale of b,
-    as USYMLQR's x holds the least-squares residual, near 0, when ls runs
-    alone; the SSY process runs without reorthogonalisation, and its f64
-    stops move with the order of the sums: tests/test_torch_usym.py says
-    how far), as chip_smoke.py holds them at full width."""
-    _card()
-    pd, pda, ot, ota, b, c = _shifted_card(16, dtype)
-    if kernel.endswith("zero_rhs"):
-        b = torch.zeros_like(b)
-    rtol = 1e-5 if dtype == torch.float32 else 1e-8
-    name = kernel.split("_")[0]
-    kw = {"usymlq_lq": {"transfer_to_usymcg": False},
-          "trilqr_lq": {"transfer_to_usymcg": False},
-          "usymlqr_ls": {"ln": False},
-          "usymlqr_ln": {"ls": False}}.get(kernel, {})
-    wrapper = getattr(cf, name + "_dia_fused")
-    ref = getattr(cf, name + "_dia_fused_ref")
-    args = (pd, pda, ot, ota, b, c, 0.0, rtol, 2 * b.shape[0])
-    before = wrapper.launches
-    k = wrapper(*args, **kw)
-    assert wrapper.launches > before
-    r = ref(*args, **kw)
-    nvec = 2 if name in ("trilqr", "usymlqr") else 1
+def _hold_ssy(k, r, nvec, b, tol):
+    """Same status and flags, niter within ±max(2, 10%), and each
+    solution to tol of max(|x|, |b|) (the scale of b, as USYMLQR's x
+    holds the least-squares residual, near 0, when ls runs alone)."""
     kints = [i for v in k[nvec:] if v.dtype == torch.int32
              for i in v.reshape(-1).tolist()]
     rints = [i for v in r[nvec:] if v.dtype == torch.int32
              for i in v.reshape(-1).tolist()]
     assert kints[1:] == rints[1:]
     assert abs(kints[0] - rints[0]) <= max(2, 0.1 * rints[0])
-    tol = 1e-2 if dtype == torch.float32 else 1e-6
     for v, w in zip(k[:nvec], r[:nvec]):
         scale = max(float(w.abs().max()), float(b.abs().max()))
         assert float((v - w).abs().max()) <= tol * scale
+
+
+_SSY_KW = {"usymlq_lq": {"transfer_to_usymcg": False},
+           "trilqr_lq": {"transfer_to_usymcg": False},
+           "usymlqr_ls": {"ln": False},
+           "usymlqr_ln": {"ls": False}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 15, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["usymlq", "usymlq_lq", "usymqr",
+                                    "trilqr", "trilqr_lq", "usymlqr",
+                                    "usymlqr_ls", "usymlqr_ln",
+                                    "usymlq_zero_rhs", "usymlqr_zero_rhs"])
+def test_ssy_kernels_match_plain_on_card(kernel, dtype, N):
+    """The USYMLQ, USYMQR, TriLQR and USYMLQR kernels against their plain
+    versions on the N^3 convection-diffusion stencil with 0.5 on its main
+    diagonal (15^3 and 17^3 end in a partial group of the R rows a
+    stencil thread owns, and their odd n leaves the work rows off a
+    16-byte boundary, so the stencil takes its scalar path): same status
+    and flags, niter within ±max(2, 10%), x (and y) to 1e-2 of max(|x|,
+    |b|) in f32 and to 1e-6 in f64 (the SSY process runs without
+    reorthogonalisation, and its f64 stops move with the order of the
+    sums: tests/test_torch_usym.py says how far), as chip_smoke.py holds
+    them at full width."""
+    _card()
+    pd, pda, ot, ota, b, c = _shifted_card(N, dtype)
+    if kernel.endswith("zero_rhs"):
+        b = torch.zeros_like(b)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-8
+    name = kernel.split("_")[0]
+    kw = _SSY_KW.get(kernel, {})
+    wrapper = getattr(cf, name + "_dia_fused")
+    ref = getattr(cf, name + "_dia_fused_ref")
+    args = (pd, pda, ot, ota, b, c, 0.0, rtol, 2 * b.shape[0])
+    before = wrapper.launches
+    k = wrapper(*args, **kw)
+    assert wrapper.launches > before
+    _hold_ssy(k, ref(*args, **kw), 2 if name in ("trilqr", "usymlqr") else 1,
+              b, 1e-2 if dtype == torch.float32 else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kernel", ["trilqr", "usymlqr", "usymlqr_ls"])
+def test_ssy_narrow_diagonals_match_plain_on_card(kernel, pdt):
+    """TriLQR and USYMLQR with bf16 and f16 diagonals (f32 vectors; the
+    stencil reads two 2-byte entries of a diagonal at a time) against
+    their plain versions on the same diagonals at 16^3, held as the f32
+    case of test_ssy_kernels_match_plain_on_card."""
+    _card()
+    pd, pda, ot, ota, b, c = _shifted_card(16, torch.float32)
+    pd, pda = pd.to(pdt), pda.to(pdt)
+    name = kernel.split("_")[0]
+    kw = _SSY_KW.get(kernel, {})
+    args = (pd, pda, ot, ota, b, c, 0.0, 1e-5, 2 * b.shape[0])
+    wrapper = getattr(cf, name + "_dia_fused")
+    before = wrapper.launches
+    k = wrapper(*args, **kw)
+    assert wrapper.launches > before
+    _hold_ssy(k, getattr(cf, name + "_dia_fused_ref")(*args, **kw), 2, b,
+              1e-2)
+
+
+_SSY_ALL = {"usymlq": 1, "usymqr": 1, "trilqr": 2, "usymlqr": 2,
+            "tricg": 2, "trimr": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", list(_SSY_ALL))
+def test_ssy_scalar_path_gives_the_vector_paths_bits_on_card(kernel, dtype):
+    """The six SSY kernels with diagonals one element past a 16-byte
+    boundary (the stencil's scalar path) give the bits of the same solve
+    on aligned diagonals (its 16-byte path): both paths sum each row's
+    diagonals and the dots in one order.  16^3 convection-diffusion + 0.5
+    I; TriCG and TriMR with tau = 1, nu = -1."""
+    _card()
+    pd, pda, ot, ota, b, c = _shifted_card(16, dtype)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-8
+    tri = (1.0, -1.0) if kernel in ("tricg", "trimr") else ()
+    wrapper = getattr(cf, kernel + "_dia_fused")
+    tail = tri + (0.0, rtol, 2 * b.shape[0])
+    k = wrapper(pd, pda, ot, ota, b, c, *tail)
+    u = wrapper(_unaligned(pd), _unaligned(pda), ot, ota, b, c, *tail)
+    for v, w in zip(k, u):
+        assert torch.equal(v, w)
+    assert int(k[_SSY_ALL[kernel]]) > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [16, 15])
+def test_ssy_stencil_matches_plain_step_on_card(N, dtype):
+    """q, p and alpha of the SSY stencil and alpha launches against the
+    plain SSY step (``_ssy_ref``) over the first four iterations, on the
+    N^3 convection-diffusion stencil + 0.5 I: after k iterations of the
+    TriLQR kernel (no tolerance, so it runs k) its work rows hold
+    v_{k+1} = q / beta_{k+1} and u_{k+1} = p / gamma_{k+1}, and its
+    scalars alpha_k, beta_{k+1} and gamma_{k+1}; each within 1e-5
+    relative in f32 and 1e-12 in f64 of the plain step's (whose sums
+    take another order)."""
+    _card()
+    import types
+    pd, pda, ot, ota, b, c = _shifted_card(N, dtype)
+    slot = _enum_values_in("ssy.cuh", "SharedSlot", {})
+    rows = _enum_values_in("ssy.cuh", "Row", {})
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    one, zero = cf._scalar(1, b), cf._scalar(0, b)
+    bnorm, cnorm, v1, u1 = cf._ssy_start(b, c)
+    s = types.SimpleNamespace(vk=v1, uk=u1, vkm1=torch.zeros_like(b),
+                              ukm1=torch.zeros_like(b), beta=bnorm,
+                              gamma=cnorm, iter=cf._i32(0, b))
+    for k in range(1, 5):
+        q, p, alpha, beta1, gamma1 = cf._ssy_ref(pd, ot, pda, ota, s, one,
+                                                 zero)
+        work, sc, st = cf._ssy_fused(cf.trilqr_dia_fused, "trilqr", pd, pda,
+                                     ot, ota, b, c, 0.0, 0.0, k, 11,
+                                     cf._TL_NSC, cf._TL_NST, 1, False)
+        assert int(st[cf._IT]) == k
+        got_q = work[rows["V0"] + k % 3] * sc[slot["BETA"]]
+        got_p = work[rows["U0"] + k % 3] * sc[slot["GAMMA"]]
+        assert _rel(got_q, q) <= tol and _rel(got_p, p) <= tol
+        assert abs(float(sc[slot["ALPHA"]] - alpha)) <= \
+            tol * max(abs(float(alpha)), 1.0)
+        vk1, uk1 = cf._ssy_next(q, p, beta1, gamma1, s.vk, s.uk, one)
+        s = types.SimpleNamespace(vk=vk1, uk=uk1, vkm1=s.vk, ukm1=s.uk,
+                                  beta=beta1, gamma=gamma1, iter=s.iter + 1)
 
 
 @pytest.mark.cuda
