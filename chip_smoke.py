@@ -1370,6 +1370,8 @@ def main():
                  {"ls": False}, 19, False),
                 ("usymlq b = 0", N, dt, "usymlq_dia", (0.0, rtol, 2 * n),
                  {"zero_rhs": True}, 10, False),
+                ("usymqr b = 0", N, dt, "usymqr_dia", (0.0, rtol, 2 * n),
+                 {"zero_rhs": True}, 11, False),
                 ("usymlqr b = 0", N, dt, "usymlqr_dia", (0.0, rtol, 2 * n),
                  {"zero_rhs": True}, 19, False)]
 

@@ -156,7 +156,8 @@ _SIGNATURES = {
        + (_P,) * 4 + (_L, _I, _I, _I, _I, _P)
        for k in _SSY for t in _PAIRS},
     **{f"ktt_{k}_dia_finish_{t}": (_P,) * 3 + (_L, _I, _P)
-       for k in ("usymlq", "trilqr", "usymlqr") for t in ("f32", "f64")},
+       for k in ("usymlq", "usymqr", "trilqr", "usymlqr")
+       for t in ("f32", "f64")},
     # the Golub-Kahan kernels (csrc/gk.cuh): (pd_adj, offsets_adj, nd_adj,
     # b, work, partial, sc, st, n, grid, flag, window, stream), (pd,
     # offsets, nd, pd_adj, offsets_adj, nd_adj, work, partial, sc, st, n,

@@ -27,11 +27,13 @@
 //                            <v_k, q> in the order of a one-row-a-thread
 //                            grid, so q, p and alpha are bit for bit those
 //                            of a one-row stencil; a split method
-//                            (Method::kSplit: TriLQR, USYMLQR) runs in the
-//                            same pass the row updates whose coefficients
-//                            come from the committed state alone
-//                            (Method::pre in thread 0 of every block,
-//                            Method::early_rows on the thread's rows)
+//                            (Method::kSplit: USYMLQ, USYMQR, TriLQR,
+//                            USYMLQR) runs in the same pass the row
+//                            updates whose coefficients come from the
+//                            committed state alone (Method::pre in thread
+//                            0 of every block, Method::early_rows on the
+//                            thread's rows; USYMQR's are the last
+//                            iteration's, staged by its step)
 //   2. ssy_alpha   (grid)    alpha = the sum of those partials in every
 //                            block (a fixed order, so every block holds
 //                            the same value); q -= alpha v_k,
@@ -43,13 +45,13 @@
 //                            the next state into the staging copy of the
 //                            scalar and int arrays; then the method's
 //                            row updates that need alpha or the norms
-//                            (Method::update_row a row at a time, or a
-//                            split method's Method::late_rows on 16 bytes
-//                            of each vector a thread), v_{k+1} =
-//                            q / beta_{k+1} and u_{k+1} = p / gamma_{k+1}
-//                            in place (where a norm is 0, or for TriCG
-//                            and TriMR at most eps^(3/4), as the method
-//                            says)
+//                            (Method::update_row a row at a time for
+//                            TriCG and TriMR, or a split method's
+//                            Method::late_rows on 16 bytes of each vector
+//                            a thread), v_{k+1} = q / beta_{k+1} and
+//                            u_{k+1} = p / gamma_{k+1} in place (where a
+//                            norm is 0, or for TriCG and TriMR at most
+//                            eps^(3/4), as the method says)
 //   4. ssy_commit  (1 block) the staging copy into the state, and the
 //                            iteration count
 // The state every block of launches 1 and 3 reads is only written by
@@ -161,10 +163,10 @@ ssy_init_vectors(const T* __restrict__ b, const T* __restrict__ c,
   }
 }
 
-// Method::kSplit where a method defines it (TriLQR, USYMLQR), else false:
-// its row updates split between the stencil's pass, from Method::pre's
-// coefficients (Method::early_rows), and the update's (Method::late_rows),
-// both on rows a thread owns several of.
+// Method::kSplit where a method defines it (USYMLQ, USYMQR, TriLQR,
+// USYMLQR), else false: its row updates split between the stencil's
+// pass, from Method::pre's coefficients (Method::early_rows), and the
+// update's (Method::late_rows), both on rows a thread owns several of.
 template <typename M, typename = void>
 struct splits {
   static constexpr bool value = false;
@@ -429,10 +431,11 @@ __device__ __forceinline__ void stage_state(const T* sc, const int* st,
 //   Method::init_scalars<T>(b_norm, c_norm, sc, st, flag)  (one thread)
 //   Method::step<T>(...)                                   (ssy_update)
 //   Method::finishes<T>(sc, st), Method::finish_row<T>(...) (finish)
-// and either Method::update_row<T>(...) (ssy_update, a row at a time) or,
-// with kSplit, Method::Pre<T>, Method::pre<T>(sc, st, it, flag) (one
-// thread of each block of ssy_stencil), Method::early_rows<R, VEC>(...)
-// (ssy_stencil) and Method::late_rows<R, VEC>(...) (ssy_update); the
+// and either Method::update_row<T>(...) (ssy_update, a row at a time:
+// TriCG, TriMR) or, with kSplit, Method::Pre<T>, Method::pre<T>(sc, st,
+// it, flag) (one thread of each block of ssy_stencil),
+// Method::early_rows<R, VEC>(...) (ssy_stencil) and
+// Method::late_rows<R, VEC>(...) (ssy_update); the
 // number of its own work rows (kRows), the row that starts as b
 // (b_row(flag), -1 for none), whether a zero norm keeps the old basis
 // vector (kKeep), and the ends of its scalar and int states (kNscState,
@@ -522,13 +525,14 @@ int iterate(const void* pd_, const void* offsets_, int nd, const void* pda_,
                                     grid, flag, iters, cap, s);
 }
 
-// After the loop: the method's final vector update, row by row.
+// After the loop: the method's final vector update, row by row (st
+// holds the iteration count and the final status).
 template <typename T, typename Method>
 __global__ void __launch_bounds__(kThreads)
 ssy_finish(T* __restrict__ work, const T* sc, const int* st, long long n) {
   if (!Method::template finishes<T>(sc, st)) return;
   for (long long i = first_row(); i < n; i += row_stride()) {
-    Method::template finish_row<T>(work, sc, n, i);
+    Method::template finish_row<T>(work, sc, st, n, i);
   }
 }
 

@@ -268,8 +268,8 @@ struct Trilqr {
     return st[CGFLAG] == 1;
   }
   template <typename T>
-  __device__ static void finish_row(T* work, const T* sc, long long n,
-                                    long long i) {
+  __device__ static void finish_row(T* work, const T* sc, const int*,
+                                    long long n, long long i) {
     T* x = row(work, X, n);
     x[i] = x[i] + sc[ZETABAR] * row(work, DBAR, n)[i];
   }

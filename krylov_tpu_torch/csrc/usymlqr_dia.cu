@@ -268,8 +268,8 @@ struct Usymlqr {
     return true;
   }
   template <typename T>
-  __device__ static void finish_row(T* work, const T*, long long n,
-                                    long long i) {
+  __device__ static void finish_row(T* work, const T*, const int*,
+                                    long long n, long long i) {
     T* x = row(work, X, n);
     T* y = row(work, Y, n);
     x[i] = x[i] + row(work, R, n)[i];

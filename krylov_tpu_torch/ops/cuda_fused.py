@@ -184,7 +184,7 @@ _BR_FLAGS = (5, 6, 7, 8, 9, 10, 3, 4, 12)
 # in the staging copy of its state, which the commit launch copies in
 _SSY_NPART, _SSY_X = 3, 6
 _UL_RNORM, _UL_NSC, _UL_NST = 13, 25, 7
-_UQ_RNORM, _UQ_ARNORM, _UQ_INCON, _UQ_NSC, _UQ_NST = 12, 13, 3, 25, 7
+_UQ_RNORM, _UQ_ARNORM, _UQ_INCON, _UQ_NSC, _UQ_NST = 12, 13, 3, 33, 7
 _TL_RNORM, _TL_NSC, _TL_NST = 18, 37, 25
 # TriLQR's int slots of lq_tol, lq_mach, cg_tol, cg_mach, qr_tol, qr_mach,
 # solved_primal, solved_dual and inconsistent_dual
@@ -4715,17 +4715,20 @@ usymlq_dia_fused.launches = 0
 
 def usymqr_dia_fused(pd, pd_adj, offsets, offsets_adj, b, c, atol, rtol,
                      itmax):
-    """Full USYMQR solve of min ‖b − Ax‖ for a DIA matrix.  Returns (x,
-    niter, rnorm, arnorm, status_code, inconsistent) as tensors on b's
-    device; the codes are 1 (solved), 2 (zero residual) and 8 (the
-    system is probably inconsistent)."""
+    """Full USYMQR solve of min ‖b − Ax‖ for a DIA matrix.
+
+    Each iteration's direction and x update runs in the next iteration's
+    stencil launch (it needs αₖ and βₖ₊₁), and one finishing launch
+    applies the last.  Returns (x, niter, rnorm, arnorm, status_code,
+    inconsistent) as tensors on b's device; the codes are 1 (solved), 2
+    (zero residual) and 8 (the system is probably inconsistent)."""
     _check_pair(pd, offsets, b, c)
     if b.device.type == "cpu":
         return usymqr_dia_fused_ref(pd, pd_adj, offsets, offsets_adj, b, c,
                                     atol, rtol, itmax)
     work, sc, st = _ssy_fused(usymqr_dia_fused, "usymqr", pd, pd_adj,
                               offsets, offsets_adj, b, c, atol, rtol, itmax,
-                              9, _UQ_NSC, _UQ_NST, 0, False)
+                              9, _UQ_NSC, _UQ_NST, 0, True)
     return (work[_SSY_X].clone(), st[_IT], sc[_UQ_RNORM], sc[_UQ_ARNORM],
             st[_STATUS], st[_UQ_INCON])
 

@@ -1705,13 +1705,31 @@ _SSY_KW = {"usymlq_lq": {"transfer_to_usymcg": False},
            "usymlqr_ln": {"ls": False}}
 
 
+def _chunk_edge_rtol(ref, args, i_rnorm):
+    """An rtol at which the plain version's residual estimate first falls
+    below rtol ||b|| at iteration 64, the last of the first 64-iteration
+    chunk: the geometric mean of its estimates after 63 and 64
+    iterations (run with no tolerance), over ||b||.  The estimates before
+    it stay at least 4% above it on the shifted stencil at 15^3 to
+    17^3."""
+    pd, pda, ot, ota, b, c = args
+    r63, r64 = (float(ref(pd, pda, ot, ota, b, c, 0.0, 0.0, j)[i_rnorm])
+                for j in (63, 64))
+    return (r63 * r64) ** 0.5 / float(torch.linalg.norm(b))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [16, 15, 17])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kernel", ["usymlq", "usymlq_lq", "usymqr",
                                     "trilqr", "trilqr_lq", "usymlqr",
                                     "usymlqr_ls", "usymlqr_ln",
-                                    "usymlq_zero_rhs", "usymlqr_zero_rhs"])
+                                    "usymlq_zero_rhs", "usymlqr_zero_rhs",
+                                    "usymqr_zero_rhs",
+                                    *(f"{m}_{cap}"
+                                      for m in ("usymlq", "usymqr")
+                                      for cap in ("it1", "it2", "it3",
+                                                  "it64", "it65", "edge"))])
 def test_ssy_kernels_match_plain_on_card(kernel, dtype, N):
     """The USYMLQ, USYMQR, TriLQR and USYMLQR kernels against their plain
     versions on the N^3 convection-diffusion stencil with 0.5 on its main
@@ -1722,32 +1740,46 @@ def test_ssy_kernels_match_plain_on_card(kernel, dtype, N):
     |b|) in f32 and to 1e-6 in f64 (the SSY process runs without
     reorthogonalisation, and its f64 stops move with the order of the
     sums: tests/test_torch_usym.py says how far), as chip_smoke.py holds
-    them at full width."""
+    them at full width.  USYMLQ and USYMQR are also capped at 1, 2, 3, 64
+    and 65 iterations (no tolerance) and stopped by their tolerance at
+    iteration 64, the last of a 64-iteration chunk, with niter equal:
+    USYMQR's last direction and x update runs in the finishing launch,
+    USYMLQ's row updates in the stencil's pass."""
     _card()
     pd, pda, ot, ota, b, c = _shifted_card(N, dtype)
     if kernel.endswith("zero_rhs"):
         b = torch.zeros_like(b)
     rtol = 1e-5 if dtype == torch.float32 else 1e-8
-    name = kernel.split("_")[0]
+    name, cap = kernel.split("_")[0], kernel.split("_")[-1]
     kw = _SSY_KW.get(kernel, {})
     wrapper = getattr(cf, name + "_dia_fused")
     ref = getattr(cf, name + "_dia_fused_ref")
-    args = (pd, pda, ot, ota, b, c, 0.0, rtol, 2 * b.shape[0])
+    itmax, niter = 2 * b.shape[0], None
+    if cap.startswith("it"):
+        rtol, itmax = 0.0, int(cap[2:])
+        niter = itmax
+    elif cap == "edge":
+        rtol, niter = _chunk_edge_rtol(ref, (pd, pda, ot, ota, b, c), 2), 64
+    args = (pd, pda, ot, ota, b, c, 0.0, rtol, itmax)
     before = wrapper.launches
     k = wrapper(*args, **kw)
     assert wrapper.launches > before
-    _hold_ssy(k, ref(*args, **kw), 2 if name in ("trilqr", "usymlqr") else 1,
+    r = ref(*args, **kw)
+    if niter is not None:
+        assert int(k[1]) == int(r[1]) == niter
+    _hold_ssy(k, r, 2 if name in ("trilqr", "usymlqr") else 1,
               b, 1e-2 if dtype == torch.float32 else 1e-6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("kernel", ["trilqr", "usymlqr", "usymlqr_ls"])
+@pytest.mark.parametrize("kernel", ["trilqr", "usymlqr", "usymlqr_ls",
+                                    "usymlq", "usymqr"])
 def test_ssy_narrow_diagonals_match_plain_on_card(kernel, pdt):
-    """TriLQR and USYMLQR with bf16 and f16 diagonals (f32 vectors; the
-    stencil reads two 2-byte entries of a diagonal at a time) against
-    their plain versions on the same diagonals at 16^3, held as the f32
-    case of test_ssy_kernels_match_plain_on_card."""
+    """TriLQR, USYMLQR, USYMLQ and USYMQR with bf16 and f16 diagonals (f32
+    vectors; the stencil reads two 2-byte entries of a diagonal at a
+    time) against their plain versions on the same diagonals at 16^3,
+    held as the f32 case of test_ssy_kernels_match_plain_on_card."""
     _card()
     pd, pda, ot, ota, b, c = _shifted_card(16, torch.float32)
     pd, pda = pd.to(pdt), pda.to(pdt)
@@ -1758,8 +1790,8 @@ def test_ssy_narrow_diagonals_match_plain_on_card(kernel, pdt):
     before = wrapper.launches
     k = wrapper(*args, **kw)
     assert wrapper.launches > before
-    _hold_ssy(k, getattr(cf, name + "_dia_fused_ref")(*args, **kw), 2, b,
-              1e-2)
+    _hold_ssy(k, getattr(cf, name + "_dia_fused_ref")(*args, **kw),
+              2 if name in ("trilqr", "usymlqr") else 1, b, 1e-2)
 
 
 _SSY_ALL = {"usymlq": 1, "usymqr": 1, "trilqr": 2, "usymlqr": 2,

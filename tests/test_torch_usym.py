@@ -27,6 +27,7 @@ A few fixtures are degenerate and say so where they are tested.
 
 import dataclasses
 import itertools
+from types import SimpleNamespace
 
 import numpy as np
 import jax.numpy as jnp
@@ -43,6 +44,7 @@ from krylov_tpu.ops.dia import convdiff_dia as jconvdiff
 from krylov_tpu.solvers.usymlq import _trilqr_status as jtrilqr_status
 from krylov_tpu_torch.convert import dia_from_numpy
 from krylov_tpu_torch.ops import cuda_fused as tf
+from krylov_tpu_torch.ops.kops import sym_givens
 from krylov_tpu_torch.solvers.usymlq import _trilqr_status
 from test_torch_bilq import _adjoint_pair
 from test_torch_gmres import _rel, port
@@ -589,6 +591,96 @@ def test_plain_version_matches_jax_kernel(kernel, dtype, rhs):
         pdj, pdaj, D.offsets, offaj, jnp.asarray(b), jnp.asarray(c), 0.0,
         rtol, 400, interpret=True, **kw)
     _kernel_same(_kernel_out(rt_, nvec), _kernel_out(rj, nvec), dtype, b)
+
+
+def _usymqr_deferred(pd, pda, ot, ota, b, c, atol, rtol, itmax):
+    """USYMQR on its kernel's schedule (``csrc/usymqr_dia.cu``): v and u
+    each in three buffers and w in two, indexed by the 0-based iteration
+    count; each iteration's wₖ and x += ζₖ wₖ applied at the start of the
+    next iteration, from the ζₖ, λₖ₋₁, εₖ₋₂ and dₖ its step staged and
+    from its uₖ (the next iteration's uₖ₋₁), and the last one after the
+    loop, where no iteration follows.  The scalar step is the plain
+    version's, expression for expression.  Returns what
+    ``usymqr_dia_fused_ref`` returns."""
+    one, zero = tf._scalar(1, b), tf._scalar(0, b)
+    bnorm, gamma, v1, u1 = tf._ssy_start(b, c)
+    eps_lim = tf._scalar(atol, b) + tf._scalar(rtol, b) * bnorm
+    V = [v1, torch.zeros_like(b), torch.zeros_like(b)]
+    U = [u1, torch.zeros_like(b), torch.zeros_like(b)]
+    W = [torch.zeros_like(b), torch.zeros_like(b)]
+    x = torch.zeros_like(b)
+    beta, zetabar, rnorm = bnorm, bnorm, bnorm
+    c_km2 = s_km2 = c_km1 = s_km1 = kappa = arnorm = zero
+    incon = tf._i32(0, b)
+    status = torch.where(bnorm == 0, tf.ZERO_RESIDUAL, torch.where(
+        bnorm <= eps_lim, tf.SOLVED, tf.RUNNING)).to(torch.int32)
+    staged, it0 = None, 0
+
+    def apply(jt, x):
+        zeta, lam, eps, d = staged
+        w = (U[jt % 3] - lam * W[(jt + 1) % 2] - eps * W[jt % 2]) / d
+        W[jt % 2] = w
+        return x + zeta * w
+
+    while int(status) == tf.RUNNING and it0 < itmax:
+        if staged is not None:
+            x = apply(it0 - 1, x)
+        it = it0 + 1
+        s = SimpleNamespace(vk=V[it0 % 3], uk=U[it0 % 3],
+                            vkm1=V[(it0 + 2) % 3], ukm1=U[(it0 + 2) % 3],
+                            beta=beta, gamma=gamma, iter=tf._i32(it0, b))
+        q, p, alpha, beta1, gamma1 = tf._ssy_ref(pd, ot, pda, ota, s, one,
+                                                 zero)
+        eps_km2 = s_km2 * gamma if it >= 3 else zero
+        lbar_km1 = -c_km2 * gamma if it >= 3 else (gamma if it == 2
+                                                   else zero)
+        lam_km1 = c_km1 * lbar_km1 + s_km1 * alpha if it >= 2 else zero
+        dbar_k = s_km1 * lbar_km1 - c_km1 * alpha if it >= 2 else alpha
+        ck, sk, d_k = sym_givens(dbar_k, beta1)
+        staged = (ck * zetabar, lam_km1, eps_km2, tf._safe(d_k, one))
+        V[(it0 + 1) % 3], U[(it0 + 1) % 3] = tf._ssy_next(
+            q, p, beta1, gamma1, s.vk, s.uk, one)
+        rnorm = torch.abs(sk * zetabar)
+        arnorm = torch.abs(zetabar) * torch.sqrt(
+            dbar_k * dbar_k + (c_km1 * gamma1) ** 2)
+        if it == 1:
+            kappa = tf._scalar(atol, b) + tf._scalar(rtol, b) * arnorm
+        solved = rnorm <= eps_lim
+        incons = ~solved & (arnorm <= kappa)
+        status = torch.where(solved, tf.SOLVED, torch.where(
+            incons, tf.INCONSISTENT, tf.RUNNING)).to(torch.int32)
+        incon = incons.to(torch.int32)
+        c_km2, s_km2, c_km1, s_km1 = c_km1, s_km1, ck, sk
+        zetabar, beta, gamma = sk * zetabar, beta1, gamma1
+        it0 = it
+    if staged is not None:
+        x = apply(it0 - 1, x)
+    return x, tf._i32(it0, b), rnorm, arnorm, status, incon
+
+
+@pytest.mark.parametrize("itmax", [1, 2, 3, None, "zero_b"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_usymqr_deferred_schedule_matches_plain_version(itmax, dtype):
+    """The USYMQR kernel's schedule, its direction and x updates one
+    iteration late and the last one by the finishing launch, gives the
+    bits of ``usymqr_dia_fused_ref`` at 8³ on the shifted stencil: capped
+    at 1, 2 and 3 iterations, converged (itmax 400), and with b = 0,
+    where no iteration runs and nothing is pending."""
+    D, A, b, c = _shifted(dtype=dtype)
+    if itmax == "zero_b":
+        b, itmax = np.zeros_like(b), None
+    _, (pd, pda, ot, ota) = _adjoint_pair(D, A)
+    args = (pd, pda, ot, ota, _t(b), _t(c), 0.0, RTOL[dtype], itmax or 400)
+    got = _usymqr_deferred(*args)
+    want = tf.usymqr_dia_fused_ref(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if itmax is not None:
+        assert int(got[1]) == itmax
+    elif b.any():
+        assert int(got[4]) == tf.SOLVED and 3 < int(got[1]) < 400
+    else:
+        assert int(got[1]) == 0
 
 
 def test_krylov_solve_and_workspace():
